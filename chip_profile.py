@@ -1,0 +1,126 @@
+"""Where the time goes in the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_profile.py
+
+Builds the flagship system (barf_inn_llff at full width) on chip_smoke.py's
+synthetic 480x640 scene and profiles three steady windows with
+torch.profiler (CPU and CUDA activities):
+  train   10 train steps after 30 warm-up steps (K2 each);
+  refine  20 iterations of test-time pose refinement after 5 (K3 under
+          autograd, K4 with the weights frozen, Adam on one se(3));
+  render  one full-image render (150 chunks through K3).
+For each window it prints the wall time per unit (host clock,
+device-synced, taken without the profiler), the device-busy time per unit
+(the sum of the durations of all device kernels and copies in the trace),
+the idle share, the peak device memory, and the device time by kernel name.
+Every line names the card and its power limit. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+import chip_smoke as cs
+
+N_WARM_STEPS, N_TRAIN_STEPS = 30, 10
+N_WARM_REFINE, N_REFINE = 5, 20
+TOP = 12
+
+
+def device_time_by_name(prof):
+    """{kernel name: total device microseconds} over the trace's device
+    events. Annotation ranges that the profiler mirrors onto the device
+    track (``Optimizer.step#Adam.step``) span kernels already counted."""
+    from torch.autograd import DeviceType
+    by_name = defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and "#" not in evt.name:
+            by_name[evt.name] += evt.time_range.elapsed_us()
+    return by_name
+
+
+def short(name):
+    name = name.replace("(bool)0", "0").replace("(bool)1", "1").replace("void ", "")
+    return name if len(name) <= 76 else name[:73] + "..."
+
+
+def window(label, unit, n_units, fn):
+    """Run fn() once unprofiled (wall time) and once under the profiler
+    (device time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / n_units
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3 / n_units
+    cs.check(busy_ms > 0, "the profiler saw no device time")
+    ours = sum(t for n, t in by_name.items() if "niw::" in n) / 1e3 / n_units
+    print("profile {}: {:.2f} ms wall per {} (unprofiled), device busy {:.2f} ms, idle share "
+          "{:.1f}%; hand-written kernels {:.2f} ms, everything else {:.2f} ms; peak device "
+          "memory {:.2f} GB; card: {}".format(
+              label, wall_ms, unit, busy_ms, 100 * max(0.0, 1 - busy_ms / wall_ms), ours,
+              busy_ms - ours, peak_gb, cs.card_line()))
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+        print("  {:9.3f} ms per {}  {}".format(t / 1e3 / n_units, unit, short(name)))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
+        sys.exit(2)
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.flagship import flagship_options
+    from neural_invertible_warp_tpu_torch.models.engine import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    opt = flagship_options()
+    opt.data.image_size = list(cs.IMAGE_HW)
+    opt.output_root = os.path.join(cs.HERE, "build", "chip_profile_run")
+    process_options(opt)
+    H, W = cs.IMAGE_HW
+    trainer = Trainer(opt, device)
+    trainer.build_system(cs.make_scene(H, W, cs.N_TRAIN, seed=0),
+                         cs.make_scene(H, W, cs.N_VAL, seed=1))
+    system = trainer.system
+    print("profile: barf_inn_llff flagship, {} train views at {}x{}; torch {}; card: {}".format(
+        cs.N_TRAIN, H, W, torch.__version__, cs.card_line()))
+    for _ in range(N_WARM_STEPS):
+        system.train_step()
+
+    def train():
+        for _ in range(N_TRAIN_STEPS):
+            system.train_step()
+    window("train", "step", N_TRAIN_STEPS, train)
+
+    system.prealign()
+    intr, pixels = system.train_data["intr"][:1], system.train_data["pixels"][:1]
+    pose = system.get_all_training_poses()[0][:1]
+    progress = (torch.tensor(float(system.step)) / opt.max_iter).to(device)
+
+    def refine(n):
+        opt.optim.test_iter = n
+        system.test_time_optimized_pose(
+            pose, intr, pixels, progress,
+            generator=torch.Generator(device=device).manual_seed(0))
+    refine(N_WARM_REFINE)
+    window("refine", "iteration", N_REFINE, lambda: refine(N_REFINE))
+
+    n_chunks = -(-H * W // opt.nerf.rand_rays)
+    window("render", "chunk", n_chunks, lambda: system.render_image(pose, intr, progress))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,23 +1,115 @@
-"""Options for the port.
+"""Options for the port: YAML files with ``_parent_`` inheritance plus a
+dot-notation CLI.
 
-The YAML loader and CLI parser are the JAX package's
-(``neural_invertible_warp_tpu.config``: ``load_options``,
-``parse_arguments``, ``override_options``), imported inside
-``set_options`` only, since they need PyYAML. Its ``process_options`` is
-not used: it also configures JAX. The port's own ``process_options`` sets
-the output path and ``H, W`` only. ``set_options`` returns the port's own
-``DotDict``, like ``flagship.flagship_options``.
+``parse_arguments``, ``load_options`` and ``override_options`` are the
+port's own copies of the JAX package's (neural_invertible_warp_tpu/config.py),
+with PyYAML imported inside the functions that need it, so that importing
+this module needs no YAML parser. CLI syntax:
+
+    --key1.key2=value  -> YAML-parsed value
+    --key1.key2=       -> None
+    --key1.key2        -> True
+    --key1.key2!       -> False
+
+A YAML file may name one or more parents via ``_parent_``; parents load
+first and are overridden leaf-wise by the child. CLI overrides are checked
+against existing keys (``safe_check``): an unknown key prompts on a TTY and
+raises otherwise. The JAX package's ``process_options`` is not copied: it
+also configures JAX. The port's own names the run after its seed, as that one
+does, and sets the output path and ``H, W``.
 """
 
 from __future__ import annotations
 
 import os
+import random
+import string
+import sys
 
 from .dotdict import DotDict
 
+# Root against which relative option paths (e.g. "options/base.yaml") resolve.
+# Defaults to the repo root (parent of this package); overridable for tests.
+OPTIONS_ROOT = os.environ.get(
+    "NIW_OPTIONS_ROOT",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+)
+
+
+def parse_arguments(args):
+    """Parse ``--a.b.c=val`` style CLI arguments into a nested DotDict."""
+    import yaml
+    opt_cmd = {}
+    for arg in args:
+        assert arg.startswith("--"), "arguments must start with '--': {}".format(arg)
+        if "=" not in arg[2:]:
+            key_str, value = (arg[2:-1], "false") if arg.endswith("!") else (arg[2:], "true")
+        else:
+            key_str, value = arg[2:].split("=", 1)
+        keys_sub = key_str.split(".")
+        opt_sub = opt_cmd
+        for k in keys_sub[:-1]:
+            opt_sub = opt_sub.setdefault(k, {})
+        assert keys_sub[-1] not in opt_sub, "duplicate CLI key: {}".format(key_str)
+        opt_sub[keys_sub[-1]] = yaml.safe_load(value)
+    return DotDict(opt_cmd)
+
+
+def load_options(fname):
+    """Load a YAML options file, resolving the ``_parent_`` chain."""
+    import yaml
+    path = fname if os.path.isabs(fname) else os.path.join(OPTIONS_ROOT, fname)
+    with open(path) as f:
+        opt = DotDict(yaml.safe_load(f) or {})
+    if "_parent_" in opt:
+        parents = opt.pop("_parent_")
+        if isinstance(parents, str):
+            parents = [parents]
+        for parent in parents:
+            opt_parent = load_options(parent)
+            opt_parent = override_options(opt_parent, opt, key_stack=[])
+            opt = opt_parent
+    return opt
+
+
+def override_options(opt, opt_over, key_stack=None, safe_check=False):
+    """Recursively override ``opt`` with ``opt_over`` (leaf-wise)."""
+    key_stack = key_stack or []
+    for key, value in opt_over.items():
+        if isinstance(value, dict):
+            opt[key] = override_options(
+                opt.get(key, DotDict()), value,
+                key_stack=key_stack + [key], safe_check=safe_check,
+            )
+        else:
+            if safe_check and key not in opt:
+                key_str = ".".join(key_stack + [key])
+                if sys.stdin.isatty():
+                    add_new = None
+                    while add_new not in ["y", "n"]:
+                        add_new = input('"{}" not found in original opt, add? (y/n) '.format(key_str))
+                    if add_new == "n":
+                        print("safe exiting...")
+                        sys.exit(0)
+                else:
+                    raise KeyError(
+                        'unknown option "{}" (not present in the YAML config); '
+                        "add it to the YAML or fix the flag".format(key_str)
+                    )
+            opt[key] = value
+    return opt
+
 
 def process_options(opt, makedirs=True):
-    """Output dir ``<output_root>/<group>/<name>`` and ``opt.H, opt.W``."""
+    """Run name (``_seed<n>`` for a non-zero seed, four random letters
+    without a seed), output dir ``<output_root>/<group>/<name>`` and
+    ``opt.H, opt.W``."""
+    if opt.get("seed") is not None:
+        if opt.seed != 0:
+            opt.name = "{}_seed{}".format(opt.name, opt.seed)
+    else:
+        randkey = "".join(random.choice(string.ascii_uppercase) for _ in range(4))
+        opt.name = "{}_{}".format(opt.name, randkey)
     opt.output_path = os.path.join(opt.output_root, str(opt.group), str(opt.name))
     if makedirs:
         os.makedirs(opt.output_path, exist_ok=True)
@@ -25,14 +117,31 @@ def process_options(opt, makedirs=True):
     return opt
 
 
+def pop_device(argv):
+    """Split ``--device=<cpu|cuda>`` off the option arguments. Returns
+    (device, remaining arguments); the default device is the card, and
+    asking for it without one raises."""
+    import torch
+    device, rest = "cuda", []
+    for arg in argv:
+        if arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+        else:
+            rest.append(arg)
+    if device not in ("cpu", "cuda"):
+        raise ValueError("--device must be cpu or cuda: {}".format(device))
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device=cpu to run the plain "
+                           "PyTorch paths on the CPU")
+    return device, rest
+
+
 def set_options(argv, makedirs=True):
     """``--model=<name> --yaml=<file> [--key.sub=value ...]`` -> options."""
-    from neural_invertible_warp_tpu import config as yaml_config
-    opt_cmd = yaml_config.parse_arguments(argv)
+    opt_cmd = parse_arguments(argv)
     for key in ("model", "yaml"):
         if key not in opt_cmd:
             raise ValueError("--{}=<...> is required".format(key))
-    opt = yaml_config.load_options("options/{}.yaml".format(opt_cmd.yaml))
-    opt = yaml_config.override_options(opt, opt_cmd, key_stack=[],
-                                       safe_check=True)
-    return process_options(DotDict(opt.to_plain()), makedirs=makedirs)
+    opt = load_options("options/{}.yaml".format(opt_cmd.yaml))
+    opt = override_options(opt, opt_cmd, key_stack=[], safe_check=True)
+    return process_options(opt, makedirs=makedirs)

@@ -1,8 +1,9 @@
-// Shared device code of the composited NeRF field kernels (K2 train, K3 forward).
+// Shared device code of the composited NeRF field kernels (K2 train, K3 forward,
+// K4 backward of K3).
 //
 // Replaces the Pallas TPU kernels in neural_invertible_warp_tpu/ops/pallas/
-// fused_pe.py (_rm_fwd_pe_kernel, _rm_train_pe_kernel) and the MLP math they
-// share from fused_field.py (_forward_block, _mlp_backward).
+// fused_pe.py (_rm_fwd_pe_kernel, _rm_bwd_pe_kernel, _rm_train_pe_kernel) and
+// the MLP math they share from fused_field.py (_forward_block, _mlp_backward).
 //
 // What bounds this on Hopper: the 8x256 trunk is ~1.06 MFLOP per sample
 // forward and ~2.1 MFLOP backward, all fp32 (the PE must stay true fp32, and
@@ -385,13 +386,20 @@ static int mlp_forward(const float* const* W, const Cache& c, int N, cudaStream_
 // Forward: rgb head output layer + sigmoid, density activation, quadrature
 // dist = intv * |ray| (last interval 1e10), alpha, exclusive transmittance
 // scan, per-ray sums -> out [R,8] = (rgb, depth, opacity, 0, 0, 0).
-// With `train`, also the MSE cotangent g = 2 valid (rgb_final - target)
-// (background term when has_bg), the compositing backward, and writes
-// GR0 [N,128] (cotangent at head layer 0, ReLU'-masked), GRP [N,4]
-// (cotangent of the rgb pre-activation), GDENS [N] (of the density
-// pre-activation) and dray_quad [R,3] (the |ray| quadrature chain).
+// With `train` != 0, also the compositing backward for a per-ray cotangent
+// (g_rgb, g_depth, g_opacity), and writes GR0 [N,128] (cotangent at head
+// layer 0, ReLU'-masked), GRP [N,4] (cotangent of the rgb pre-activation),
+// GDENS [N] (of the density pre-activation) and dray_quad [R,3] (the |ray|
+// quadrature chain). train == COMPOSITE_MSE forms the cotangent in-kernel:
+// g_rgb = 2 valid (rgb_final - target), with the background term in
+// g_opacity when has_bg, and no depth term. train == COMPOSITE_COTANGENT
+// reads it from g8 [R,8] = (g_rgb, g_depth, g_opacity, unused); a
+// background colour is then the caller's business (it reaches this kernel
+// inside g_opacity). `out` may be null when the forward sums are not wanted.
+enum { COMPOSITE_FORWARD = 0, COMPOSITE_MSE = 1, COMPOSITE_COTANGENT = 2 };
+
 struct CompositeArgs {
-  const float *ray, *depth, *R0, *V, *Wr1, *br1, *target8;
+  const float *ray, *depth, *R0, *V, *Wr1, *br1, *target8, *g8;
   int R, K, activ, train, has_bg;
   float bg;
   float *out, *GR0, *GRP, *GDENS, *dray_quad;
@@ -456,10 +464,17 @@ static __global__ void composite_kernel(CompositeArgs a) {
       for (int i = 0; i < K; i++) acc += s_red[i * 6 + c];
       tot[c] = acc;
     }
-    float* o = a.out + r * 8;
-    for (int c = 0; c < 5; c++) o[c] = tot[c];
-    o[5] = o[6] = o[7] = 0.f;
-    if (a.train) {   // MSE cotangent of the per-ray rgb (and opacity)
+    if (a.out) {
+      float* o = a.out + r * 8;
+      for (int c = 0; c < 5; c++) o[c] = tot[c];
+      o[5] = o[6] = o[7] = 0.f;
+    }
+    if (a.train == COMPOSITE_COTANGENT) {
+      const float* g = a.g8 + r * 8;
+      for (int c = 0; c < 3; c++) tot[c] = g[c];
+      tot[5] = g[4];
+      tot[6] = g[3];
+    } else if (a.train == COMPOSITE_MSE) {   // MSE cotangent of the per-ray rgb (and opacity)
       const float* t = a.target8 + r * 8;
       const float valid = t[3];
       float gop = 0.f;
@@ -477,6 +492,7 @@ static __global__ void composite_kernel(CompositeArgs a) {
   float g_wgt = 0.f, g_alpha = 0.f;
   if (act) {
     g_wgt = tot[0] * rgb[0] + tot[1] * rgb[1] + tot[2] * rgb[2] + tot[5];
+    if (a.train == COMPOSITE_COTANGENT) g_wgt += tot[6] * d;   // depth = sum_k w_k d_k
     g_alpha = g_wgt * T;
     s_sd[k] = -(g_wgt * alpha) * T;      // g_prefix
   }
@@ -593,6 +609,113 @@ static __global__ void set_column_kernel(float* dst, int ld, int col, const floa
                                          long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) dst[i * ld + col] = src[i];
+}
+
+// --------------------------------------------------- buffers of one call
+static long long cache_floats(long long N) {
+  return N * (LD_C4 + 6 * D_HID + LD_V + D_HEAD);
+}
+static long long grad_floats(long long N) {
+  return N * (D_HEAD + 4 + 1 + LD_V + 2 * D_HID + LD_C4);
+}
+static const long long PART_PER_SPLIT = 320 * 288;   // >= every Kin * Nout
+
+// The full activation cache (every layer kept for a backward) at p.
+static Cache cache_at(float* p, long long N) {
+  Cache c;
+  c.C4 = p; p += N * LD_C4;
+  c.H0 = p; p += N * D_HID;
+  c.H1 = p; p += N * D_HID;
+  c.H2 = p; p += N * D_HID;
+  c.H4 = p; p += N * D_HID;
+  c.H5 = p; p += N * D_HID;
+  c.H6 = p; p += N * D_HID;
+  c.V = p; p += N * LD_V;
+  c.R0 = p;
+  return c;
+}
+
+struct GradBufs {   // cotangent buffers of one backward
+  float *GR0, *GRP, *GDENS, *GV, *GA, *GB, *GC4, *part, *DRQ;
+};
+
+// grad_floats(N) + plan_splits(N).n * PART_PER_SPLIT + 3 R floats at p.
+static GradBufs grads_at(float* p, long long N) {
+  GradBufs g;
+  g.GR0 = p; p += N * D_HEAD;
+  g.GRP = p; p += N * 4;
+  g.GDENS = p; p += N;
+  g.GV = p; p += N * LD_V;
+  g.GA = p; p += N * D_HID;
+  g.GB = p; p += N * D_HID;
+  g.GC4 = p; p += N * LD_C4;
+  g.part = p; p += plan_splits((int)N).n * PART_PER_SPLIT;
+  g.DRQ = p;
+  return g;
+}
+
+// ---------------------------------------------------------- MLP backward
+// out (+)= G @ W^T for W [n_out, ldw] row-major, zeroed where mask <= 0 on
+// columns < mask_cols (the ReLU derivative of the layer's input).
+static int grad_in(const float* G, int ldg, const float* Wt, int ldw, float* out, int ldo,
+                   int N, int n_out, int k, const float* mask, int ldm, int mask_cols,
+                   int beta, cudaStream_t s) {
+  GemmArgs p = gemm_args(G, ldg, Wt, ldw, out, ldo, N, n_out, k);
+  p.mask = mask; p.ldm = ldm; p.mask_cols = mask_cols; p.beta = beta;
+  return launch_gemm<false, true>(p, 1, s);
+}
+
+// From the compositing backward's GR0, GRP and GDENS down to the input
+// cotangents: GC4[:, 256:319] (of the point PE) and GV[:, 257:284] (of the
+// view PE). With want_dw, also the 20 weight gradients into dW (split-K
+// partial sums added in a fixed order); without, those ten GEMMs and bias
+// sums are skipped and dW is not touched.
+static int mlp_backward(const float* const* W, const Cache& c, const GradBufs& g, int n,
+                        int want_dw, float* const* dW, cudaStream_t s) {
+  int err;
+  const long long N = n;
+  float *GR0 = g.GR0, *GRP = g.GRP, *GV = g.GV, *GA = g.GA, *GB = g.GB, *GC4 = g.GC4;
+  float* part = g.part;
+  // rgb head
+  if (want_dw) {
+    if ((err = weight_grad(c.R0, D_HEAD, D_HEAD, GRP, 4, 3, n, dW[WR1], dW[BR1], part, s))) return err;
+    if ((err = weight_grad(c.V, LD_V, K_WR0, GR0, D_HEAD, D_HEAD, n, dW[WR0], dW[BR0], part, s))) return err;
+  }
+  if ((err = grad_in(GR0, D_HEAD, W[WR0], D_HEAD, GV, LD_V, n, K_WR0, D_HEAD,
+                     c.V, LD_V, D_HID, 0, s))) return err;
+  NIW_LAUNCH(set_column_kernel<<<(unsigned)((N + 255) / 256), 256, 0, s>>>(
+      GV, LD_V, COL_DENS, g.GDENS, N));
+  // trunk, top down
+  if (want_dw && (err = weight_grad(c.H6, D_HID, D_HID, GV, LD_V, N_W7, n, dW[W7], dW[B7], part, s))) return err;
+  if ((err = grad_in(GV, LD_V, W[W7], N_W7, GA, D_HID, n, D_HID, N_W7, c.H6, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.H5, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W6], dW[B6], part, s))) return err;
+  if ((err = grad_in(GA, D_HID, W[W6], D_HID, GB, D_HID, n, D_HID, D_HID, c.H5, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.H4, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W5], dW[B5], part, s))) return err;
+  if ((err = grad_in(GB, D_HID, W[W5], D_HID, GA, D_HID, n, D_HID, D_HID, c.H4, D_HID, D_HID, 0, s))) return err;
+  // skip layer: [h3, xp]
+  if (want_dw && (err = weight_grad(c.C4, LD_C4, D_HID + D_X, GA, D_HID, D_HID, n, dW[W4], dW[B4], part, s))) return err;
+  if ((err = grad_in(GA, D_HID, W[W4], D_HID, GC4, LD_C4, n, D_HID + D_X, D_HID,
+                     c.C4, LD_C4, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.H2, D_HID, D_HID, GC4, LD_C4, D_HID, n, dW[W3], dW[B3], part, s))) return err;
+  if ((err = grad_in(GC4, LD_C4, W[W3], D_HID, GB, D_HID, n, D_HID, D_HID, c.H2, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.H1, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W2], dW[B2], part, s))) return err;
+  if ((err = grad_in(GB, D_HID, W[W2], D_HID, GA, D_HID, n, D_HID, D_HID, c.H1, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.H0, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W1], dW[B1], part, s))) return err;
+  if ((err = grad_in(GA, D_HID, W[W1], D_HID, GB, D_HID, n, D_HID, D_HID, c.H0, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(c.C4 + COL_XP, LD_C4, D_X, GB, D_HID, D_HID, n, dW[W0], dW[B0], part, s))) return err;
+  // dxp = skip-path part (already in GC4[:, 256:319]) + layer-0 part
+  return grad_in(GB, D_HID, W[W0], D_HID, GC4 + COL_XP, LD_C4, n, D_X, D_HID,
+                 nullptr, 0, 0, 1, s);
+}
+
+static int launch_input_backward(const float* center, const float* ray, const float* depth,
+                                 int R, int K, const float* w3, const float* wv,
+                                 const GradBufs& g, float* dcenter, float* dray,
+                                 cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)K * (6 + D_V);
+  NIW_LAUNCH(input_backward_kernel<<<R, ((K + 31) / 32) * 32, smem, s>>>(
+      center, ray, depth, K, w3, wv, g.GC4, g.GV, g.DRQ, dcenter, dray));
+  return 0;
 }
 
 }  // namespace niw

@@ -1,0 +1,102 @@
+"""Evaluation entry point of the port:
+
+    python -m neural_invertible_warp_tpu_torch.evaluate --model=barf_inn_llff \\
+        --yaml=barf_inn_llff [--resume | --load=<ckpt>] [--device=cpu] \\
+        [--key.sub=value ...]
+
+Same CLI surface as the JAX package's ``evaluate.py``: loads the latest (or
+the given) checkpoint, reports the pose errors and the novel-view PSNR, SSIM
+and LPIPS (with test-time pose refinement where ``optim.test_photo`` is on),
+writes ``quant.txt``, ``quant_pose.txt`` and the test-view PNGs, assembles
+the test-view videos when ffmpeg is available and renders the circular
+novel-view sequence. Runs on the first CUDA device; ``--device=cpu`` runs
+the plain PyTorch paths instead. Without a CUDA device and without that
+flag it fails.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def generate_videos_synthesis(opt):
+    """ffmpeg assembly of the dumped test views."""
+    from .utils import log
+    if shutil.which("ffmpeg") is None:
+        log.warn("ffmpeg not found; skipping video export")
+        return
+    test_path = os.path.join(opt.output_path, "test_view")
+    for name, pattern in [("test_view_rgb.mp4", "rgb_%d.png"),
+                          ("test_view_depth.mp4", "depth_%d.png")]:
+        out = os.path.join(opt.output_path, name)
+        subprocess.run(["ffmpeg", "-y", "-framerate", "30", "-i",
+                        os.path.join(test_path, pattern), "-pix_fmt", "yuv420p", out],
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        log.info("wrote {}".format(out))
+
+
+def generate_novel_view(opt, system, n_views=60):
+    """Circular novel-view render around the central training camera, as
+    ``novel_view/rgb_<i>.png`` (and a video when ffmpeg is available)."""
+    import imageio.v2 as imageio
+    from .ops import pose as pose_ops
+    from .utils import log
+    poses = system.get_all_training_poses()[0]
+    scale = 1.0
+    if opt.data.dataset in ("llff", "iphone", "tandt") and getattr(system, "sim3", None):
+        scale = float(system.sim3["s1"]) / float(system.sim3["s0"])
+    centers = poses[..., 3]
+    idx_center = int(torch.linalg.norm(
+        centers - centers.mean(0, keepdim=True), dim=-1).argmin())
+    pose_novel = pose_ops.get_novel_view_poses(poses[idx_center], N=n_views, scale=scale)
+    novel_path = os.path.join(opt.output_path, "novel_view")
+    os.makedirs(novel_path, exist_ok=True)
+    intr = system.test_data["intr"][:1]
+    progress = (torch.tensor(float(system.step)) / opt.max_iter).to(system.device)
+    for i in range(n_views):
+        out = system.render_image(pose_novel[i:i + 1], intr, progress)
+        rgb = np.clip(out["rgb"].reshape(opt.H, opt.W, 3).cpu().numpy(), 0, 1)
+        imageio.imwrite(os.path.join(novel_path, "rgb_{}.png".format(i)),
+                        (rgb * 255).astype(np.uint8))
+    if shutil.which("ffmpeg") is not None:
+        subprocess.run(["ffmpeg", "-y", "-framerate", "30", "-i",
+                        os.path.join(novel_path, "rgb_%d.png"), "-pix_fmt", "yuv420p",
+                        os.path.join(opt.output_path, "novel_view_rgb.mp4")],
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    log.info("novel views written to {}".format(novel_path))
+
+
+def main(argv=None):
+    from .config import pop_device, set_options
+    from .models.engine import Trainer
+    from .utils import log
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, argv = pop_device(sys.argv[1:] if argv is None else argv)
+    if not any(a.split("=")[0].rstrip("!") in ("--resume", "--load") for a in argv):
+        argv = argv + ["--resume"]
+    opt = set_options(argv)
+    log.info("device: {}".format(device))
+    trainer = Trainer(opt, device)
+    trainer.build_system(*trainer.load_dataset(
+        eval_split="test" if opt.data.dataset == "blender" else "val"))
+    trainer.restore_checkpoint()
+    results = trainer.system.evaluate_full()
+    log.info("evaluation results: {}".format(results))
+    generate_videos_synthesis(opt)
+    if opt.data.dataset != "blender" and opt.get("novel_view_video", True):
+        generate_novel_view(opt, trainer.system)
+    if hasattr(trainer.system, "evaluate_camera_alignment"):
+        log.info("the pose video needs utils/vis.py, which is not ported yet "
+                 "(ROADMAP M15)")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,24 +1,46 @@
-"""Pose-optimizing systems' shared machinery (port of
-neural_invertible_warp_tpu/models/barf.py): the pose-group learning-rate
+"""BARF: joint NeRF + per-image SE(3) pose refinement (port of
+neural_invertible_warp_tpu/models/barf.py), and the machinery every
+pose-optimizing system shares: a per-image learnable se(3) vector composed
+onto the initial pose (identity on LLFF), the pose-group learning-rate
 schedule with optional warmup, the validation-time Procrustes sim(3)
 pre-alignment (host, float64), eval poses moved into the optimized frame,
-and the aligned pose error. The SE(3)-refinement BARF model itself and
-test-time pose refinement are not ported yet (ROADMAP M8, M9).
+the aligned pose error, and test-time photometric pose refinement of an
+evaluation view (a per-view se(3) correction under Adam, differentiated
+through K3 and K4 on the card). LLFF only: the Blender variant (noisy GT
+initial poses) comes with its data loader.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..ops import align
+from ..ops import align, lie, rays, sampling
 from ..ops import pose as pose_ops
-from .system import NerfSystem
+from ..ops.nerf_mlp import NerfMLP
+from .system import Graph, NerfSystem
 
 
 class BarfSystem(NerfSystem):
 
     model_name = "barf"
+
+    def __init__(self, opt, device):
+        super().__init__(opt, device)
+        if opt.data.dataset != "llff":
+            raise NotImplementedError(
+                "pose refinement on {!r} data is not ported yet (ROADMAP {})".format(
+                    opt.data.dataset, "M10" if opt.data.dataset == "dtu" else "M9"))
+
+    def build_graph(self, generator):
+        nerf = NerfMLP(self.arch, view_dep=self.opt.nerf.view_dep, generator=generator)
+        se3_refine = nn.Embedding(self.n_train, 6)
+        nn.init.zeros_(se3_refine.weight)
+        return Graph(nerf=nerf, se3_refine=se3_refine)
+
+    def param_labels(self):
+        return {"nerf": "main", "se3_refine": "pose"}
 
     def make_schedules(self):
         from ..utils.optim import exp_decay_gamma, exp_schedule
@@ -30,9 +52,22 @@ class BarfSystem(NerfSystem):
                                       warmup=opt.optim.get("warmup_pose"))
         return scheds
 
+    # ----------------------------------------------------------------- poses
+
+    def _initial_pose(self):
+        """The poses before refinement: identity on LLFF."""
+        return pose_ops.identity_pose((self.n_train,), device=self.device)
+
+    def get_train_pose(self):
+        pose_refine = lie.se3_to_SE3(self.graph.se3_refine.weight)
+        return pose_ops.compose([pose_refine, self._initial_pose()])
+
     def get_all_training_poses(self):
         """(predicted w2c poses, GT poses) of the training images."""
-        raise NotImplementedError
+        with torch.no_grad():
+            return self.get_train_pose(), self.train_data["pose"]
+
+    # ------------------------------------------------------------- alignment
 
     def prealign(self):
         """sim(3) between predicted and GT camera centers, in float64 on the host."""
@@ -68,3 +103,49 @@ class BarfSystem(NerfSystem):
         res["error_R"] = float(np.mean(R_err))
         res["error_t"] = float(np.mean(t_err))
         return res
+
+    # ------------------------------------------- test-time photometric optim
+
+    def test_time_optimized_pose(self, pose, intr, pixels, progress=1.0,
+                                 generator=None, ray_u=None):
+        """``optim.test_iter`` Adam steps (constant lr ``optim.lr_pose``) on a
+        per-view se(3) correction composed onto ``pose`` [1,3,4], against the
+        view's ``pixels`` [1,HW,3]: each step draws a fresh ray subset and
+        renders it in mode "test-optim". The field's weights are frozen for
+        the loop, so the render's backward skips its weight gradients.
+        ``generator`` drives the ray draws; ``ray_u`` [test_iter, n_rays]
+        optionally supplies them. Returns the refined pose [1,3,4]; the
+        per-step losses stay in ``self.refine_losses`` (a device tensor)."""
+        opt = self.opt
+        n_rays = min(opt.nerf.rand_rays, self.HW)
+        mode = (opt.get("tpu") or {}).get("ray_sample", "stratified")
+        se3 = torch.zeros((1, 6), dtype=torch.float32, device=self.device,
+                          requires_grad=True)
+        optim = torch.optim.Adam([se3], lr=opt.optim.lr_pose, betas=(0.9, 0.999),
+                                 eps=1e-8)
+        params = [p for p in self.graph.parameters() if p.requires_grad]
+        for p in params:
+            p.requires_grad_(False)
+        losses = []
+        try:
+            with torch.enable_grad():
+                for it in range(opt.optim.test_iter):
+                    ray_idx = sampling.sample_ray_subset(
+                        self.HW, n_rays, mode=mode,
+                        generator=generator if generator is not None else self.generator,
+                        u=None if ray_u is None else ray_u[it], device=self.device)
+                    pose_it = pose_ops.compose([lie.se3_to_SE3(se3), pose])
+                    center, ray = rays.get_center_and_ray(pose_it, intr, ray_idx, self.W)
+                    out = self.render_rays(center, ray, mode="test-optim",
+                                           progress=progress)
+                    loss = torch.mean((out["rgb"] - pixels[:, ray_idx]) ** 2)
+                    optim.zero_grad(set_to_none=True)
+                    loss.backward()
+                    optim.step()
+                    losses.append(loss.detach())
+        finally:
+            for p in params:
+                p.requires_grad_(True)
+        self.refine_losses = torch.stack(losses) if losses else torch.zeros(0)
+        with torch.no_grad():
+            return pose_ops.compose([lie.se3_to_SE3(se3), pose])

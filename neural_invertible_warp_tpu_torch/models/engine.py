@@ -13,11 +13,9 @@ import numpy as np
 import torch
 
 from . import get_system_class
+from ..data import get_dataset
 from ..utils import ckpt as ckpt_util
-
-
-def log(msg):
-    print("[{}] {}".format(time.strftime("%H:%M:%S"), msg), flush=True)
+from ..utils.log import info as log
 
 
 class Trainer:
@@ -31,8 +29,7 @@ class Trainer:
         self.history = []          # per-step metrics, 0-d device tensors
 
     def load_dataset(self, eval_split="val"):
-        """(train_arrays, test_arrays) from the JAX package's loaders."""
-        from neural_invertible_warp_tpu.data import get_dataset
+        """(train_arrays, test_arrays) of the configured dataset."""
         opt = self.opt
         data_mod = get_dataset(opt.data.dataset)
         log("loading training data...")
@@ -48,6 +45,17 @@ class Trainer:
         self.system = get_system_class(self.opt.model)(self.opt, self.device)
         self.system.attach_data(train_arrays, test_arrays)
         self.system.init_state(self.opt.seed or 0)
+
+    def restore_checkpoint(self):
+        """``--resume`` (latest, or ``--resume=<iter>``) continues a run;
+        ``--load=<path>`` loads weights and state from a file."""
+        opt = self.opt
+        if opt.get("resume"):
+            return ckpt_util.restore(opt.output_path, self.system, resume=opt.resume)
+        if opt.get("load"):
+            return ckpt_util.restore(opt.output_path, self.system, load_name=opt.load)
+        log("initializing weights from scratch...")
+        return 0
 
     def train(self):
         opt = self.opt
@@ -94,5 +102,6 @@ def run_training(opt, device):
     """Load the dataset, build the system, train."""
     trainer = Trainer(opt, device)
     trainer.build_system(*trainer.load_dataset())
+    trainer.restore_checkpoint()
     trainer.train()
     return trainer

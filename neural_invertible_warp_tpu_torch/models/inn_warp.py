@@ -20,16 +20,7 @@ from ..ops import align, inn, rays
 from ..ops import pose as pose_ops
 from ..ops.nerf_mlp import NerfMLP
 from .barf import BarfSystem
-
-
-class Graph(nn.Module):
-    """Learnable state, named as the reference Graph: nerf, warp_mlp, warp_latent."""
-
-    def __init__(self, nerf, warp_mlp, warp_latent):
-        super().__init__()
-        self.nerf = nerf
-        self.warp_mlp = warp_mlp
-        self.warp_latent = warp_latent
+from .system import Graph
 
 
 class InnWarpSystem(BarfSystem):
@@ -38,10 +29,6 @@ class InnWarpSystem(BarfSystem):
 
     def __init__(self, opt, device):
         super().__init__(opt, device)
-        if opt.data.dataset != "llff":
-            raise NotImplementedError(
-                "INN warp on {!r} data is not ported yet (ROADMAP M10)".format(
-                    opt.data.dataset))
         wl = opt.get("warp_latent")
         if not wl or wl.enc_type != "l2fbarf":
             raise NotImplementedError(
@@ -61,7 +48,7 @@ class InnWarpSystem(BarfSystem):
         latent = nn.Embedding(self.n_train, opt.warp_latent.embed_dim)
         with torch.no_grad():   # torch.nn.Embedding default init: N(0, 1)
             latent.weight.normal_(0.0, 1.0, generator=generator)
-        return Graph(nerf, warp, latent)
+        return Graph(nerf=nerf, warp_mlp=warp, warp_latent=latent)
 
     def init_aux(self):
         # pose readout, refreshed every step by the Procrustes fit

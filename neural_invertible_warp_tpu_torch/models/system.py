@@ -4,17 +4,35 @@ Holds the data on the device, the field (``self.graph``), the optimizer,
 the step counter and the non-optimized ``aux`` state; runs the train step
 as an eager autograd pass and renders full images as a loop over ray
 chunks. The render core sends the flagship's branches to the CUDA kernels
-(K2 for training with a target, K3 for eval); the branches not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+(K2 for training with a target; K3 for eval, and K3 with K4 as its backward
+for test-time pose refinement and for training under ``tpu.fused_train:
+false``); the branches not ported yet raise ``NotImplementedError`` naming
+the ROADMAP item that brings them. ``evaluate_full`` is the full test-set
+evaluation: pose error, test-time refinement, PSNR, SSIM, LPIPS.
 """
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops import rays, sampling
 from ..ops.cuda import fused_pe
+from ..utils import log
+
+
+class Graph(nn.Module):
+    """Learnable state, one child per top-level group, named as the
+    reference Graph names them (nerf, se3_refine, warp_mlp, warp_latent)."""
+
+    def __init__(self, **children):
+        super().__init__()
+        for name, child in children.items():
+            setattr(self, name, child)
 
 
 class NerfSystem:
@@ -99,8 +117,11 @@ class NerfSystem:
                     depth_range=None, target=None, depth_rand=None):
         """Stratified samples -> field -> compositing for center/ray [B,R,3].
 
-        ``depth_rand`` [B,R,K,1] optionally supplies the stratification draw.
-        Returns dict(rgb, depth, opacity[, render_sq_sum, render_n]).
+        ``mode`` is "train" (stratified depths), "eval" or "test-optim"
+        (midpoint depths; the latter is differentiated by test-time pose
+        refinement). ``depth_rand`` [B,R,K,1] optionally supplies the
+        stratification draw. Returns dict(rgb, depth, opacity[,
+        render_sq_sum, render_n]).
         """
         opt = self.opt
         if opt.nerf.fine_sampling:
@@ -110,9 +131,8 @@ class NerfSystem:
                 "density_noise_reg is not ported yet (ROADMAP M9)")
         if opt.camera.ndc:
             raise NotImplementedError("NDC rays are not ported yet (ROADMAP M1)")
-        if not (mode == "eval" or (mode == "train" and target is not None)):
-            raise NotImplementedError(
-                "render mode {!r} is not ported yet (ROADMAP M8)".format(mode))
+        if mode not in ("train", "eval", "test-optim"):
+            raise ValueError("unknown render mode: {!r}".format(mode))
         B, R = center.shape[0], center.shape[1]
         depth_range = depth_range if depth_range is not None \
             else tuple(opt.nerf.depth.range)
@@ -125,7 +145,8 @@ class NerfSystem:
                   setbg_opaque=bool(opt.nerf.get("setbg_opaque")),
                   bgcolor=opt.data.get("bgcolor"),
                   density_activ=self.arch.get("density_activ", "softplus"))
-        if mode == "train":
+        if (mode == "train" and target is not None
+                and (opt.get("tpu") or {}).get("fused_train", True)):
             out, sq, n_terms = fused_pe.fused_render_rays_pe_train(
                 self.graph.nerf, center, ray, depth, target, **kw)
             out["render_sq_sum"] = sq
@@ -138,7 +159,9 @@ class NerfSystem:
     # ---------------------------------------------------------------- losses
 
     def compute_loss(self, out, target, extras):
-        return {"render": out["render_sq_sum"] / out["render_n"]}
+        if "render_sq_sum" in out:    # the one-call train kernel's squared error
+            return {"render": out["render_sq_sum"] / out["render_n"]}
+        return {"render": torch.mean((out["rgb"] - target) ** 2)}
 
     def summarize_loss(self, losses):
         """total = sum 10^w_k * L_k over the weighted losses."""
@@ -151,8 +174,22 @@ class NerfSystem:
 
     # ------------------------------------------------------------ train step
 
+    def get_train_pose(self):
+        """w2c poses [n_train,3,4] the training rays are cast from."""
+        return self.train_data["pose"]
+
     def _forward_train(self, ray_idx, step, depth_rand=None):
-        raise NotImplementedError
+        """One training forward over the drawn rays of every image; returns
+        (out, target, extras)."""
+        data = self.train_data
+        center, ray = rays.get_center_and_ray(self.get_train_pose(), data["intr"],
+                                              ray_idx, self.W)
+        progress = (torch.tensor(float(step), dtype=torch.float32)
+                    / self.opt.max_iter).to(self.device)
+        target = data["pixels"][:, ray_idx]
+        out = self.render_rays(center, ray, mode="train", progress=progress,
+                               target=target, depth_rand=depth_rand)
+        return out, target, {}
 
     def update_aux(self, extras):
         pass
@@ -203,19 +240,125 @@ class NerfSystem:
         return pose_GT
 
     def validate(self, max_views=None):
-        """Render held-out views; returns psnr_val and the first view's maps."""
+        """Render held-out views; returns psnr_val, the first view's maps
+        (``vis``) and those of the first ``tb.num_images`` views (``vis_all``)."""
         self.prealign()
         data = self.test_data
         n = int(data["image"].shape[0])
         if max_views:
             n = min(n, max_views)
         progress = torch.tensor(float(self.step), dtype=torch.float32) / self.opt.max_iter
-        psnrs, vis = [], None
+        n_vis = 1
+        tb_cfg = self.opt.get("tb")
+        if tb_cfg and tb_cfg.get("num_images"):
+            rows, cols = tb_cfg.num_images
+            n_vis = int(rows) * int(cols)
+        psnrs, vis_all = [], []
         for i in range(n):
             pose = self.get_eval_pose(data["pose"][i:i + 1])
             out = self.render_image(pose, data["intr"][i:i + 1], progress.to(self.device))
             mse = float(torch.mean((out["rgb"] - data["pixels"][i:i + 1]) ** 2))
             psnrs.append(-10.0 * np.log10(mse))
-            if vis is None:
-                vis = {k: v.cpu().numpy() for k, v in out.items()}
-        return dict(psnr_val=float(np.mean(psnrs)), vis=vis)
+            if len(vis_all) < n_vis:
+                vis_all.append({k: v.cpu().numpy() for k, v in out.items()})
+        return dict(psnr_val=float(np.mean(psnrs)), vis=vis_all[0], vis_all=vis_all)
+
+    # -------------------------------------------------------- full evaluation
+
+    def evaluate_full(self, output_path=None, dump_images=True, test_optim=None):
+        """Evaluate every test view: Procrustes-aligned pose error (pose
+        models), optional test-time pose refinement, full-image render, PSNR,
+        SSIM and LPIPS (``None`` / "unavailable" without AlexNet weights).
+        Writes ``quant.txt``, ``quant_pose.txt`` and, with ``dump_images``,
+        ``test_view/{rgb,rgb_GT,depth}_<i>.png``. Returns dict(rot_error_deg,
+        trans_error, PSNR, SSIM, LPIPS). ``self.eval_log`` keeps, per view,
+        the pose rendered, the refinement losses and the seconds spent
+        refining and rendering."""
+        from ..ops import lpips as lpips_mod
+        from ..ops import ssim as ssim_mod
+        from ..ops.render import invdepth_map
+        opt = self.opt
+        self.prealign()
+        if output_path is None:
+            output_path = opt.output_path
+        test_path = os.path.join(output_path, "test_view")
+        if dump_images:
+            os.makedirs(test_path, exist_ok=True)
+
+        results = {}
+        if hasattr(self, "evaluate_camera_alignment"):
+            R_err, t_err = self.evaluate_camera_alignment()
+            results["rot_error_deg"] = float(np.rad2deg(np.mean(R_err)))
+            results["trans_error"] = float(np.mean(t_err))
+            with open(os.path.join(output_path, "quant_pose.txt"), "w") as f:
+                for i, (r, t) in enumerate(zip(R_err, t_err)):
+                    f.write("{} {} {}\n".format(i, float(r), float(t)))
+
+        if test_optim is None:
+            test_optim = bool(opt.optim.get("test_photo")) and \
+                hasattr(self, "test_time_optimized_pose")
+        lpips_ok = lpips_mod.available()
+        if not lpips_ok:
+            log.warn("LPIPS unavailable: no AlexNet-LPIPS weights found; set {}=<npz>. "
+                     "quant.txt will record 'unavailable'.".format(lpips_mod.WEIGHTS_ENV))
+        if self.device.type == "cuda":   # cuDNN's TF32 would change SSIM and LPIPS
+            torch.backends.cudnn.allow_tf32 = False
+
+        data = self.test_data
+        n = int(data["image"].shape[0])
+        progress = (torch.tensor(float(self.step), dtype=torch.float32)
+                    / opt.max_iter).to(self.device)
+        rows = []
+        self.eval_log = []
+        for i in range(n):
+            intr = data["intr"][i:i + 1]
+            pose = self.get_eval_pose(data["pose"][i:i + 1])
+            entry = {}
+            t0 = self._synced_time()
+            if test_optim:
+                generator = torch.Generator(device=self.device).manual_seed(1000 + i)
+                pose = self.test_time_optimized_pose(
+                    pose, intr, data["pixels"][i:i + 1], progress, generator=generator)
+                entry["refine_losses"] = self.refine_losses
+            t1 = self._synced_time()
+            out = self.render_image(pose, intr, progress)
+            t2 = self._synced_time()
+            entry.update(pose=pose, refine_seconds=t1 - t0, render_seconds=t2 - t1)
+            self.eval_log.append(entry)
+            pred = out["rgb"].reshape(self.H, self.W, 3)
+            gt = data["image"][i]
+            psnr = -10.0 * float(torch.log10(torch.mean((pred - gt) ** 2)))
+            pred_t = pred.permute(2, 0, 1)[None]
+            gt_t = gt.permute(2, 0, 1)[None]
+            ssim_v = float(ssim_mod.ssim(pred_t, gt_t))
+            lpips_v = lpips_mod.lpips(pred_t * 2 - 1, gt_t * 2 - 1) if lpips_ok else None
+            rows.append((psnr, ssim_v, lpips_v))
+            if dump_images:
+                inv = invdepth_map(out["depth"], out["opacity"],
+                                   ndc=bool(opt.camera.ndc)).reshape(self.H, self.W)
+                inv = inv.cpu().numpy()
+                _save_png(os.path.join(test_path, "rgb_{}.png".format(i)), pred.cpu().numpy())
+                _save_png(os.path.join(test_path, "rgb_GT_{}.png".format(i)), gt.cpu().numpy())
+                _save_png(os.path.join(test_path, "depth_{}.png".format(i)),
+                          inv / max(inv.max(), 1e-8))
+        results["PSNR"] = float(np.mean([r[0] for r in rows]))
+        results["SSIM"] = float(np.mean([r[1] for r in rows]))
+        results["LPIPS"] = float(np.mean([r[2] for r in rows])) if lpips_ok else None
+        lpips_str = "{:.4f}".format(results["LPIPS"]) if lpips_ok else "unavailable"
+        with open(os.path.join(output_path, "quant.txt"), "w") as f:
+            for i, (p, s, l) in enumerate(rows):
+                f.write("{} {} {} {}\n".format(i, p, s, l if l is not None else "unavailable"))
+        log.info("PSNR {:.2f} | SSIM {:.3f} | LPIPS {}".format(
+            results["PSNR"], results["SSIM"], lpips_str))
+        return results
+
+    def _synced_time(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.time()
+
+
+def _save_png(path, arr):
+    import imageio.v2 as imageio
+    arr = np.clip(np.asarray(arr), 0.0, 1.0)
+    imageio.imwrite(path, (arr * 255).astype(np.uint8))

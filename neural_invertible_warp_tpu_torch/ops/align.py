@@ -4,8 +4,10 @@
   Kabsch fit. The rotation comes from the SVD-free Horn-quaternion solver
   (``ProcrustesQuat``, a ``torch.autograd.Function`` carrying the JAX
   package's implicit-differential VJP). The SVD method is ROADMAP M4's.
-* ``procrustes_analysis_np`` / ``apply_sim3_to_poses``: the validation-time
-  sim(3) between predicted and ground-truth camera centers.
+* ``procrustes_analysis_np`` / ``procrustes_analysis`` (host float64 / tensor
+  fp32) and ``apply_sim3_to_poses``: the validation-time sim(3) between
+  predicted and ground-truth camera centers.
+The DTU/ATE alignment functions are ROADMAP M10's.
 """
 
 from __future__ import annotations
@@ -151,6 +153,21 @@ def procrustes_analysis_np(X0, X1):
         R[2] *= -1
     return dict(t0=t0.astype(np.float32), t1=t1.astype(np.float32),
                 s0=np.float32(s0), s1=np.float32(s1), R=R.astype(np.float32))
+
+
+def procrustes_analysis(X0, X1):
+    """Tensor version of ``procrustes_analysis_np`` (fp32, on X0's device)."""
+    t0 = X0.mean(dim=0)
+    t1 = X1.mean(dim=0)
+    X0c = X0 - t0
+    X1c = X1 - t1
+    s0 = torch.sqrt((X0c ** 2).sum(dim=-1).mean())
+    s1 = torch.sqrt((X1c ** 2).sum(dim=-1).mean())
+    U, _, Vt = torch.linalg.svd((X0c / s0).T @ (X1c / s1))
+    R = U @ Vt
+    if torch.linalg.det(R) < 0:
+        R = torch.cat([R[:2], -R[2:]], dim=0)
+    return dict(t0=t0, t1=t1, s0=s0, s1=s1, R=R)
 
 
 def apply_sim3_to_poses(pose, sim3, direction="pred_to_GT"):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``load_library()`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface under ``<repo>/build/``, loads
-it with ``ctypes`` and declares every function's signature. The library's
+``load_library()`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links the objects into one
+shared library with a plain C interface under ``<repo>/build/``, loads it
+with ``ctypes`` and declares every function's signature. The library's
 name carries a hash of the sources, so an edited source is rebuilt. Nothing
 is compiled or loaded at import time.
 """
@@ -21,13 +22,19 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "niw_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "niw_rm_fwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),
+    "niw_rm_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
+                                    ctypes.c_longlong),
     "niw_rm_fwd": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                    ctypes.c_int, _P, _P, _P], ctypes.c_int),
+                    ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "niw_rm_bwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
+                                    ctypes.c_longlong),
+    "niw_rm_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                    ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _P, _P],
+                   ctypes.c_int),
     "niw_rm_train_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                       ctypes.c_longlong),
     "niw_rm_train": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
@@ -60,6 +67,12 @@ def _nvcc():
     return nvcc
 
 
+def _check_nvcc(returncode, stdout, stderr):
+    if returncode != 0:
+        raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
+            returncode, stdout[-4000:], stderr[-8000:]))
+
+
 def load_library():
     """Build (if needed) and load the kernel library; cached per process."""
     global _LOADED
@@ -78,13 +91,24 @@ def load_library():
     if not os.path.isfile(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = out + ".tmp{}".format(os.getpid())
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp] + sources
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
-                proc.returncode, proc.stdout[-4000:], proc.stderr[-8000:]))
+        objects = ["{}.{}.o".format(tmp, os.path.basename(src)) for src in sources]
+        procs = [subprocess.Popen(
+            [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objects)]
+        outputs = [proc.communicate() for proc in procs]
+        try:
+            for proc, (stdout, stderr) in zip(procs, outputs):
+                _check_nvcc(proc.returncode, stdout, stderr)
+            link = subprocess.run([_nvcc(), "-shared", "-o", tmp] + objects,
+                                  capture_output=True, text=True)
+            _check_nvcc(link.returncode, link.stdout, link.stderr)
+        finally:
+            for obj in objects:
+                if os.path.isfile(obj):
+                    os.remove(obj)
         with open(log_path, "w") as f:
-            f.write(proc.stderr)
+            f.write("".join(stderr for _, stderr in outputs))
         os.replace(tmp, out)
     build_seconds = time.time() - t0
     ptxas_log = ""

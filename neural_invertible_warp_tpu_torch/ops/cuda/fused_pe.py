@@ -1,16 +1,19 @@
-"""Composited NeRF field render: the CUDA kernels K2 (train) and K3 (forward)
-with their plain PyTorch versions (port of
+"""Composited NeRF field render: the CUDA kernels K2 (train), K3 (forward)
+and K4 (backward of K3) with their plain PyTorch versions (port of
 neural_invertible_warp_tpu/ops/pallas/fused_pe.py, ``fused_render_rays_pe``
-and ``fused_render_rays_pe_train``).
+with its VJP and ``fused_render_rays_pe_train``).
 
-Both compute, per ray: the PE of center + ray * depth (BARF c2f weights
+All compute, per ray: the PE of center + ray * depth (BARF c2f weights
 folded in), the 8x256 NeRF MLP, quadrature and alpha compositing, giving
 [R,8] = (rgb, depth, opacity, 0, 0, 0). K2 also forms the photometric MSE
-cotangent in-kernel and returns d(sq_sum)/d(center, ray, weights).
+cotangent in-kernel and returns d(sq_sum)/d(center, ray, weights). K3 under
+autograd keeps its activations, and K4 turns an arbitrary cotangent of the
+[R,8] output into d/d(center, ray) and, where a weight needs one, the
+weight gradients.
 
 The wrappers take the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
-``csrc/rm_train.cu``, ``csrc/nerf_field.cuh``.
+``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/nerf_field.cuh``.
 """
 
 from __future__ import annotations
@@ -97,6 +100,21 @@ def render_rays_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
     return torch.cat([rgb, d, op, torch.zeros_like(rgb)], dim=-1)
 
 
+def render_rays_backward_plain(mlp, center, ray, depth, g8, progress=None,
+                               barf_c2f=None, density_activ="softplus",
+                               want_dw=True):
+    """K4's plain version: the VJP of ``render_rays_plain`` at the cotangent
+    g8 [R,8], by autograd. Returns (dcenter, dray, grads of
+    ``mlp.parameters()``, or [] without ``want_dw``)."""
+    c = center.detach().requires_grad_(True)
+    r = ray.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = render_rays_plain(mlp, c, r, depth, progress, barf_c2f, density_activ)
+    params = list(mlp.parameters()) if want_dw else []
+    grads = torch.autograd.grad(out, [c, r] + params, g8)
+    return grads[0], grads[1], list(grads[2:])
+
+
 def sq_sum_from_out(out, target8, bg=None):
     """sum over rays of valid * |rgb_final - target|^2."""
     rgb = out[:, :3]
@@ -136,22 +154,55 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus"):
-    """K3 on CUDA tensors: center/ray [R,3], depth [R,K] -> out [R,8]."""
+def _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep):
+    """One K3 launch. Returns (out [R,8], workspace, packed weights); with
+    ``keep`` the workspace holds every layer's activations, for K4."""
     R, K = depth.shape
     _check_inputs(mlp, [center, ray, depth, w3, wv], K)
     lib = build.load_library().lib
     weights = pack_weights(mlp)
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
-    ws = torch.empty(lib.niw_rm_fwd_workspace_floats(R * K), dtype=torch.float32,
-                     device=depth.device)
+    ws = torch.empty(lib.niw_rm_fwd_workspace_floats(R * K, int(keep)),
+                     dtype=torch.float32, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(), R, K,
                          w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
-                         _ACTIV[density_activ], out.data_ptr(), ws.data_ptr(),
-                         stream)
+                         _ACTIV[density_activ], int(keep), out.data_ptr(),
+                         ws.data_ptr(), stream)
     build.check(err, "niw_rm_fwd")
-    return out
+    return out, ws, weights
+
+
+def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus"):
+    """K3 on CUDA tensors: center/ray [R,3], depth [R,K] -> out [R,8]."""
+    return _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep=False)[0]
+
+
+def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, weights,
+                  want_dw=True, density_activ="softplus"):
+    """K4 on CUDA tensors: the cotangent g8 [R,8] of K3's output, with the
+    activation ``cache`` and packed ``weights`` of the K3 launch that kept
+    them, -> (dcenter, dray [R,3], grads of ``mlp.parameters()`` or None
+    without ``want_dw``)."""
+    R, K = depth.shape
+    _check_inputs(mlp, [center, ray, depth, g8, w3, wv, cache] + list(weights), K)
+    lib = build.load_library().lib
+    if g8.shape != (R, 8) or cache.numel() != lib.niw_rm_fwd_workspace_floats(R * K, 1):
+        raise ValueError("cotangent must be [R,8] and the cache that of a "
+                         "kept K3 launch on the same rays")
+    dws = [torch.empty_like(w) for w in weights] if want_dw else []
+    dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
+    dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
+    ws = torch.empty(lib.niw_rm_bwd_workspace_floats(R * K, R),
+                     dtype=torch.float32, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    err = lib.niw_rm_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
+                         g8.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
+                         _ptrs(weights), _ACTIV[density_activ], cache.data_ptr(),
+                         int(want_dw), dcenter.data_ptr(), dray.data_ptr(),
+                         _ptrs(dws) if want_dw else None, ws.data_ptr(), stream)
+    build.check(err, "niw_rm_bwd")
+    return dcenter, dray, unpack_grads(dws) if want_dw else None
 
 
 def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
@@ -201,6 +252,37 @@ class _RmTrain(torch.autograd.Function):
                 + tuple(g * g_sq for g in grads))
 
 
+class _RmFwd(torch.autograd.Function):
+    """out [R,8] from one K3 launch that keeps its activations; the backward
+    is one K4 launch, without the weight-gradient part when no weight needs
+    a gradient."""
+
+    N_LEADING = 7   # arguments before *params
+
+    @staticmethod
+    def forward(ctx, center, ray, depth, w3, wv, mlp, density_activ, *params):
+        c, r = center.detach().contiguous(), ray.detach().contiguous()
+        out, cache, weights = _rm_fwd(mlp, c, r, depth, w3, wv, density_activ,
+                                      keep=True)
+        fused_render_rays_pe.launches += 1
+        ctx.save_for_backward(c, r, depth, w3, wv, cache, *weights)
+        ctx.mlp, ctx.density_activ = mlp, density_activ
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        c, r, depth, w3, wv, cache, *weights = ctx.saved_tensors
+        want_dw = any(ctx.needs_input_grad[_RmFwd.N_LEADING:])
+        dcenter, dray, grads = launch_rm_bwd(
+            ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, weights,
+            want_dw, ctx.density_activ)
+        fused_render_rays_pe.backward_launches += 1
+        n_params = len(ctx.needs_input_grad) - _RmFwd.N_LEADING
+        return ((dcenter, dray) + (None,) * (_RmFwd.N_LEADING - 2)
+                + (tuple(grads) if want_dw else (None,) * n_params))
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _split(out, B, R_img, setbg_opaque, bgcolor):
@@ -216,9 +298,11 @@ def fused_render_rays_pe(mlp, center, ray, depth, *, progress=None,
                          barf_c2f=None, setbg_opaque=False, bgcolor=None,
                          density_activ="softplus"):
     """Composited forward render (K3). center/ray [B,R,3]; depth [B,R,K,1]
-    sorted ascending. Returns (rgb [B,R,3], depth [B,R,1], opacity [B,R,1]).
-    On CUDA it runs K3, which has no backward yet: calling it where a
-    gradient is needed raises."""
+    sorted ascending. Returns (rgb [B,R,3], depth [B,R,1], opacity [B,R,1]),
+    differentiable in center, ray and the weights: on CUDA, where grad is
+    enabled and one of them requires it, K3 keeps its activations and the
+    backward runs K4. The background colour is composited here, outside the
+    kernels, so autograd carries its term into K4's opacity cotangent."""
     B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
     c = center.reshape(B * R_img, 3)
     r = ray.reshape(B * R_img, 3)
@@ -226,18 +310,20 @@ def fused_render_rays_pe(mlp, center, ray, depth, *, progress=None,
     if not c.is_cuda:
         out = render_rays_plain(mlp, c, r, d, progress, barf_c2f, density_activ)
         return _split(out, B, R_img, setbg_opaque, bgcolor)
+    w3, wv = band_weights(progress, barf_c2f, c.device)
     if torch.is_grad_enabled() and (c.requires_grad or r.requires_grad or any(
             p.requires_grad for p in mlp.parameters())):
-        raise RuntimeError("the CUDA forward render kernel has no backward yet "
-                           "(ROADMAP K4); call it under torch.no_grad()")
-    w3, wv = band_weights(progress, barf_c2f, c.device)
-    out = launch_rm_fwd(mlp, c.contiguous(), r.contiguous(), d.contiguous(),
-                        w3, wv, density_activ)
-    fused_render_rays_pe.launches += 1
+        out = _RmFwd.apply(c, r, d.contiguous(), w3, wv, mlp, density_activ,
+                           *mlp.parameters())
+    else:
+        out = launch_rm_fwd(mlp, c.contiguous(), r.contiguous(), d.contiguous(),
+                            w3, wv, density_activ)
+        fused_render_rays_pe.launches += 1
     return _split(out, B, R_img, setbg_opaque, bgcolor)
 
 
-fused_render_rays_pe.launches = 0
+fused_render_rays_pe.launches = 0             # K3 launches
+fused_render_rays_pe.backward_launches = 0    # K4 launches
 
 
 def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,

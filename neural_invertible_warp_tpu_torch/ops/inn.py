@@ -8,7 +8,7 @@ MLP_b of the embedded new focus coordinate. Hidden layers use weight norm
 with explicit (v, g, b) parameters; output layers start at zero, so the
 warp starts as the identity. Parameter names follow the reference
 state_dict: ``lin{b}_a_{l}``, ``lin{b}_b_{l}``, ``lin{b}_c``.
-Only the forward warp is ported (the inverse is ROADMAP M8's).
+Only the forward warp is ported (the inverse is ROADMAP M3's).
 """
 
 from __future__ import annotations

@@ -51,9 +51,18 @@ def to_hom(X):
     return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
 
 
+def world2cam(X, pose):
+    """Apply a w2c pose to points: [...,N,3], [...,3,4] -> [...,N,3]."""
+    return to_hom(X) @ pose.transpose(-1, -2)
+
+
 def cam2world(X, pose):
     """Apply the inverse of a w2c pose: [...,N,3], [...,3,4] -> [...,N,3]."""
     return to_hom(X) @ invert_pose(pose).transpose(-1, -2)
+
+
+def cam2img(X, intr):
+    return X @ intr.transpose(-2, -1)
 
 
 def img2cam(X, intr):
@@ -72,3 +81,30 @@ def pose_distance(pose_a, pose_b):
     R_err = rotation_distance(pose_a[..., :3], pose_b[..., :3])
     t_err = torch.linalg.norm(pose_a[..., 3] - pose_b[..., 3], dim=-1)
     return R_err, t_err
+
+
+def angle_to_rotation_matrix(a, axis):
+    """Euler rotation around X/Y/Z for angles ``a`` [...] -> [...,3,3]."""
+    roll = dict(X=1, Y=2, Z=0)[axis]
+    O = torch.zeros_like(a)
+    I = torch.ones_like(a)
+    M = torch.stack([
+        torch.stack([torch.cos(a), -torch.sin(a), O], dim=-1),
+        torch.stack([torch.sin(a), torch.cos(a), O], dim=-1),
+        torch.stack([O, O, I], dim=-1),
+    ], dim=-2)
+    return torch.roll(M, (roll, roll), dims=(-2, -1))
+
+
+def get_novel_view_poses(pose_anchor, N=60, scale=1.0):
+    """Circular novel-view trajectory [N,3,4] around an anchor camera [3,4]."""
+    dev = pose_anchor.device
+    theta = torch.arange(N, dtype=torch.float32, device=dev) / N * 2 * torch.pi
+    R_x = angle_to_rotation_matrix(torch.arcsin(torch.sin(theta) * 0.05), "X")
+    R_y = angle_to_rotation_matrix(torch.arcsin(torch.cos(theta) * 0.05), "Y")
+    pose_rot = make_pose(R=R_y @ R_x)
+    pose_shift = make_pose(t=torch.tensor([0.0, 0.0, -4.0 * scale], device=dev))
+    pose_shift2 = make_pose(t=torch.tensor([0.0, 0.0, 3.8 * scale], device=dev))
+    pose_oscil = compose([pose_shift.expand_as(pose_rot), pose_rot,
+                          pose_shift2.expand_as(pose_rot)])
+    return compose([pose_oscil, pose_anchor.expand_as(pose_rot)])

@@ -35,3 +35,10 @@ def composite(ray, rgb_samples, density_samples, depth_samples,
     if setbg_opaque:
         out_rgb = out_rgb + bgcolor * (1 - opacity)
     return out_rgb, out_depth, opacity, prob
+
+
+def invdepth_map(depth, opacity, ndc=False, eps=1e-10):
+    """Inverse-depth visualization map of a rendered depth and opacity."""
+    if ndc:
+        return (1 - depth) / opacity
+    return 1.0 / (depth / opacity + eps)

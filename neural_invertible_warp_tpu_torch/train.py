@@ -4,8 +4,10 @@
         --yaml=barf_inn_llff --barf_c2f=[0.1,0.5] --data.scene=fern \\
         --loss_weight.global_alignment=4
 
-Same CLI surface as the JAX package's ``train.py``; runs on the first CUDA
-device, or on the CPU through the plain PyTorch paths when there is none.
+Same CLI surface as the JAX package's ``train.py`` (``--resume`` and
+``--load=<ckpt>`` included). Runs on the first CUDA device; ``--device=cpu``
+runs the plain PyTorch paths instead. Without a CUDA device and without that
+flag it fails.
 """
 
 from __future__ import annotations
@@ -16,12 +18,12 @@ import torch
 
 
 def main(argv=None):
-    from .config import set_options
+    from .config import pop_device, set_options
     from .models.engine import log, run_training
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opt = set_options(sys.argv[1:] if argv is None else argv)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device, argv = pop_device(sys.argv[1:] if argv is None else argv)
+    opt = set_options(argv)
     log("device: {}".format(device))
     return run_training(opt, device)
 

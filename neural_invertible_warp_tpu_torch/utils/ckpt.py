@@ -7,7 +7,8 @@ each a pickled ``dict(iter, state)`` of numpy arrays, where ``state`` is the
 JAX system's state tree: ``params`` (through the weight bridge), ``opt_state``
 per label as optax's adam state ``((count, mu, nu), (count,))`` with mu and nu
 raveled over the label's params in JAX leaf order, ``step`` and ``aux``.
-The JAX package's ``restore_checkpoint`` loads it into its own state.
+The JAX package's ``restore_checkpoint`` loads it into its own state, and
+``restore`` here loads a file written by either package into a port system.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ import os
 import pickle
 
 import numpy as np
+import torch
 
-from .weights import to_jax_params
+from . import log
+from .weights import from_jax_params, to_jax_params
 
 
 def ravel_like_jax(tree):
@@ -67,3 +70,85 @@ def save(output_path, system, it, latest_name="model.ckpt"):
         pickle.dump(payload, f)
     os.replace(tmp, latest)
     return numbered
+
+
+def unravel_like_jax(flat, template):
+    """Inverse of ``ravel_like_jax``: cut ``flat`` into arrays shaped and
+    nested like ``template``."""
+    flat = np.asarray(flat, np.float32)
+    pos = 0
+
+    def walk(x):
+        nonlocal pos
+        if isinstance(x, dict):
+            return {k: walk(x[k]) for k in sorted(x)}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        n = int(np.size(x))
+        out = flat[pos:pos + n].reshape(np.shape(x))
+        pos += n
+        return out
+    tree = walk(template)
+    if pos != flat.size:
+        raise ValueError("optimizer state has {} entries, the parameters {}".format(
+            flat.size, pos))
+    return tree
+
+
+class _Tuple(tuple):
+    """Stands in for optax's state namedtuples when a checkpoint written by
+    the JAX package is unpickled: the fields in order, as a tuple."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _Unpickler(pickle.Unpickler):
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "optax":
+            return _Tuple
+        return super().find_class(module, name)
+
+
+def load_state_tree(system, state):
+    """Load a JAX-layout state tree into a port system: parameters through
+    the weight bridge (a top-level group the file lacks keeps its init),
+    Adam moments and count, the step and the aux state."""
+    template = to_jax_params(system.graph)
+    missing = [k for k in template if k not in state["params"]]
+    for k in missing:
+        log.warn("checkpoint missing key '{}'; keeping init".format(k))
+    system.graph.load_state_dict(from_jax_params(state["params"]), strict=not missing)
+    named = dict(system.graph.named_parameters())
+    for label, keys in system.label_keys().items():
+        if label == "frozen" or label not in state.get("opt_state", {}):
+            continue
+        (count, mu, nu), _ = state["opt_state"][label]
+        sub = {k: template[k] for k in keys}
+        mu_sd = from_jax_params(unravel_like_jax(mu, sub))
+        nu_sd = from_jax_params(unravel_like_jax(nu, sub))
+        for name in mu_sd:
+            system.optim.load_moments(named[name], mu_sd[name], nu_sd[name], int(count))
+    system.step = int(state["step"])
+    for k in system.aux:
+        if k in state.get("aux", {}):
+            system.aux[k] = torch.as_tensor(np.asarray(state["aux"][k]),
+                                            device=system.device)
+
+
+def restore(output_path, system, resume=True, load_name=None):
+    """Load a checkpoint into ``system``. ``resume=True`` loads the latest,
+    an integer that numbered snapshot; ``load_name`` an explicit path.
+    Returns the checkpoint's iteration."""
+    if load_name is not None:
+        path = load_name
+    elif resume is True:
+        path = os.path.join(output_path, "model.ckpt")
+    else:
+        path = os.path.join(output_path, "model", "{}.ckpt".format(int(resume)))
+    with open(path, "rb") as f:
+        payload = _Unpickler(f).load()
+    load_state_tree(system, payload["state"])
+    log.info("restored checkpoint {} (iter {})".format(path, payload["iter"]))
+    return payload["iter"]

@@ -57,3 +57,12 @@ class MultiAdam:
         if not st:
             return torch.zeros_like(param), torch.zeros_like(param)
         return st["exp_avg"], st["exp_avg_sq"]
+
+    def load_moments(self, param, exp_avg, exp_avg_sq, count):
+        """Set a parameter's Adam moments and the update count (restoring a
+        checkpoint); the count is also what Adam's bias correction reads."""
+        self.opt.state[param] = dict(
+            step=torch.tensor(float(count)),
+            exp_avg=exp_avg.to(param.device, param.dtype).clone(),
+            exp_avg_sq=exp_avg_sq.to(param.device, param.dtype).clone())
+        self.count = int(count)

@@ -2,9 +2,10 @@
 ``nn.Module`` state_dicts.
 
 ``from_jax_params(tree)`` maps a JAX params dict (top-level groups ``nerf``,
-``warp_mlp``, ``warp_latent``) of numpy arrays to a state_dict keyed as the
+``se3_refine``, ``warp_mlp``, ``warp_latent``) of numpy arrays to a state_dict keyed as the
 reference torch Graph (``nerf.mlp_feat.i.weight``,
-``warp_mlp.lin{b}_a_{l}.weight_v``, ``warp_latent.weight``, ...);
+``se3_refine.weight``, ``warp_mlp.lin{b}_a_{l}.weight_v``,
+``warp_latent.weight``, ...);
 ``to_jax_params(module)`` is its inverse and returns numpy arrays. JAX
 stores linear weights [in, out], torch [out, in].
 """
@@ -90,13 +91,15 @@ def from_jax_params(tree):
         sd.update(nerf_from_jax(tree["nerf"], prefix="nerf."))
     if "warp_mlp" in tree:
         sd.update(deform_from_jax(tree["warp_mlp"], prefix="warp_mlp."))
-    if "warp_latent" in tree:
-        sd["warp_latent.weight"] = _t(tree["warp_latent"])
+    for name in ("se3_refine", "warp_latent"):    # per-image embedding tables
+        if name in tree:
+            sd[name + ".weight"] = _t(tree[name])
     return sd
 
 
 def to_jax_params(module, get=_ident):
-    """The port's Graph module (children nerf, warp_mlp, warp_latent) ->
+    """The port's Graph module (children nerf, se3_refine, warp_mlp,
+    warp_latent) ->
     JAX params dict of numpy arrays. ``get`` maps each parameter to the
     tensor to export (the parameter itself by default; the checkpoint uses
     it to export Adam moments in the same layout)."""
@@ -105,6 +108,7 @@ def to_jax_params(module, get=_ident):
         tree["nerf"] = nerf_to_jax(module.nerf, get)
     if hasattr(module, "warp_mlp"):
         tree["warp_mlp"] = deform_to_jax(module.warp_mlp, get)
-    if hasattr(module, "warp_latent"):
-        tree["warp_latent"] = _np(get(module.warp_latent.weight))
+    for name in ("se3_refine", "warp_latent"):
+        if hasattr(module, name):
+            tree[name] = _np(get(getattr(module, name).weight))
     return tree

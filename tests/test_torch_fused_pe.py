@@ -1,8 +1,8 @@
-"""The plain versions of the port's K2/K3 (neural_invertible_warp_tpu_torch/
+"""The plain versions of the port's K2/K3/K4 (neural_invertible_warp_tpu_torch/
 ops/cuda/fused_pe.py) against the JAX package's Pallas kernels run in
-interpret mode on the CPU (fused_render_rays_pe_train / fused_render_rays_pe),
-at the shapes of tests/test_fused_pe.py: 2 x 3 rays, K = 128, full width,
-R_BLK = 2 (three grid steps, so the kernels' dW accumulation runs).
+interpret mode on the CPU (fused_render_rays_pe_train, fused_render_rays_pe
+and its VJP), at the shapes of tests/test_fused_pe.py: 2 x 3 rays, K = 128,
+full width, R_BLK = 2 (three grid steps, so the kernels' dW accumulation runs).
 
 Tolerances mirror tests/test_fused_pe.py. With power-of-two depths,
 center + ray * depth is exact on both sides, so values and every gradient
@@ -168,6 +168,83 @@ def test_fwd_plain_matches_pallas(setup, small_blocks, n_img, c2f):
                                    err_msg=name)
 
 
+K4_CASES = [  # (name, images, c2f, bgcolor, density activation)
+    ("c2f", 2, C2F, None, "softplus"),
+    ("all bands", 2, None, None, "softplus"),
+    ("background", 2, C2F, 1.0, "softplus"),
+    ("ragged", 1, C2F, None, "softplus"),
+    ("relu density", 2, C2F, None, "relu"),
+]
+
+
+@pytest.mark.parametrize("case,n_img,c2f,bg,activ", K4_CASES,
+                         ids=[c[0].replace(" ", "_") for c in K4_CASES])
+def test_bwd_plain_matches_pallas_exact(setup, small_blocks, case, n_img, c2f, bg, activ):
+    """K4's plain version (autograd through the port's CPU wrapper) against
+    the Pallas backward kernel in interpret mode (jax.vjp of
+    fused_render_rays_pe), for a cotangent on rgb, depth and opacity:
+    dcenter, dray and all 20 weight leaves. Power-of-two depths, so the
+    points agree exactly; tolerances as
+    tests/test_fused_pe.py::test_composited_gradient_parity_exact: rtol 5e-3
+    with atol 1e-6 (center, ray) and 5e-6 (weight leaves), for fp32
+    summation order."""
+    params, mlp, center, ray = setup
+    c, r = center[:n_img], ray[:n_img]
+    depth = _exact_depth(13, n_img, 3)
+    rng = np.random.RandomState(13)
+    cot = [rng.randn(n_img, 3, 3).astype(np.float32),
+           (rng.randn(n_img, 3, 1) * 0.1).astype(np.float32),
+           rng.randn(n_img, 3, 1).astype(np.float32)]
+    kw = dict(progress=PROGRESS, barf_c2f=c2f, setbg_opaque=bg is not None, bgcolor=bg,
+              density_activ=activ)
+
+    out_j, vjp = jax.vjp(
+        lambda p, cc, rr: jfp.fused_render_rays_pe(
+            p, ARCH, cc, rr, jnp.asarray(depth), interpret=True, **kw),
+        params, jnp.asarray(c), jnp.asarray(r))
+    g_j = vjp(tuple(jnp.asarray(x) for x in cot))
+
+    c_t = torch.tensor(c, requires_grad=True)
+    r_t = torch.tensor(r, requires_grad=True)
+    out_t = fp.fused_render_rays_pe(mlp, c_t, r_t, torch.tensor(depth), **kw)
+    grads = torch.autograd.grad(out_t, [c_t, r_t] + list(mlp.parameters()),
+                                [torch.tensor(x) for x in cot])
+    for name, a, b in zip(("rgb", "depth", "opacity"), out_t, out_j):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(g_j[1]), rtol=5e-3, atol=1e-6)
+    np.testing.assert_allclose(grads[1].numpy(), np.asarray(g_j[2]), rtol=5e-3, atol=1e-6)
+    g_w = weights.nerf_to_jax(mlp, get=dict(zip(mlp.parameters(), grads[2:])).__getitem__)
+    leaves_j = jax.tree_util.tree_leaves_with_path(g_j[0])
+    leaves_t = jax.tree_util.tree_leaves(g_w)
+    assert len(leaves_j) == len(leaves_t) == 20
+    for (path, a), b in zip(leaves_j, leaves_t):
+        assert np.abs(np.asarray(a)).max() > 0, jax.tree_util.keystr(path)
+        np.testing.assert_allclose(b, np.asarray(a), rtol=5e-3, atol=5e-6,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_backward_plain_is_the_wrappers_vjp(setup):
+    """``render_rays_backward_plain`` (what the card holds K4 against) is the
+    VJP of the CPU wrapper, with and without the weight gradients."""
+    _, mlp, center, ray = setup
+    c = torch.tensor(center).reshape(-1, 3)
+    r = torch.tensor(ray).reshape(-1, 3)
+    depth = torch.tensor(_exact_depth(3, 2, 3)).reshape(6, 128)
+    g8 = torch.randn(6, 8, generator=torch.Generator().manual_seed(1))
+    c_t, r_t = c.clone().requires_grad_(True), r.clone().requires_grad_(True)
+    rgb, d, op = fp.fused_render_rays_pe(mlp, c_t[None], r_t[None], depth[None, ..., None],
+                                         progress=PROGRESS, barf_c2f=C2F)
+    ref = torch.autograd.grad([rgb, d, op], [c_t, r_t] + list(mlp.parameters()),
+                              [g8[None, :, :3], g8[None, :, 3:4], g8[None, :, 4:5]])
+    dc, dr, dws = fp.render_rays_backward_plain(mlp, c, r, depth, g8, PROGRESS, C2F)
+    for a, b in zip([dc, dr] + dws, ref):
+        assert torch.equal(a, b)
+    dc2, dr2, none = fp.render_rays_backward_plain(mlp, c, r, depth, g8, PROGRESS, C2F,
+                                                   want_dw=False)
+    assert torch.equal(dc2, dc) and torch.equal(dr2, dr) and none == []
+
+
 def test_pack_unpack_roundtrip(setup):
     """The kernels' weight layout: unpacking the packed weights as if they
     were gradients gives back every parameter, in ``parameters()`` order."""
@@ -197,6 +274,7 @@ def test_cpu_wrappers_run_plain_and_launch_nothing(setup):
     _, mlp, center, ray = setup
     n_train = fp.fused_render_rays_pe_train.launches
     n_fwd = fp.fused_render_rays_pe.launches
+    n_bwd = fp.fused_render_rays_pe.backward_launches
     depth = torch.tensor(_exact_depth(3, 2, 3))
     target = torch.rand(2, 3, 3, generator=torch.Generator().manual_seed(0))
     c, r = torch.tensor(center), torch.tensor(ray)
@@ -208,11 +286,15 @@ def test_cpu_wrappers_run_plain_and_launch_nothing(setup):
     assert torch.equal(out["rgb"].reshape(-1, 3), out_ref[:, :3].detach())
     with torch.no_grad():
         fp.fused_render_rays_pe(mlp, c, r, depth)
+    c.requires_grad_(True)
+    fp.fused_render_rays_pe(mlp, c, r, depth)[0].sum().backward()
+    assert c.grad is not None
     assert fp.fused_render_rays_pe_train.launches == n_train
     assert fp.fused_render_rays_pe.launches == n_fwd
+    assert fp.fused_render_rays_pe.backward_launches == n_bwd
 
 
-@pytest.mark.parametrize("launch", ["fwd", "train"])
+@pytest.mark.parametrize("launch", ["fwd", "train", "bwd"])
 def test_kernel_launchers_reject_cpu_tensors(setup, launch):
     """The launchers take CUDA tensors only; on CPU tensors they raise
     before any pointer reaches the kernel library."""
@@ -222,6 +304,9 @@ def test_kernel_launchers_reject_cpu_tensors(setup, launch):
     with pytest.raises(ValueError, match="CUDA"):
         if launch == "fwd":
             fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
+        elif launch == "bwd":
+            fp.launch_rm_bwd(mlp, c, r, d, torch.zeros(2, 8), w3, wv, torch.zeros(4),
+                             fp.pack_weights(mlp))
         else:
             fp.launch_rm_train(mlp, c, r, d, torch.zeros(2, 8), w3, wv)
 

@@ -144,6 +144,54 @@ def test_step0_loss_and_every_gradient(systems):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+def test_step0_without_the_one_call_train_kernel(systems, monkeypatch):
+    """``tpu.fused_train: false`` sends training through the forward render
+    and its backward (K3 + K4 on the card) instead of the one-call train
+    kernel (K2). On the CPU both routes are the plain chain: the loss and
+    every gradient leaf must agree between the two routes (1e-6 of the
+    leaf's largest entry: the squared error is summed in another order) and
+    with the JAX system (the tolerances of the test above)."""
+    jsys, state, psys = systems
+    opt = jsys.opt
+    n_rays, K = opt.nerf.rand_rays // N_IMG, opt.nerf.sample_intvs
+    key = jax.random.PRNGKey(42)
+    ray_u, depth_rand = _draws(key, n_rays, K)
+    k_perm, k_render = jax.random.split(key)
+    ray_idx = jsampling.sample_ray_subset(k_perm, H * W, n_rays, mode="stratified")
+    idx_t = torch.from_numpy(np.array(ray_idx)).long()
+
+    def port_step0(fused_train):
+        monkeypatch.setitem(psys.opt.tpu, "fused_train", fused_train)
+        psys.optim.zero_grad()
+        out, target, extras = psys._forward_train(idx_t, psys.step, torch.tensor(depth_rand))
+        assert ("render_sq_sum" in out) == fused_train
+        losses = psys.compute_loss(out, target, extras)
+        total = psys.summarize_loss(losses)
+        total.backward()
+        return (float(total.detach()), {k: float(v.detach()) for k, v in losses.items()},
+                weights.to_jax_params(psys.graph, get=lambda p: p.grad.clone()))
+    total_k2, losses_k2, g_k2 = port_step0(True)
+    total_k34, losses_k34, g_k34 = port_step0(False)
+    np.testing.assert_allclose(total_k34, total_k2, rtol=1e-6)
+    for k in losses_k2:
+        np.testing.assert_allclose(losses_k34[k], losses_k2[k], rtol=1e-6, err_msg=k)
+
+    def loss_fn(params):
+        out, target, extras = jsys._forward_train(params, state["aux"], jsys.train_data,
+                                                  ray_idx, k_render, state["step"])
+        return jsys.summarize_loss(jsys.compute_loss(
+            params, state["aux"], jsys.train_data, out, target, state["step"], extras))
+    total_j, g_j = jax.value_and_grad(loss_fn)(state["params"])
+    np.testing.assert_allclose(total_k34, float(total_j), rtol=1e-5)
+    for (path, a), b, c in zip(_leaves(g_j), jax.tree_util.tree_leaves(g_k34),
+                               jax.tree_util.tree_leaves(g_k2)):
+        a, name = np.asarray(a), jax.tree_util.keystr(path)
+        np.testing.assert_allclose(b, c, rtol=1e-5, atol=1e-6 * np.abs(c).max() + 1e-12,
+                                   err_msg=name)
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5 * np.abs(a).max() + 1e-9,
+                                   err_msg=name)
+
+
 def test_adam_step_then_step1_loss_and_checkpoint(systems, tmp_path):
     jsys, state, psys = systems
     opt = jsys.opt
