@@ -9,6 +9,12 @@ torch.profiler (CPU and CUDA activities):
   refine  20 iterations of test-time pose refinement after 5 (K3 under
           autograd, K4 with the weights frozen, Adam on one se(3));
   render  one full-image render (150 chunks through K3).
+Then the fine-sampling system (nerf, nerf_llff_repr at full width: 64 + 128
+samples, 1024 rays, two fields), two windows:
+  fine train   10 train steps after 20 (K2 at 64 samples returning the
+               compositing weights, the resample, K2 at 192 samples);
+  fine render  one full-image render (300 chunks, K5 at 64 and at 192
+               samples each, compositing and the resample in PyTorch).
 For each window it prints the wall time per unit (host clock,
 device-synced, taken without the profiler), the device-busy time per unit
 (the sum of the durations of all device kernels and copies in the trace),
@@ -29,6 +35,7 @@ import chip_smoke as cs
 
 N_WARM_STEPS, N_TRAIN_STEPS = 30, 10
 N_WARM_REFINE, N_REFINE = 5, 20
+N_WARM_FINE = 20
 TOP = 12
 
 
@@ -76,6 +83,13 @@ def window(label, unit, n_units, fn):
         print("  {:9.3f} ms per {}  {}".format(t / 1e3 / n_units, unit, short(name)))
 
 
+def train_steps(system):
+    def train():
+        for _ in range(N_TRAIN_STEPS):
+            system.train_step()
+    return train
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
@@ -100,10 +114,7 @@ def main():
     for _ in range(N_WARM_STEPS):
         system.train_step()
 
-    def train():
-        for _ in range(N_TRAIN_STEPS):
-            system.train_step()
-    window("train", "step", N_TRAIN_STEPS, train)
+    window("train", "step", N_TRAIN_STEPS, train_steps(system))
 
     system.prealign()
     intr, pixels = system.train_data["intr"][:1], system.train_data["pixels"][:1]
@@ -120,6 +131,27 @@ def main():
 
     n_chunks = -(-H * W // opt.nerf.rand_rays)
     window("render", "chunk", n_chunks, lambda: system.render_image(pose, intr, progress))
+
+    del trainer, system
+    torch.cuda.empty_cache()
+    from neural_invertible_warp_tpu_torch.nerf_llff_repr import nerf_llff_repr_options
+    opt = nerf_llff_repr_options()
+    opt.data.image_size = list(cs.IMAGE_HW)
+    opt.output_root = os.path.join(cs.HERE, "build", "chip_profile_run_fine")
+    process_options(opt)
+    trainer = Trainer(opt, device)
+    trainer.build_system(cs.make_scene(H, W, cs.FINE_N_TRAIN, seed=2),
+                         cs.make_scene(H, W, cs.N_VAL, seed=3))
+    system = trainer.system
+    print("profile: nerf (nerf_llff_repr), {} train views at {}x{}, {} + {} samples, {} rays; "
+          "card: {}".format(cs.FINE_N_TRAIN, H, W, opt.nerf.sample_intvs,
+                            opt.nerf.sample_intvs_fine, opt.nerf.rand_rays, cs.card_line()))
+    for _ in range(N_WARM_FINE):
+        system.train_step()
+    window("fine train", "step", N_TRAIN_STEPS, train_steps(system))
+    pose, intr = system.test_data["pose"][:1], system.test_data["intr"][:1]
+    n_chunks = -(-H * W // opt.nerf.rand_rays)
+    window("fine render", "chunk", n_chunks, lambda: system.render_image(pose, intr))
 
 
 if __name__ == "__main__":

@@ -27,7 +27,21 @@ Phases, one or more lines each:
      of the validation view, PSNR, SSIM (held against the CPU's), LPIPS
      (unavailable without weights), quant.txt and quant_pose.txt; then a
      training view turned by a known rotation is refined back: its rotation
-     error must fall and its PSNR rise.
+     error must fall and its PSNR rise;
+  6. field kernels: the per-sample field kernels K5 (PE inside) and K1 (PE
+     in PyTorch), forward and forward + backward through the wrappers the
+     fine-sampling tiers call, with the compositing in PyTorch under
+     autograd, against the plain chain at [1,1024] rays x 64 and x 192
+     samples (softplus and relu density, with and without density noise, a
+     ragged ray count); K1's dxp and dview directly; K2 with its noise
+     operand and its compositing-weights output at both sample counts;
+  7. fine slice: vanilla NeRF with fine sampling (nerf_llff_repr at full
+     width: two 8x256 fields, 64 + 128 samples, 1024 rays, relu density,
+     density noise) trains through the Trainer (two K2 calls per step),
+     renders the validation view (two K5 calls per chunk) and holds it
+     against the plain render of the same chunks and samples, takes a few
+     steps each in the fallback tier (K5 forward + backward, K2) and the
+     MLP-only tier (K1 forward + backward), and evaluates one view.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -107,6 +121,40 @@ MIN_REFINED_PSNR_GAIN = 1.0
 # PSNR floor of a training view rendered at its pose readout after the slice
 # (reads 36.3 dB on an H100; PERF.md, Findings)
 MIN_TRAIN_VIEW_PSNR = 30.0
+
+
+# The fine-sampling slice (nerf_llff_repr): views, steps per tier, and the
+# kernel-vs-plain cases of its field kernels. Depths lie in [0, 1], so the
+# PE's arguments stay small and dcenter/dray are well conditioned: every
+# softplus case is held to 1e-5 of the max, except dcenter/dray under the
+# signed test loss of the K5/K1 cases: all ten PE bands are open (the nerf
+# configs have no c2f), so the 2^9*pi band multiplies every rounding
+# difference of the points, and the random signs make the per-ray sums
+# cancel; they read up to 1.7e-5 on an H100 and are held to 5e-5, as K4's
+# weight gradients are under the same loss. With relu density, and above
+# all with density noise (which puts many pre-activations near 0), a sample
+# whose pre-activation rounds to the other side of 0 in one of the two fp32
+# evaluations changes its gradient by a finite amount, so element-wise
+# bounds mean nothing there: each gradient leaf is held to a relative L2
+# error below 1e-2, as the JAX package's own kernel tests hold it.
+FINE_N_TRAIN = 16
+FINE_STEPS = 60
+FINE_TIER_STEPS = 5
+FINE_K = (64, 192)
+FINE_RAYS = 1024
+TOL_RELU_REL_L2 = 1e-2
+TOL_FIELD_INPUT_GRAD = 5e-5
+NOISE_REG = 1.0
+# (name, rays, samples, density activation, density noise)
+K5_CASES = [("{} {}{}".format(K_, activ, ", noise" if noise else ""), FINE_RAYS, K_,
+             activ, noise)
+            for K_ in FINE_K for activ in ("softplus", "relu") for noise in (False, True)
+            ] + [("ragged relu, noise", 37, 64, "relu", True)]
+K1_CASES = [("{} {}".format(K_, activ), FINE_RAYS, K_, activ, False)
+            for K_ in FINE_K for activ in ("softplus", "relu")
+            ] + [("ragged relu", 37, 64, "relu", False)]
+K2_NOISE_CASES = [("{} {}, noise, prob".format(K_, activ), FINE_RAYS, K_, activ, True)
+                  for K_ in FINE_K for activ in ("softplus", "relu")]
 
 
 def check(ok, msg):
@@ -701,6 +749,414 @@ def phase_eval(trainer, device):
     return launches
 
 
+# ------------------------------------------- the per-sample field kernels
+
+def fine_batch(R, n_samples, seed, device):
+    """Rays [1,R,3], stratified metric depths [1,R,K,1] in [0,1] (the
+    nerf_llff_repr range), targets [1,R,3], a standard-normal noise draw
+    [1,R,K] and coefficients (a, b, c) of the test loss."""
+    from neural_invertible_warp_tpu_torch.ops import sampling
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    center = torch.randn(1, R, 3, generator=g) * 0.05
+    xy = (torch.rand(1, R, 2, generator=g) - 0.5) * 1.2
+    ray = torch.cat([xy, torch.ones(1, R, 1)], dim=-1)
+    depth = sampling.sample_depth(1, R, n_samples, (0.0, 1.0), generator=g)
+    target = torch.rand(1, R, 3, generator=g)
+    noise = torch.randn(1, R, n_samples, generator=g)
+    coeffs = [torch.randn(1, R, 3, generator=g), torch.randn(1, R, 1, generator=g),
+              torch.randn(1, R, 1, generator=g)]
+    return [t.to(device) for t in (center, ray, depth, target, noise)], \
+        [t.to(device) for t in coeffs]
+
+
+def field_fn(which):
+    """The per-sample field as the tiers call it: "k5", "k1" or "plain"."""
+    from neural_invertible_warp_tpu_torch.ops import nerf_mlp
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    if which == "k5":
+        return fp.fused_apply_nerf_samples_pe
+    if which == "k1":
+        return lambda mlp, c, r, d, noise=None, **kw: ff.fused_apply_nerf_samples(
+            mlp, c, r, d, **kw)
+    return nerf_mlp.apply_nerf_samples
+
+
+def field_grads(which, mlp, center, ray, depth, noise, coeffs, activ):
+    """(rgb_s, density, loss, [dcenter, dray] + weight gradients): the field
+    per sample, composited in PyTorch under autograd as the fallback and
+    MLP-only tiers composite it, under the signed test loss of K4's cases."""
+    from neural_invertible_warp_tpu_torch.ops import render
+    c = center.clone().requires_grad_(True)
+    r = ray.clone().requires_grad_(True)
+    rgb_s, dens = field_fn(which)(mlp, c, r, depth, density_activ=activ, noise=noise)
+    rgb, d, op, _ = render.composite(r, rgb_s, dens, depth)
+    loss = k4_loss(rgb, d, op, coeffs)
+    grads = torch.autograd.grad(loss, [c, r] + list(mlp.parameters()))
+    return rgb_s.detach(), dens.detach(), loss.detach(), grads
+
+
+def compare_leaves(label, names, got, ref, tol, rel_l2, failures):
+    """One line for a list of gradient leaves: the worst leaf's error, as max
+    |got - ref| over max |ref|, or with ``rel_l2`` as |got - ref|_2 over
+    |ref|_2. Returns the worst max-abs error."""
+    worst, worst_name, worst_abs = 0.0, names[0], 0.0
+    for name, g, r in zip(names, got, ref):
+        g, r = g.detach().float(), r.detach().float()
+        check(g.shape == r.shape, "{}: shape {} != {}".format(name, g.shape, r.shape))
+        check(bool(torch.isfinite(g).all()), "{}: kernel output is not finite".format(name))
+        if rel_l2:
+            err = float(torch.linalg.norm(g - r)) / max(float(torch.linalg.norm(r)), 1e-30)
+        else:
+            err = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        worst_abs = max(worst_abs, float((g - r).abs().max()))
+        if err >= worst:
+            worst, worst_name = err, name
+    ok = worst <= tol
+    print("  {:<14} worst of {} leaves: {} {:.3e} ({})  tol {:.0e}  {}".format(
+        label, len(names), "rel_l2" if rel_l2 else "rel_to_max", worst, worst_name, tol,
+        "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("{} {}".format(label, worst_name))
+    return worst_abs
+
+
+def timed_field(which, mlp, center, ray, depth, noise, activ, backward):
+    """Median ms of the field forward without autograd, or of the backward
+    alone (with weight gradients) under a fixed per-sample cotangent."""
+    fn = field_fn(which)
+    if not backward:
+        def fwd():
+            with torch.no_grad():
+                fn(mlp, center, ray, depth, density_activ=activ, noise=noise)
+        return time_ms(fwd)
+    c = center.clone().requires_grad_(True)
+    r = ray.clone().requires_grad_(True)
+    rgb_s, dens = fn(mlp, c, r, depth, density_activ=activ, noise=noise)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    g_rgb = torch.randn(rgb_s.shape, generator=g).to(rgb_s.device)
+    g_dens = torch.randn(dens.shape, generator=g).to(dens.device)
+    loss = (rgb_s * g_rgb).sum() + (dens * g_dens).sum()
+    wrt = [c, r] + list(mlp.parameters())
+    return time_ms(lambda: torch.autograd.grad(loss, wrt, retain_graph=True))
+
+
+def phase_kernels_field(mlp, device):
+    """K5 and K1 through the wrappers the fine-sampling tiers call, and K2
+    with its noise and prob operands, against their plain versions.
+    Returns the JSON records of K5 fwd/bwd and K1 fwd/bwd."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import build
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    names = ["dcenter", "dray"] + ["d" + n.replace("mlp_", "")
+                                   for n, _ in mlp.named_parameters()]
+    failures = []
+    records = {k: dict(max_abs_err=0.0, library_ms=None)
+               for k in ("k5_fwd", "k5_bwd", "k1_fwd", "k1_bwd")}
+    weights = fp.pack_weights(mlp)
+    for which, cases in (("k5", K5_CASES), ("k1", K1_CASES)):
+        for i, (case, R, n_samples, activ, noisy) in enumerate(cases):
+            (center, ray, depth, _, noise), coeffs = fine_batch(R, n_samples, 50 + i, device)
+            noise = noise * NOISE_REG if noisy else None
+            print("kernels: {} field wrapper + compositing in PyTorch, {}: [1,{}] rays x {} "
+                  "samples".format(which.upper(), case, R, n_samples))
+            args = (mlp, center, ray, depth, noise, coeffs, activ)
+            rgb_k, dens_k, loss_k, grads_k = field_grads(which, *args)
+            rgb_p, dens_p, loss_p, grads_p = field_grads("plain", *args)
+            err = compare("rgb", rgb_k, rgb_p, TOL["value"], failures)
+            compare("density", dens_k, dens_p, TOL["value"], failures)
+            compare("loss", loss_k, loss_p, TOL["value"], failures)
+            rel_l2 = activ == "relu"
+            compare_leaves("dcenter, dray", names[:2], grads_k[:2], grads_p[:2],
+                           TOL_RELU_REL_L2 if rel_l2 else TOL_FIELD_INPUT_GRAD, rel_l2,
+                           failures)
+            err_g = compare_leaves("weight grads", names[2:], grads_k[2:], grads_p[2:],
+                                   TOL_RELU_REL_L2 if rel_l2 else TOL["grad"], rel_l2,
+                                   failures)
+            if R == FINE_RAYS:
+                records[which + "_fwd"]["max_abs_err"] = max(
+                    records[which + "_fwd"]["max_abs_err"], err)
+                records[which + "_bwd"]["max_abs_err"] = max(
+                    records[which + "_bwd"]["max_abs_err"], err_g)
+    # K1's own input cotangents, at the encoded inputs of a K = 64 batch
+    (center, ray, depth, _, _), _ = fine_batch(FINE_RAYS, 64, 70, device)
+    from neural_invertible_warp_tpu_torch.ops import nerf_mlp
+    with torch.no_grad():
+        xp, view = mlp.encode(*nerf_mlp.sample_points(center, ray, depth))
+    xp, view = xp.reshape(-1, 63), view.reshape(-1, 27).contiguous()
+    g_out = torch.randn(xp.shape[0], 4, generator=torch.Generator().manual_seed(6)).to(device)
+    print("kernels: K1 on encoded inputs [{},63], [{},27], softplus: dxp, dview".format(
+        xp.shape[0], xp.shape[0]))
+    grads = []
+    for fn in (ff.fused_mlp, ff.mlp_plain):
+        x, v = xp.clone().requires_grad_(True), view.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(mlp, x, v), [x, v], g_out))
+    for name, gk, gp in zip(("dxp", "dview"), *grads):
+        compare(name, gk, gp, TOL["grad"], failures)
+
+    # times and bounds at the main path's shapes: relu density, K5 with noise
+    for which, noisy in (("k5", True), ("k1", False)):
+        for n_samples in FINE_K:
+            (center, ray, depth, _, noise), _ = fine_batch(FINE_RAYS, n_samples, 80, device)
+            noise = noise * NOISE_REG if noisy else None
+            sfx = "" if n_samples == FINE_K[0] else "_k{}".format(n_samples)
+            N = FINE_RAYS * n_samples
+            out = torch.empty(N, 4, device="meta")
+            if which == "k5":
+                ins = [center, ray, depth, noise]
+                douts = [center, ray]
+            else:
+                ins = [torch.empty(N, 63, device="meta"), torch.empty(N, 27, device="meta")]
+                douts = ins
+            cache = torch.empty(build.load_library().lib.niw_field_pe_fwd_workspace_floats(
+                N, 1), device="meta")   # the kept activations the backward reads
+            for rec, backward in ((records[which + "_fwd"], False),
+                                  (records[which + "_bwd"], True)):
+                rec["ms" + sfx] = timed_field(which, mlp, center, ray, depth, noise, "relu",
+                                              backward)
+                rec["plain_ms" + sfx] = timed_field("plain", mlp, center, ray, depth, noise,
+                                                    "relu", backward)
+                if backward:   # input- and weight-gradient products
+                    b = bound(2 * 2 * MACS_PER_SAMPLE * N, [out, cache] + weights,
+                              douts + weights)
+                else:
+                    b = bound(2 * MACS_PER_SAMPLE * N, ins + weights, [out])
+                rec["bound_ms" + sfx] = b[0]
+                if not sfx:
+                    rec["bound_by"] = b[1]
+            f, b = records[which + "_fwd"], records[which + "_bwd"]
+            print("kernels: {} at [1,{}]x{}, relu{}: forward {:.3f} ms (plain {:.3f}, bound "
+                  "{:.3f}); backward alone with weight gradients {:.3f} ms (plain {:.3f}, "
+                  "bound {:.3f}); card: {}".format(
+                      which.upper(), FINE_RAYS, n_samples, ", noise" if noisy else "",
+                      f["ms" + sfx], f["plain_ms" + sfx], f["bound_ms" + sfx], b["ms" + sfx],
+                      b["plain_ms" + sfx], b["bound_ms" + sfx], card_line()))
+
+    # K2 with the noise operand and the compositing weights
+    k2_extra = {}
+    for i, (case, R, n_samples, activ, _) in enumerate(K2_NOISE_CASES):
+        (center, ray, depth, target, noise), _ = fine_batch(R, n_samples, 90 + i, device)
+        noise = noise * NOISE_REG
+        print("kernels: K2 train wrapper, {}: [1,{}] rays x {} samples".format(
+            case, R, n_samples))
+        res = []
+        for plain in (False, True):
+            c = center.clone().requires_grad_(True)
+            r = ray.clone().requires_grad_(True)
+            if plain:
+                t8 = torch.cat([target[0], torch.ones(R, 1, device=device),
+                                torch.zeros(R, 4, device=device)], dim=1)
+                sq, out8, prob = fp.render_rays_train_plain(
+                    mlp, c[0], r[0], depth[0, :, :, 0], t8, density_activ=activ,
+                    noise=noise[0], want_prob=True)
+                out = split_plain(out8, 1, R, None)
+                out["prob"] = prob[None]
+            else:
+                out, sq, _ = fp.fused_render_rays_pe_train(
+                    mlp, c, r, depth, target, density_activ=activ, noise=noise,
+                    want_prob=True)
+            grads = torch.autograd.grad(sq / (R * 3), [c, r] + list(mlp.parameters()))
+            res.append((out, sq.detach(), grads))
+        (out_k, sq_k, grads_k), (out_p, sq_p, grads_p) = res
+        for key in ("rgb", "depth", "opacity", "prob"):
+            compare(key, out_k[key], out_p[key], TOL["value"], failures)
+        compare("sq_sum", sq_k, sq_p, TOL["value"], failures)
+        rel_l2 = activ == "relu"
+        compare_leaves("gradients", names, grads_k, grads_p,
+                       TOL_RELU_REL_L2 if rel_l2 else TOL["grad"], rel_l2, failures)
+        if activ == "relu":   # the fine slice's two K2 calls
+            def k2():
+                c = center.clone().requires_grad_(True)
+                out, sq, _ = fp.fused_render_rays_pe_train(
+                    mlp, c, ray, depth, target, density_activ=activ, noise=noise,
+                    want_prob=True)
+                torch.autograd.grad(sq, [c] + list(mlp.parameters()))
+            k2_extra["ms_k{}".format(n_samples)] = time_ms(k2)
+    print("kernels: K2 with noise and prob, relu, forward+backward: {:.3f} ms at "
+          "[1,{}]x{}, {:.3f} ms at [1,{}]x{}; card: {}".format(
+              k2_extra["ms_k64"], FINE_RAYS, 64, k2_extra["ms_k192"], FINE_RAYS, 192,
+              card_line()))
+    check(not failures, "kernel and plain version disagree: {}".format(failures))
+    return records, k2_extra
+
+
+# ------------------------------------------------- the fine-sampling slice
+
+def field_counts():
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    return {"k2": fp.fused_render_rays_pe_train.launches,
+            "k3": fp.fused_render_rays_pe.launches,
+            "k4": fp.fused_render_rays_pe.backward_launches,
+            "k5_fwd": fp.fused_apply_nerf_samples_pe.launches,
+            "k5_bwd": fp.fused_apply_nerf_samples_pe.backward_launches,
+            "k1_fwd": ff.fused_mlp.launches, "k1_bwd": ff.fused_mlp.backward_launches}
+
+
+def reset_counts():
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    fp.fused_render_rays_pe_train.launches = 0
+    fp.fused_render_rays_pe.launches = 0
+    fp.fused_render_rays_pe.backward_launches = 0
+    fp.fused_apply_nerf_samples_pe.launches = 0
+    fp.fused_apply_nerf_samples_pe.backward_launches = 0
+    ff.fused_mlp.launches = 0
+    ff.fused_mlp.backward_launches = 0
+
+
+def plain_image_fine(system, pose, intr):
+    """(rgb, rgb_fine) [1,H*W,3] of one view through the plain chain, chunk
+    by chunk as render_image renders it. The fine samples are resampled
+    from the compositing weights of the system's own coarse field call, as
+    render_image resamples them: the plain chain's weights differ from the
+    kernel's in the last bits, and so would the samples."""
+    from neural_invertible_warp_tpu_torch.ops import nerf_mlp, rays, render, sampling
+    opt = system.opt
+    check(not opt.nerf.get("setbg_opaque"), "plain_image_fine has no background")
+    chunk = min(opt.nerf.rand_rays, system.HW)
+    K, activ = opt.nerf.sample_intvs, system.arch.density_activ
+    depth_range = tuple(opt.nerf.depth.range)
+    rgbs, rgbs_fine = [], []
+    for start in range(0, system.HW, chunk):
+        idx = torch.arange(start, min(start + chunk, system.HW), device=system.device)
+        center, ray = rays.get_center_and_ray(pose, intr, idx, system.W)
+        depth = sampling.sample_depth(1, idx.numel(), K, depth_range,
+                                      param=opt.nerf.depth.param, stratified=False,
+                                      device=system.device)
+        prob = render.composite(ray, *system.apply_field_samples(
+            system.graph.nerf, center, ray, depth, density_activ=activ), depth)[3]
+        depth_fine = sampling.sample_depth_from_pdf(
+            prob[..., 0], K, opt.nerf.sample_intvs_fine, depth_range)
+        depth_all = torch.sort(torch.cat([depth, depth_fine], dim=2), dim=2).values
+        for mlp, d, acc in ((system.graph.nerf, depth, rgbs),
+                            (system.graph.nerf_fine, depth_all, rgbs_fine)):
+            rgb_s, dens = nerf_mlp.apply_nerf_samples(mlp, center, ray, d,
+                                                      density_activ=activ)
+            acc.append(render.composite(ray, rgb_s, dens, d)[0])
+    return torch.cat(rgbs, dim=1), torch.cat(rgbs_fine, dim=1)
+
+
+def phase_slice_fine(device):
+    """Vanilla NeRF with fine sampling at full width through every tier.
+    Returns the launch counts of the whole phase."""
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.models.engine import Trainer
+    from neural_invertible_warp_tpu_torch.nerf_llff_repr import nerf_llff_repr_options
+    opt = nerf_llff_repr_options()
+    opt.data.image_size = list(IMAGE_HW)
+    opt.freq.early_termination = FINE_STEPS
+    opt.output_root = os.path.join(HERE, "build", "chip_smoke_run_fine")
+    process_options(opt)
+    H, W = IMAGE_HW
+    n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
+    K, K_all = opt.nerf.sample_intvs, opt.nerf.sample_intvs + opt.nerf.sample_intvs_fine
+    print("fine: nerf (nerf_llff_repr), {} train + {} val views at {}x{}, {} + {} samples, "
+          "{} rays, {} steps".format(FINE_N_TRAIN, N_VAL, H, W, K, K_all - K,
+                                     opt.nerf.rand_rays, FINE_STEPS))
+    trainer = Trainer(opt, device)
+    trainer.build_system(make_scene(H, W, FINE_N_TRAIN, seed=2),
+                         make_scene(H, W, N_VAL, seed=3))
+    system = trainer.system
+    check(sorted(n for n, _ in system.graph.named_children()) == ["nerf", "nerf_fine"],
+          "the fine-sampling graph holds two fields")
+    total = {}
+
+    def window(expected):
+        counts = field_counts()
+        check(counts == dict(dict.fromkeys(counts, 0), **expected),
+              "launches {} but expected {}".format(counts, expected))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        reset_counts()
+
+    # default tier: both fields through the one-call train kernel
+    reset_counts()
+    trainer.train()
+    window({"k2": 2 * FINE_STEPS})
+    hist = trainer.history
+    losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in hist])
+    check(bool(torch.isfinite(losses).all()), "non-finite loss")
+    first = {k: float(hist[0][k]) for k in ("loss_render", "loss_render_fine")}
+    last = {k: float(hist[-1][k]) for k in first}
+    check(all(last[k] < first[k] for k in first),
+          "losses did not fall: {} -> {}".format(first, last))
+    ms_step = statistics.median(trainer.step_seconds[9:FINE_STEPS]) * 1e3
+
+    # validation render: the per-sample field kernel, twice per chunk
+    t0 = time.time()
+    res = trainer.run_validation(system.step)
+    torch.cuda.synchronize()
+    val_seconds = time.time() - t0
+    window({"k5_fwd": 2 * n_chunks * N_VAL})
+    check(math.isfinite(res["psnr_val"]), res["psnr_val"])
+    failures = []
+    with torch.no_grad():
+        rgb_plain, rgb_fine_plain = plain_image_fine(
+            system, system.test_data["pose"][:1], system.test_data["intr"][:1])
+    reset_counts()    # the plain image re-ran the coarse field call per chunk
+    compare("val rgb", torch.as_tensor(res["vis"]["rgb"], device=device), rgb_plain,
+            TOL["value"], failures)
+    compare("val rgb_fine", torch.as_tensor(res["vis"]["rgb_fine"], device=device),
+            rgb_fine_plain, TOL["value"], failures)
+    check(not failures, "validation image disagrees with the plain render")
+
+    # evaluation of the same view: no pose to align or refine for this model
+    t0 = time.time()
+    results = system.evaluate_full(dump_images=False)
+    torch.cuda.synchronize()
+    eval_seconds = time.time() - t0
+    window({"k5_fwd": 2 * n_chunks * N_VAL})
+    for key in ("PSNR", "SSIM"):
+        check(math.isfinite(results[key]), "{} = {}".format(key, results[key]))
+    check(abs(results["PSNR"] - res["psnr_val"]) < 1e-3,
+          "evaluation PSNR {} is not the validation PSNR {} of the same view".format(
+              results["PSNR"], res["psnr_val"]))
+
+    # fallback tier: K5 forward + backward for the coarse field, K2 for the fine
+    tier_ms = {}
+    opt.tpu.fused_raymarch_full = False
+    tier_ms["fallback"] = _tier_steps(system, first)
+    window({"k2": FINE_TIER_STEPS, "k5_fwd": FINE_TIER_STEPS, "k5_bwd": FINE_TIER_STEPS})
+    # MLP-only tier: K1 forward + backward per field (it has no noise operand)
+    opt.tpu.fused_pe = False
+    opt.nerf.density_noise_reg = None
+    tier_ms["mlp"] = _tier_steps(system, first)
+    window({"k1_fwd": 2 * FINE_TIER_STEPS, "k1_bwd": 2 * FINE_TIER_STEPS})
+    opt.tpu.fused_pe, opt.tpu.fused_raymarch_full = True, True
+    opt.nerf.density_noise_reg = NOISE_REG
+
+    print("fine: loss_render {:.5f} -> {:.5f}, loss_render_fine {:.5f} -> {:.5f} in {} "
+          "steps; val PSNR {:.2f} dB (fine field), evaluation PSNR {:.2f} dB, SSIM "
+          "{:.4f}".format(first["loss_render"], last["loss_render"], first["loss_render_fine"],
+                          last["loss_render_fine"], FINE_STEPS, res["psnr_val"],
+                          results["PSNR"], results["SSIM"]))
+    print("fine: launches {}; default tier {:.2f} ms/step (median of steps 10-{}), {:.0f} "
+          "rays/s; fallback tier {:.2f} ms/step, MLP-only tier {:.2f} ms/step (median of "
+          "{}); val render {:.2f} s, evaluation {:.2f} s per view; card: {}".format(
+              total, ms_step, FINE_STEPS, opt.nerf.rand_rays / (ms_step / 1e3),
+              tier_ms["fallback"], tier_ms["mlp"], FINE_TIER_STEPS, val_seconds,
+              eval_seconds, card_line()))
+    return total
+
+
+def _tier_steps(system, first):
+    """FINE_TIER_STEPS train steps under the system's current switches;
+    the losses must be finite and below the first step's. Returns the
+    median ms/step."""
+    seconds = []
+    for _ in range(FINE_TIER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = system.train_step()
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        for k, v in first.items():
+            check(math.isfinite(float(metrics[k])) and float(metrics[k]) < v,
+                  "{} = {} (first step {})".format(k, float(metrics[k]), v))
+    return statistics.median(seconds) * 1e3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -723,12 +1179,30 @@ def main():
     records = phase_kernels(mlp, device)
     trainer, launches = phase_slice(device)
     launches_eval = phase_eval(trainer, device)
+    del trainer
+    torch.cuda.empty_cache()
+    records_field, k2_extra = phase_kernels_field(mlp, device)
+    launches_fine = phase_slice_fine(device)
+    records["k2"].update(k2_extra)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
+    pallas = "neural_invertible_warp_tpu/ops/pallas/"
     kernels = [
+        dict(name="K1 field forward (MLP on encoded inputs)", route="cuda",
+             source=pkg + "field.cu", replaces=pallas + "fused_field.py:166",
+             launches=launches_fine["k1_fwd"], **records_field["k1_fwd"]),
+        dict(name="K1 field backward", route="cuda", source=pkg + "field.cu",
+             replaces=pallas + "fused_field.py:245",
+             launches=launches_fine["k1_bwd"], **records_field["k1_bwd"]),
+        dict(name="K5 field_pe forward (PE + MLP per sample)", route="cuda",
+             source=pkg + "field_pe.cu", replaces=pallas + "fused_pe.py:151",
+             launches=launches_fine["k5_fwd"], **records_field["k5_fwd"]),
+        dict(name="K5 field_pe backward", route="cuda", source=pkg + "field_pe.cu",
+             replaces=pallas + "fused_pe.py:171",
+             launches=launches_fine["k5_bwd"], **records_field["k5_bwd"]),
         dict(name="K2 rm_train (one-call train render)", route="cuda",
              source=pkg + "rm_train.cu",
              replaces="neural_invertible_warp_tpu/ops/pallas/fused_pe.py:886",
-             launches=launches["k2"], **records["k2"]),
+             launches=launches["k2"] + launches_fine["k2"], **records["k2"]),
         dict(name="K3 rm_fwd (composited forward render)", route="cuda",
              source=pkg + "rm_fwd.cu",
              replaces="neural_invertible_warp_tpu/ops/pallas/fused_pe.py:568",

@@ -1,9 +1,11 @@
-// Shared device code of the composited NeRF field kernels (K2 train, K3 forward,
-// K4 backward of K3).
+// Shared device code of the NeRF field kernels: the composited ones (K2 train,
+// K3 forward, K4 backward of K3) and the per-sample ones (K5: PE + MLP,
+// field_pe.cu; K1: MLP on encoded inputs, field.cu).
 //
 // Replaces the Pallas TPU kernels in neural_invertible_warp_tpu/ops/pallas/
-// fused_pe.py (_rm_fwd_pe_kernel, _rm_bwd_pe_kernel, _rm_train_pe_kernel) and
-// the MLP math they share from fused_field.py (_forward_block, _mlp_backward).
+// fused_pe.py (_rm_fwd_pe_kernel, _rm_bwd_pe_kernel, _rm_train_pe_kernel,
+// _fwd_pe_kernel, _bwd_pe_kernel) and fused_field.py (_fwd_kernel,
+// _bwd_kernel) with the MLP math they share (_forward_block, _mlp_backward).
 //
 // What bounds this on Hopper: the 8x256 trunk is ~1.06 MFLOP per sample
 // forward and ~2.1 MFLOP backward, all fp32 (the PE must stay true fp32, and
@@ -297,6 +299,14 @@ __device__ __forceinline__ float softplus_f(float x) {
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Density activation (activ 0 softplus, 1 relu) and its derivative.
+__device__ __forceinline__ float density_f(int activ, float pre) {
+  return activ == 0 ? softplus_f(pre) : fmaxf(pre, 0.f);
+}
+__device__ __forceinline__ float density_grad_f(int activ, float pre) {
+  return activ == 0 ? sigmoid_f(pre) : (pre > 0.f ? 1.f : 0.f);
+}
+
 // Point PE of one sample into C4[s, 256..319] and view PE into V[s, 257..287].
 // xp = [pts, per dim d: w_k sin(f_k p_d) (k<L), w_k cos(f_k p_d) (k<L)];
 // pts = center + ray * depth rounded per operation (no FMA contraction), as
@@ -396,13 +406,16 @@ static int mlp_forward(const float* const* W, const Cache& c, int N, cudaStream_
 // reads it from g8 [R,8] = (g_rgb, g_depth, g_opacity, unused); a
 // background colour is then the caller's business (it reaches this kernel
 // inside g_opacity). `out` may be null when the forward sums are not wanted.
+// `noise` [R,K] (or null) is added to the density pre-activation before its
+// activation, whose derivative is then taken at the noised value; `prob`
+// [R,K] (or null) receives the per-sample compositing weights T * alpha.
 enum { COMPOSITE_FORWARD = 0, COMPOSITE_MSE = 1, COMPOSITE_COTANGENT = 2 };
 
 struct CompositeArgs {
-  const float *ray, *depth, *R0, *V, *Wr1, *br1, *target8, *g8;
+  const float *ray, *depth, *R0, *V, *Wr1, *br1, *target8, *g8, *noise;
   int R, K, activ, train, has_bg;
   float bg;
-  float *out, *GR0, *GRP, *GDENS, *dray_quad;
+  float *out, *GR0, *GRP, *GDENS, *dray_quad, *prob;
 };
 
 static __global__ void composite_kernel(CompositeArgs a) {
@@ -434,7 +447,8 @@ static __global__ void composite_kernel(CompositeArgs a) {
     }
     for (int c = 0; c < 3; c++) rgb[c] = sigmoid_f(acc[c]);
     pre = a.V[s * LD_V + COL_DENS];
-    sigma = a.activ == 0 ? softplus_f(pre) : fmaxf(pre, 0.f);
+    if (a.noise) pre += a.noise[s];
+    sigma = density_f(a.activ, pre);
     d = a.depth[s];
     const float intv = (k + 1 < K) ? a.depth[s + 1] - d : 1e10f;
     dist = intv * ray_s[3];
@@ -453,6 +467,7 @@ static __global__ void composite_kernel(CompositeArgs a) {
     alpha = 1.f - e_sd;
     T = expf(-s_x[k]);
     w = T * alpha;
+    if (a.prob) a.prob[s] = w;
     float* red = s_red + k * 6;
     red[0] = w * rgb[0]; red[1] = w * rgb[1]; red[2] = w * rgb[2];
     red[3] = w * d; red[4] = w;
@@ -506,7 +521,7 @@ static __global__ void composite_kernel(CompositeArgs a) {
     const float g_s = g_alpha * e_sd + s_x[k];
     s_red[k * 6] = (g_s * sigma) * dist;   // g_dist * dist
     const float g_sigma = g_s * dist;
-    a.GDENS[s] = g_sigma * (a.activ == 0 ? sigmoid_f(pre) : (pre > 0.f ? 1.f : 0.f));
+    a.GDENS[s] = g_sigma * density_grad_f(a.activ, pre);
     float grp[3];
     for (int c = 0; c < 3; c++) {
       const float g_rgb = w * tot[c];
@@ -536,11 +551,107 @@ static int launch_composite(const CompositeArgs& a, cudaStream_t s) {
   return 0;
 }
 
+// ------------------------------------------------- per-sample head
+// The output layer without compositing (K5, K1), one thread per sample:
+// rgb = sigmoid(R0 @ Wr1 + br1), density = activ(V[:, 256] + noise) ->
+// out [N,4]. With noise, the noised pre-activation is written back into
+// V[:, 256] so that a backward on the kept cache needs no noise operand (the
+// head reads that column through a zero row of Wr0p, and its weight-gradient
+// row is dropped when the gradients are unpacked).
+static __global__ void head_forward_kernel(const float* R0, float* V, const float* Wr1,
+                                           const float* br1, const float* noise,
+                                           long long N, int activ, float* out) {
+  __shared__ float wr1[D_HEAD * 3];
+  for (int i = threadIdx.x; i < D_HEAD * 3; i += blockDim.x) wr1[i] = Wr1[i];
+  __syncthreads();
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= N) return;
+  const float* r0 = R0 + s * D_HEAD;
+  float acc[3] = {br1[0], br1[1], br1[2]};
+  for (int j = 0; j < D_HEAD; j++) {
+    const float h = r0[j];
+    for (int c = 0; c < 3; c++) acc[c] = fmaf(h, wr1[j * 3 + c], acc[c]);
+  }
+  float pre = V[s * LD_V + COL_DENS];
+  if (noise) {
+    pre += noise[s];
+    V[s * LD_V + COL_DENS] = pre;
+  }
+  float* o = out + s * 4;
+  for (int c = 0; c < 3; c++) o[c] = sigmoid_f(acc[c]);
+  o[3] = density_f(activ, pre);
+}
+
+// Backward of the head for a per-sample cotangent g [N,4] of (rgb, density):
+// fills GR0 [N,128] (ReLU'-masked cotangent at head layer 0), GRP [N,4] (of
+// the rgb pre-activation) and GDENS [N] (of the density pre-activation), as
+// composite_kernel's backward does, from the kept R0 and V.
+static __global__ void head_backward_kernel(const float* R0, const float* V,
+                                            const float* Wr1, const float* br1,
+                                            const float* g, long long N, int activ,
+                                            float* GR0, float* GRP, float* GDENS) {
+  __shared__ float wr1[D_HEAD * 3];
+  for (int i = threadIdx.x; i < D_HEAD * 3; i += blockDim.x) wr1[i] = Wr1[i];
+  __syncthreads();
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= N) return;
+  const float* r0 = R0 + s * D_HEAD;
+  float acc[3] = {br1[0], br1[1], br1[2]};
+  for (int j = 0; j < D_HEAD; j++) {
+    const float h = r0[j];
+    for (int c = 0; c < 3; c++) acc[c] = fmaf(h, wr1[j * 3 + c], acc[c]);
+  }
+  float grp[3];
+  for (int c = 0; c < 3; c++) {
+    const float rgb = sigmoid_f(acc[c]);
+    grp[c] = g[s * 4 + c] * rgb * (1.f - rgb);
+    GRP[s * 4 + c] = grp[c];
+  }
+  GRP[s * 4 + 3] = 0.f;
+  GDENS[s] = g[s * 4 + 3] * density_grad_f(activ, V[s * LD_V + COL_DENS]);
+  float* gr0 = GR0 + s * D_HEAD;
+  for (int j = 0; j < D_HEAD; j++) {
+    const float v = grp[0] * wr1[j * 3] + grp[1] * wr1[j * 3 + 1] + grp[2] * wr1[j * 3 + 2];
+    gr0[j] = r0[j] > 0.f ? v : 0.f;
+  }
+}
+
+// K1's inputs arrive encoded: xp [N,63] into C4[:, 256:320] and view [N,27]
+// into V[:, 257:288] (zero beyond), where encode_kernel would write them.
+static __global__ void copy_in_kernel(const float* xp, const float* view, long long N,
+                                      float* C4, float* V) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int W = (LD_C4 - COL_XP) + (LD_V - COL_VIEW);
+  if (i >= N * W) return;
+  const long long s = i / W;
+  const int j = (int)(i % W);
+  if (j < LD_C4 - COL_XP) {
+    C4[s * LD_C4 + COL_XP + j] = j < D_X ? xp[s * D_X + j] : 0.f;
+  } else {
+    const int v = j - (LD_C4 - COL_XP);
+    V[s * LD_V + COL_VIEW + v] = v < D_V ? view[s * D_V + v] : 0.f;
+  }
+}
+
+// ... and its input cotangents leave the same way: dxp [N,63] from
+// GC4[:, 256:319], dview [N,27] from GV[:, 257:284].
+static __global__ void copy_out_kernel(const float* GC4, const float* GV, long long N,
+                                       float* dxp, float* dview) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int W = D_X + D_V;
+  if (i >= N * W) return;
+  const long long s = i / W;
+  const int j = (int)(i % W);
+  if (j < D_X) dxp[s * D_X + j] = GC4[s * LD_C4 + COL_XP + j];
+  else dview[s * D_V + j - D_X] = GV[s * LD_V + COL_VIEW + j - D_X];
+}
+
 // ------------------------------------------------ per-ray input backward
 // One CTA per ray, one thread per sample: PE backward of dxp (C4-gradient
 // cols 256..318) to dpts, summed to dcenter and dray (dpts * depth); the
 // view chain from dview (V-gradient cols 257..283) through ray / |ray|;
-// plus the quadrature chain dray_quad.
+// plus the quadrature chain dray_quad where it is given (null for the
+// per-sample kernels, whose compositing lies outside).
 static __global__ void input_backward_kernel(const float* center, const float* ray,
                                              const float* depth, int K,
                                              const float* w3, const float* wv,
@@ -601,7 +712,8 @@ static __global__ void input_backward_kernel(const float* center, const float* r
   const float dot = dru[0] * ru[0] + dru[1] * ru[1] + dru[2] * ru[2];
   for (int c = 0; c < 3; c++) {
     dcenter[r * 3 + c] = tot[c];
-    dray[r * 3 + c] = tot[3 + c] + dru[c] * inv - ru[c] * (dot * inv) + dray_quad[r * 3 + c];
+    const float quad = dray_quad ? dray_quad[r * 3 + c] : 0.f;
+    dray[r * 3 + c] = tot[3 + c] + dru[c] * inv - ru[c] * (dot * inv) + quad;
   }
 }
 
@@ -632,6 +744,22 @@ static Cache cache_at(float* p, long long N) {
   c.H6 = p; p += N * D_HID;
   c.V = p; p += N * LD_V;
   c.R0 = p;
+  return c;
+}
+
+// A forward that no backward follows reuses two hidden buffers layer to
+// layer (ping-pong): scratch_floats(N) floats at p.
+static long long scratch_floats(long long N) {
+  return N * (LD_C4 + 2 * D_HID + LD_V + D_HEAD);
+}
+static Cache scratch_at(float* p, long long N) {
+  Cache c;
+  c.C4 = p;
+  float* HA = c.C4 + N * LD_C4;
+  float* HB = HA + N * D_HID;
+  c.V = HB + N * D_HID;
+  c.R0 = c.V + N * LD_V;
+  c.H0 = HA; c.H1 = HB; c.H2 = HA; c.H4 = HB; c.H5 = HA; c.H6 = HB;
   return c;
 }
 
@@ -710,11 +838,12 @@ static int mlp_backward(const float* const* W, const Cache& c, const GradBufs& g
 
 static int launch_input_backward(const float* center, const float* ray, const float* depth,
                                  int R, int K, const float* w3, const float* wv,
-                                 const GradBufs& g, float* dcenter, float* dray,
-                                 cudaStream_t s) {
+                                 const GradBufs& g, bool quadrature, float* dcenter,
+                                 float* dray, cudaStream_t s) {
   const size_t smem = sizeof(float) * (size_t)K * (6 + D_V);
   NIW_LAUNCH(input_backward_kernel<<<R, ((K + 31) / 32) * 32, smem, s>>>(
-      center, ray, depth, K, w3, wv, g.GC4, g.GV, g.DRQ, dcenter, dray));
+      center, ray, depth, K, w3, wv, g.GC4, g.GV, quadrature ? g.DRQ : nullptr,
+      dcenter, dray));
   return 0;
 }
 

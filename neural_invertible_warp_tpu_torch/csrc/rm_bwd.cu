@@ -50,5 +50,5 @@ extern "C" int niw_rm_bwd(const float* center, const float* ray, const float* de
   int err = launch_composite(a, s);
   if (err) return err;
   if ((err = mlp_backward(W, c, g, (int)N, want_dw, dW, s))) return err;
-  return launch_input_backward(center, ray, depth, R, K, w3, wv, g, dcenter, dray, s);
+  return launch_input_backward(center, ray, depth, R, K, w3, wv, g, true, dcenter, dray, s);
 }

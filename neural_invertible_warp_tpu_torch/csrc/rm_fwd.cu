@@ -14,7 +14,7 @@
 using namespace niw;
 
 extern "C" long long niw_rm_fwd_workspace_floats(long long N, int keep) {
-  return keep ? cache_floats(N) : N * (LD_C4 + 2 * D_HID + LD_V + D_HEAD);
+  return keep ? cache_floats(N) : scratch_floats(N);
 }
 
 // center, ray [R,3]; depth [R,K]; w3 [10], wv [4] c2f band weights;
@@ -27,17 +27,7 @@ extern "C" int niw_rm_fwd(const float* center, const float* ray, const float* de
                           float* ws, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long N = (long long)R * K;
-  Cache c;
-  if (keep) {
-    c = cache_at(ws, N);
-  } else {
-    c.C4 = ws;
-    float* HA = c.C4 + N * LD_C4;
-    float* HB = HA + N * D_HID;
-    c.V = HB + N * D_HID;
-    c.R0 = c.V + N * LD_V;
-    c.H0 = HA; c.H1 = HB; c.H2 = HA; c.H4 = HB; c.H5 = HA; c.H6 = HB;
-  }
+  const Cache c = keep ? cache_at(ws, N) : scratch_at(ws, N);
   NIW_LAUNCH(encode_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       center, ray, depth, R, K, w3, wv, c.C4, c.V));
   int err = mlp_forward(W, c, (int)N, s);

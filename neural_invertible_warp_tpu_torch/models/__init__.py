@@ -1,11 +1,12 @@
-"""Model registry of the port. The paper's LLFF INN-warp models and SE(3)
-BARF on LLFF are ported so far; every other name of the JAX registry raises
-``KeyError`` naming the ROADMAP item that brings it."""
+"""Model registry of the port. The paper's LLFF INN-warp models, vanilla
+NeRF (with fine sampling) and SE(3) BARF on LLFF and Blender are ported so
+far; every other name of the JAX registry raises ``KeyError`` naming the
+ROADMAP item that brings it."""
 
 from __future__ import annotations
 
 _NOT_YET = {
-    "nerf": "M9", "barf_se3_field": "M9", "barf_inn_blender": "M10",
+    "barf_se3_field": "M9", "barf_inn_blender": "M10",
     "nerf_dtu": "M10", "barf_dtu": "M10", "barf_inn_dtu": "M10",
     "nerf_inn_dtu": "M10", "nerf_gaussian": "M11", "garf": "M11",
     "garf_se3_field": "M11", "homography": "M11", "planar": "M11",
@@ -17,6 +18,9 @@ def get_system_class(name):
     if name in ("barf_inn_llff", "nerf_inn_llff"):
         from .inn_warp import InnWarpSystem
         return InnWarpSystem
+    if name == "nerf":
+        from .system import NerfSystem
+        return NerfSystem
     if name == "barf":
         from .barf import BarfSystem
         return BarfSystem

@@ -6,8 +6,9 @@ schedule with optional warmup, the validation-time Procrustes sim(3)
 pre-alignment (host, float64), eval poses moved into the optimized frame,
 the aligned pose error, and test-time photometric pose refinement of an
 evaluation view (a per-view se(3) correction under Adam, differentiated
-through K3 and K4 on the card). LLFF only: the Blender variant (noisy GT
-initial poses) comes with its data loader.
+through K3 and K4 on the card). On LLFF the initial poses are the identity,
+on Blender the GT poses composed with a seeded se(3) noise
+(``camera.noise``), kept in ``aux["pose_noise"]``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ from torch import nn
 
 from ..ops import align, lie, rays, sampling
 from ..ops import pose as pose_ops
-from ..ops.nerf_mlp import NerfMLP
-from .system import Graph, NerfSystem
+from .system import NerfSystem
 
 
 class BarfSystem(NerfSystem):
@@ -28,19 +28,32 @@ class BarfSystem(NerfSystem):
 
     def __init__(self, opt, device):
         super().__init__(opt, device)
-        if opt.data.dataset != "llff":
+        if opt.data.dataset not in ("llff", "blender"):
             raise NotImplementedError(
                 "pose refinement on {!r} data is not ported yet (ROADMAP {})".format(
-                    opt.data.dataset, "M10" if opt.data.dataset == "dtu" else "M9"))
+                    opt.data.dataset, "M10" if opt.data.dataset == "dtu" else "M14"))
 
     def build_graph(self, generator):
-        nerf = NerfMLP(self.arch, view_dep=self.opt.nerf.view_dep, generator=generator)
-        se3_refine = nn.Embedding(self.n_train, 6)
-        nn.init.zeros_(se3_refine.weight)
-        return Graph(nerf=nerf, se3_refine=se3_refine)
+        graph = super().build_graph(generator)
+        graph.se3_refine = nn.Embedding(self.n_train, 6)
+        nn.init.zeros_(graph.se3_refine.weight)
+        return graph
+
+    def init_aux(self):
+        """On Blender with ``camera.noise``: the se(3) noise composed onto
+        the GT poses, drawn once from the system's generator."""
+        aux = super().init_aux()
+        opt = self.opt
+        if opt.data.dataset == "blender" and opt.camera.get("noise"):
+            se3_noise = torch.randn((self.n_train, 6), generator=self.generator,
+                                    device=self.device) * opt.camera.noise
+            aux["pose_noise"] = lie.se3_to_SE3(se3_noise)
+        return aux
 
     def param_labels(self):
-        return {"nerf": "main", "se3_refine": "pose"}
+        labels = super().param_labels()
+        labels["se3_refine"] = "pose"
+        return labels
 
     def make_schedules(self):
         from ..utils.optim import exp_decay_gamma, exp_schedule
@@ -55,7 +68,13 @@ class BarfSystem(NerfSystem):
     # ----------------------------------------------------------------- poses
 
     def _initial_pose(self):
-        """The poses before refinement: identity on LLFF."""
+        """The poses before refinement: identity on LLFF, the GT poses
+        (with the pose noise, where there is one) on Blender."""
+        if self.opt.data.dataset == "blender":
+            pose = self.train_data["pose"]
+            if "pose_noise" in self.aux:
+                pose = pose_ops.compose([self.aux["pose_noise"], pose])
+            return pose
         return pose_ops.identity_pose((self.n_train,), device=self.device)
 
     def get_train_pose(self):

@@ -8,7 +8,8 @@ center and rendered; a global-alignment loss fits a rigid pose to the
 (camera-frame, warped) point pairs with the quaternion Procrustes solver,
 keeps it as the pose readout ``aux["global_rigid"]`` and penalizes the
 warp's deviation from it. LLFF only: the Blender pose-noise variants, the
-``posenc``/``extrinsic`` latents and fine sampling are not ported yet.
+``posenc``/``extrinsic`` latents and fine sampling under the warp are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -89,9 +90,15 @@ class InnWarpSystem(BarfSystem):
         pose = pose_ops.compose([self.aux["global_rigid"], pose_init])
         return pose, self.train_data["pose"]
 
+    def render_rays(self, center, ray, **kwargs):
+        if self.opt.nerf.fine_sampling:
+            raise NotImplementedError(
+                "fine sampling under the INN warp is not ported yet (ROADMAP M9)")
+        return super().render_rays(center, ray, **kwargs)
+
     # ------------------------------------------------------------- train fwd
 
-    def _forward_train(self, ray_idx, step, depth_rand=None):
+    def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         opt = self.opt
         data = self.train_data
         center_cam, grid_cam = rays.get_unwarped_center_and_ray(
@@ -107,15 +114,14 @@ class InnWarpSystem(BarfSystem):
                     / opt.max_iter).to(self.device)
         target = data["pixels"][:, ray_idx]
         out = self.render_rays(center_w, ray, mode="train", progress=progress,
-                               target=target, depth_rand=depth_rand)
+                               target=target, depth_rand=depth_rand,
+                               noise_rand=noise_rand)
         extras = dict(grid_cam=grid_cam, center_cam=center_cam,
                       grid_w=grid_w, center_w=center_w)
         return out, target, extras
 
     def compute_loss(self, out, target, extras):
         losses = super().compute_loss(out, target, extras)
-        if self.opt.loss_weight.get("render_fine") is not None:
-            raise NotImplementedError("fine sampling is not ported yet (ROADMAP M9)")
         if self.opt.loss_weight.get("global_alignment") is not None:
             source = torch.cat([extras["grid_cam"], extras["center_cam"]], 1)
             target_pts = torch.cat([extras["grid_w"], extras["center_w"]], 1)

@@ -3,10 +3,16 @@
 Holds the data on the device, the field (``self.graph``), the optimizer,
 the step counter and the non-optimized ``aux`` state; runs the train step
 as an eager autograd pass and renders full images as a loop over ray
-chunks. The render core sends the flagship's branches to the CUDA kernels
+chunks. The render core reads the same ``tpu.*`` switches as the JAX
+package's and sends each tier to its CUDA kernels: the composited render
 (K2 for training with a target; K3 for eval, and K3 with K4 as its backward
 for test-time pose refinement and for training under ``tpu.fused_train:
-false``); the branches not ported yet raise ``NotImplementedError`` naming
+false``), for fine sampling two K2 calls per step (the coarse one returning
+the weights to resample from) and the per-sample field K5 in eval and in
+the fallback tier, the MLP-only field K1 under ``tpu.fused_pe: false``, and
+the plain chain with both kernel switches off. On CUDA tensors a tier
+launches its kernels or raises; on CPU tensors it takes their plain
+versions. The branches not ported yet raise ``NotImplementedError`` naming
 the ROADMAP item that brings them. ``evaluate_full`` is the full test-set
 evaluation: pose error, test-time refinement, PSNR, SSIM, LPIPS.
 """
@@ -20,14 +26,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import rays, sampling
-from ..ops.cuda import fused_pe
+from ..ops import nerf_mlp, rays, render, sampling
+from ..ops.cuda import fused_field, fused_pe
 from ..utils import log
 
 
 class Graph(nn.Module):
     """Learnable state, one child per top-level group, named as the
-    reference Graph names them (nerf, se3_refine, warp_mlp, warp_latent)."""
+    reference Graph names them (nerf, nerf_fine, se3_refine, warp_mlp,
+    warp_latent)."""
 
     def __init__(self, **children):
         super().__init__()
@@ -71,7 +78,14 @@ class NerfSystem:
     # ---------------------------------------------------------------- state
 
     def build_graph(self, generator):
-        raise NotImplementedError
+        """The field, and with fine sampling a second one of its own init."""
+        opt = self.opt
+        graph = Graph(nerf=nerf_mlp.NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
+                                            generator=generator))
+        if opt.nerf.fine_sampling:
+            graph.nerf_fine = nerf_mlp.NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
+                                               generator=generator)
+        return graph
 
     def init_aux(self):
         return {}
@@ -113,22 +127,47 @@ class NerfSystem:
 
     # ---------------------------------------------------------------- render
 
+    def _field_mode(self):
+        """Which field kernel the render core uses: "pe" (the kernels with
+        the PE inside: K2-K5), "field" (K1, the PE in PyTorch) or "off" (the
+        plain chain), from ``tpu.fused_pe`` and ``tpu.fused_kernel``."""
+        tpu_cfg = self.opt.get("tpu") or {}
+        if tpu_cfg.get("fused_pe", True):
+            return "pe"
+        return "field" if tpu_cfg.get("fused_kernel", True) else "off"
+
+    def apply_field_samples(self, mlp, center, ray, depth, noise=None, **kw):
+        """(rgb [B,R,K,3], density [B,R,K]) of one field along the rays."""
+        mode = self._field_mode()
+        if mode == "pe":
+            return fused_pe.fused_apply_nerf_samples_pe(mlp, center, ray, depth,
+                                                        noise=noise, **kw)
+        if mode == "field" and noise is None:   # K1 has no noise operand
+            return fused_field.fused_apply_nerf_samples(mlp, center, ray, depth, **kw)
+        return nerf_mlp.apply_nerf_samples(mlp, center, ray, depth, noise=noise, **kw)
+
+    def _field_composite(self, mlp, center, ray, depth, noise, kw, bg):
+        """Field + alpha compositing in PyTorch. Returns (rgb [B,R,3], depth
+        [B,R,1], opacity [B,R,1], prob [B,R,K])."""
+        rgb_s, dens = self.apply_field_samples(mlp, center, ray, depth, noise, **kw)
+        rgb, d, opac, prob = render.composite(ray, rgb_s, dens, depth, **bg)
+        return rgb, d, opac, prob[..., 0]
+
     def render_rays(self, center, ray, mode="train", progress=1.0,
-                    depth_range=None, target=None, depth_rand=None):
+                    depth_range=None, target=None, depth_rand=None,
+                    noise_rand=None):
         """Stratified samples -> field -> compositing for center/ray [B,R,3].
 
-        ``mode`` is "train" (stratified depths), "eval" or "test-optim"
-        (midpoint depths; the latter is differentiated by test-time pose
-        refinement). ``depth_rand`` [B,R,K,1] optionally supplies the
-        stratification draw. Returns dict(rgb, depth, opacity[,
-        render_sq_sum, render_n]).
+        ``mode`` is "train" (stratified depths, density noise), "eval" or
+        "test-optim" (midpoint depths; the latter is differentiated by
+        test-time pose refinement). ``depth_rand`` [B,R,K,1] optionally
+        supplies the stratification draw, ``noise_rand`` the standard-normal
+        draws of the density noise: a list of [B,R,K] tensors, one per
+        field (coarse, then fine over all its samples). Returns dict(rgb,
+        depth, opacity[, *_fine][, render_sq_sum, render_n][,
+        render_fine_sq_sum, render_fine_n]).
         """
         opt = self.opt
-        if opt.nerf.fine_sampling:
-            raise NotImplementedError("fine sampling is not ported yet (ROADMAP M9)")
-        if mode == "train" and opt.nerf.get("density_noise_reg"):
-            raise NotImplementedError(
-                "density_noise_reg is not ported yet (ROADMAP M9)")
         if opt.camera.ndc:
             raise NotImplementedError("NDC rays are not ported yet (ROADMAP M1)")
         if mode not in ("train", "eval", "test-optim"):
@@ -136,32 +175,96 @@ class NerfSystem:
         B, R = center.shape[0], center.shape[1]
         depth_range = depth_range if depth_range is not None \
             else tuple(opt.nerf.depth.range)
+        K = opt.nerf.sample_intvs
+        fine = bool(opt.nerf.fine_sampling)
+        K_all = K + opt.nerf.sample_intvs_fine if fine else K
         depth = sampling.sample_depth(
-            B, R, opt.nerf.sample_intvs, depth_range, param=opt.nerf.depth.param,
+            B, R, K, depth_range, param=opt.nerf.depth.param,
             stratified=bool(opt.nerf.sample_stratified and mode == "train"),
             generator=self.generator, rand=depth_rand, device=center.device)
+        # independent draws for the two fields
+        noise = [None, None]
+        noise_reg = opt.nerf.get("density_noise_reg") if mode == "train" else None
+        if noise_reg:
+            for i, k in enumerate([K, K_all] if fine else [K]):
+                draw = noise_rand[i] if noise_rand is not None else torch.randn(
+                    (B, R, k), generator=self.generator, device=center.device)
+                noise[i] = draw * noise_reg
         kw = dict(progress=progress,
                   barf_c2f=tuple(opt.barf_c2f) if opt.get("barf_c2f") else None,
-                  setbg_opaque=bool(opt.nerf.get("setbg_opaque")),
-                  bgcolor=opt.data.get("bgcolor"),
                   density_activ=self.arch.get("density_activ", "softplus"))
-        if (mode == "train" and target is not None
-                and (opt.get("tpu") or {}).get("fused_train", True)):
-            out, sq, n_terms = fused_pe.fused_render_rays_pe_train(
-                self.graph.nerf, center, ray, depth, target, **kw)
-            out["render_sq_sum"] = sq
-            out["render_n"] = n_terms
+        bg = dict(setbg_opaque=bool(opt.nerf.get("setbg_opaque")),
+                  bgcolor=opt.data.get("bgcolor"))
+        tpu_cfg = opt.get("tpu") or {}
+        raymarch = self._field_mode() == "pe" and tpu_cfg.get("fused_raymarch", False)
+        one_call = bool(raymarch and mode == "train" and target is not None
+                        and tpu_cfg.get("fused_train", True))
+        graph = self.graph
+
+        def resample(prob):
+            depth_fine = sampling.sample_depth_from_pdf(
+                prob.detach(), K, opt.nerf.sample_intvs_fine, depth_range)
+            return torch.sort(torch.cat([depth, depth_fine], dim=2), dim=2).values
+
+        def train_fine(out, depth_all):
+            out_f, sq_f, n_f = fused_pe.fused_render_rays_pe_train(
+                graph.nerf_fine, center, ray, depth_all, target, noise=noise[1],
+                **kw, **bg)
+            out.update(rgb_fine=out_f["rgb"], depth_fine=out_f["depth"],
+                       opacity_fine=out_f["opacity"], render_fine_sq_sum=sq_f,
+                       render_fine_n=n_f)
             return out
-        rgb, d, opac = fused_pe.fused_render_rays_pe(
-            self.graph.nerf, center, ray, depth, **kw)
-        return dict(rgb=rgb, depth=d, opacity=opac)
+
+        if raymarch and not fine:
+            # the composited render in one kernel
+            if one_call:
+                out, sq, n_terms = fused_pe.fused_render_rays_pe_train(
+                    graph.nerf, center, ray, depth, target, noise=noise[0], **kw, **bg)
+                out["render_sq_sum"] = sq
+                out["render_n"] = n_terms
+                return out
+            if noise[0] is None:    # the forward kernel has no noise operand
+                rgb, d, opac = fused_pe.fused_render_rays_pe(
+                    graph.nerf, center, ray, depth, **kw, **bg)
+                return dict(rgb=rgb, depth=d, opacity=opac)
+        if fine and one_call and tpu_cfg.get("fused_raymarch_full", True):
+            # both fields through the one-call train kernel: the resample
+            # carries no gradient, so the coarse field's only gradient is its
+            # own photometric loss, and its compositing weights come out of
+            # the kernel for the resample
+            out, sq, n_terms = fused_pe.fused_render_rays_pe_train(
+                graph.nerf, center, ray, depth, target, noise=noise[0],
+                want_prob=True, **kw, **bg)
+            out.update(render_sq_sum=sq, render_n=n_terms)
+            return train_fine(out, resample(out.pop("prob")))
+        rgb, d, opac, prob = self._field_composite(
+            graph.nerf, center, ray, depth, noise[0], kw, bg)
+        out = dict(rgb=rgb, depth=d, opacity=opac)
+        if fine:
+            depth_all = resample(prob)
+            if one_call:
+                # fallback tier: the coarse field through the per-sample
+                # kernel with compositing under autograd, the fine field
+                # through the one-call train kernel
+                return train_fine(out, depth_all)
+            rgb_f, d_f, opac_f, _ = self._field_composite(
+                graph.nerf_fine, center, ray, depth_all, noise[1], kw, bg)
+            out.update(rgb_fine=rgb_f, depth_fine=d_f, opacity_fine=opac_f)
+        return out
 
     # ---------------------------------------------------------------- losses
 
     def compute_loss(self, out, target, extras):
         if "render_sq_sum" in out:    # the one-call train kernel's squared error
-            return {"render": out["render_sq_sum"] / out["render_n"]}
-        return {"render": torch.mean((out["rgb"] - target) ** 2)}
+            losses = {"render": out["render_sq_sum"] / out["render_n"]}
+        else:
+            losses = {"render": torch.mean((out["rgb"] - target) ** 2)}
+        if self.opt.loss_weight.get("render_fine") is not None:
+            if "render_fine_sq_sum" in out:
+                losses["render_fine"] = out["render_fine_sq_sum"] / out["render_fine_n"]
+            else:
+                losses["render_fine"] = torch.mean((out["rgb_fine"] - target) ** 2)
+        return losses
 
     def summarize_loss(self, losses):
         """total = sum 10^w_k * L_k over the weighted losses."""
@@ -178,7 +281,7 @@ class NerfSystem:
         """w2c poses [n_train,3,4] the training rays are cast from."""
         return self.train_data["pose"]
 
-    def _forward_train(self, ray_idx, step, depth_rand=None):
+    def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         """One training forward over the drawn rays of every image; returns
         (out, target, extras)."""
         data = self.train_data
@@ -188,24 +291,27 @@ class NerfSystem:
                     / self.opt.max_iter).to(self.device)
         target = data["pixels"][:, ray_idx]
         out = self.render_rays(center, ray, mode="train", progress=progress,
-                               target=target, depth_rand=depth_rand)
+                               target=target, depth_rand=depth_rand,
+                               noise_rand=noise_rand)
         return out, target, {}
 
     def update_aux(self, extras):
         pass
 
-    def train_step(self, ray_u=None, depth_rand=None):
+    def train_step(self, ray_u=None, depth_rand=None, noise_rand=None):
         """One optimization step over all training images. One ray-index
         draw is shared by every image (``rand_rays // n_train`` rays each).
-        ``ray_u`` / ``depth_rand`` optionally supply the step's random draws.
-        Returns the step's metrics as 0-d tensors (no host sync)."""
+        ``ray_u`` / ``depth_rand`` / ``noise_rand`` optionally supply the
+        step's random draws. Returns the step's metrics as 0-d tensors (no
+        host sync)."""
         opt = self.opt
         n_rays = opt.nerf.rand_rays // self.n_train
         ray_idx = sampling.sample_ray_subset(
             self.HW, n_rays, mode=(opt.get("tpu") or {}).get("ray_sample", "stratified"),
             generator=self.generator, u=ray_u, device=self.device)
         self.optim.zero_grad()
-        out, target, extras = self._forward_train(ray_idx, self.step, depth_rand)
+        out, target, extras = self._forward_train(ray_idx, self.step, depth_rand,
+                                                  noise_rand)
         losses = self.compute_loss(out, target, extras)
         total = self.summarize_loss(losses)
         total.backward()
@@ -257,7 +363,8 @@ class NerfSystem:
         for i in range(n):
             pose = self.get_eval_pose(data["pose"][i:i + 1])
             out = self.render_image(pose, data["intr"][i:i + 1], progress.to(self.device))
-            mse = float(torch.mean((out["rgb"] - data["pixels"][i:i + 1]) ** 2))
+            key = "rgb_fine" if "rgb_fine" in out else "rgb"
+            mse = float(torch.mean((out[key] - data["pixels"][i:i + 1]) ** 2))
             psnrs.append(-10.0 * np.log10(mse))
             if len(vis_all) < n_vis:
                 vis_all.append({k: v.cpu().numpy() for k, v in out.items()})
@@ -325,7 +432,8 @@ class NerfSystem:
             t2 = self._synced_time()
             entry.update(pose=pose, refine_seconds=t1 - t0, render_seconds=t2 - t1)
             self.eval_log.append(entry)
-            pred = out["rgb"].reshape(self.H, self.W, 3)
+            fine = "_fine" if "rgb_fine" in out else ""
+            pred = out["rgb" + fine].reshape(self.H, self.W, 3)
             gt = data["image"][i]
             psnr = -10.0 * float(torch.log10(torch.mean((pred - gt) ** 2)))
             pred_t = pred.permute(2, 0, 1)[None]
@@ -334,7 +442,7 @@ class NerfSystem:
             lpips_v = lpips_mod.lpips(pred_t * 2 - 1, gt_t * 2 - 1) if lpips_ok else None
             rows.append((psnr, ssim_v, lpips_v))
             if dump_images:
-                inv = invdepth_map(out["depth"], out["opacity"],
+                inv = invdepth_map(out["depth" + fine], out["opacity" + fine],
                                    ndc=bool(opt.camera.ndc)).reshape(self.H, self.W)
                 inv = inv.cpu().numpy()
                 _save_png(os.path.join(test_path, "rgb_{}.png".format(i)), pred.cpu().numpy())

@@ -37,9 +37,24 @@ _SIGNATURES = {
                    ctypes.c_int),
     "niw_rm_train_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                       ctypes.c_longlong),
-    "niw_rm_train": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+    "niw_rm_train": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P,
-                      _P, _P, _P], ctypes.c_int),
+                      _P, _P, _P, _P], ctypes.c_int),
+    "niw_field_pe_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
+                                          ctypes.c_longlong),
+    "niw_field_pe_bwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),
+    "niw_field_pe_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "niw_field_pe_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                          ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _P, _P],
+                         ctypes.c_int),
+    "niw_field_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
+                                       ctypes.c_longlong),
+    "niw_field_bwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),
+    "niw_field_fwd": ([_P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                       _P], ctypes.c_int),
+    "niw_field_bwd": ([_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P,
+                       _P, _P, _P], ctypes.c_int),
 }
 
 

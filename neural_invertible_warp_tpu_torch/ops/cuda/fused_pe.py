@@ -1,19 +1,26 @@
-"""Composited NeRF field render: the CUDA kernels K2 (train), K3 (forward)
-and K4 (backward of K3) with their plain PyTorch versions (port of
-neural_invertible_warp_tpu/ops/pallas/fused_pe.py, ``fused_render_rays_pe``
-with its VJP and ``fused_render_rays_pe_train``).
+"""NeRF field kernels with the PE inside: the composited render's CUDA
+kernels K2 (train), K3 (forward) and K4 (backward of K3), and the per-sample
+field kernel K5 (forward and backward), each with its plain PyTorch version
+(port of neural_invertible_warp_tpu/ops/pallas/fused_pe.py:
+``fused_render_rays_pe`` with its VJP, ``fused_render_rays_pe_train`` and
+``fused_apply_nerf_samples_pe``).
 
-All compute, per ray: the PE of center + ray * depth (BARF c2f weights
+K2-K4 compute, per ray: the PE of center + ray * depth (BARF c2f weights
 folded in), the 8x256 NeRF MLP, quadrature and alpha compositing, giving
 [R,8] = (rgb, depth, opacity, 0, 0, 0). K2 also forms the photometric MSE
-cotangent in-kernel and returns d(sq_sum)/d(center, ray, weights). K3 under
-autograd keeps its activations, and K4 turns an arbitrary cotangent of the
-[R,8] output into d/d(center, ray) and, where a weight needs one, the
-weight gradients.
+cotangent in-kernel and returns d(sq_sum)/d(center, ray, weights); it takes
+an optional density-noise operand and can return the per-sample compositing
+weights that fine sampling resamples from. K3 under autograd keeps its
+activations, and K4 turns an arbitrary cotangent of the [R,8] output into
+d/d(center, ray) and, where a weight needs one, the weight gradients. K5
+stops before the compositing: per sample (rgb, density), with the same
+noise operand, and under autograd a backward kernel to d/d(center, ray,
+weights).
 
 The wrappers take the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
-``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/nerf_field.cuh``.
+``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/field_pe.cu``,
+``csrc/nerf_field.cuh``.
 """
 
 from __future__ import annotations
@@ -89,15 +96,21 @@ def unpack_grads(dws):
 
 # ----------------------------------------------------------- plain versions
 
-def render_rays_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
-                      density_activ="softplus"):
-    """PE -> MLP -> composite. center/ray [R,3]; depth [R,K] -> [R,8]."""
+def _render_plain(mlp, center, ray, depth, progress, barf_c2f, density_activ, noise):
+    """PE -> MLP -> composite on flat rays -> (out [R,8], prob [R,K])."""
     depth4 = depth.detach()[..., None]
     rgb_s, dens = apply_nerf_samples(mlp, center, ray, depth4,
                                      progress=progress, barf_c2f=barf_c2f,
-                                     density_activ=density_activ)
-    rgb, d, op, _ = render.composite(ray, rgb_s, dens, depth4)
-    return torch.cat([rgb, d, op, torch.zeros_like(rgb)], dim=-1)
+                                     density_activ=density_activ, noise=noise)
+    rgb, d, op, prob = render.composite(ray, rgb_s, dens, depth4)
+    return torch.cat([rgb, d, op, torch.zeros_like(rgb)], dim=-1), prob[..., 0]
+
+
+def render_rays_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
+                      density_activ="softplus"):
+    """PE -> MLP -> composite. center/ray [R,3]; depth [R,K] -> [R,8]."""
+    return _render_plain(mlp, center, ray, depth, progress, barf_c2f, density_activ,
+                         None)[0]
 
 
 def render_rays_backward_plain(mlp, center, ray, depth, g8, progress=None,
@@ -124,11 +137,15 @@ def sq_sum_from_out(out, target8, bg=None):
 
 
 def render_rays_train_plain(mlp, center, ray, depth, target8, progress=None,
-                            barf_c2f=None, bg=None, density_activ="softplus"):
-    """(sq_sum, out [R,8]) through the plain chain; gradients by autograd."""
-    out = render_rays_plain(mlp, center, ray, depth, progress, barf_c2f,
-                            density_activ)
-    return sq_sum_from_out(out, target8, bg), out
+                            barf_c2f=None, bg=None, density_activ="softplus",
+                            noise=None, want_prob=False):
+    """(sq_sum, out [R,8]) through the plain chain, and with ``want_prob``
+    also the compositing weights [R,K], detached; gradients by autograd.
+    noise [R,K] on the density pre-activation, optional."""
+    out, prob = _render_plain(mlp, center, ray, depth, progress, barf_c2f,
+                              density_activ, noise)
+    res = (sq_sum_from_out(out, target8, bg), out)
+    return res + (prob.detach(),) if want_prob else res
 
 
 # ---------------------------------------------------------------- launches
@@ -206,49 +223,63 @@ def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, weights,
 
 
 def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
-                    density_activ="softplus"):
+                    density_activ="softplus", noise=None, want_prob=False):
     """K2 on CUDA tensors. Returns (out [R,8], dcenter, dray [R,3], grads of
-    ``mlp.parameters()``), the gradients being those of sq_sum."""
+    ``mlp.parameters()``, prob [R,K] or None), the gradients being those of
+    sq_sum. ``noise`` [R,K] is added to the density pre-activation."""
     R, K = depth.shape
-    _check_inputs(mlp, [center, ray, depth, target8, w3, wv], K)
+    _check_inputs(mlp, [center, ray, depth, target8, w3, wv]
+                  + ([] if noise is None else [noise]), K)
+    if noise is not None and noise.shape != (R, K):
+        raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
     lib = build.load_library().lib
     weights = pack_weights(mlp)
     dws = [torch.empty_like(w) for w in weights]
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
     dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
+    prob = (torch.empty((R, K), dtype=torch.float32, device=depth.device)
+            if want_prob else None)
     ws = torch.empty(lib.niw_rm_train_workspace_floats(R * K, R),
                      dtype=torch.float32, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_train(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
-                           target8.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
-                           _ptrs(weights), _ACTIV[density_activ],
-                           int(bg is not None), float(bg or 0.0), out.data_ptr(),
-                           dcenter.data_ptr(), dray.data_ptr(), _ptrs(dws),
+                           target8.data_ptr(),
+                           None if noise is None else noise.data_ptr(), R, K,
+                           w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
+                           _ACTIV[density_activ], int(bg is not None),
+                           float(bg or 0.0), out.data_ptr(), dcenter.data_ptr(),
+                           dray.data_ptr(), _ptrs(dws),
+                           None if prob is None else prob.data_ptr(),
                            ws.data_ptr(), stream)
     build.check(err, "niw_rm_train")
-    return out, dcenter, dray, unpack_grads(dws)
+    return out, dcenter, dray, unpack_grads(dws), prob
 
 
 class _RmTrain(torch.autograd.Function):
-    """sq_sum (differentiable) and out [R,8] (not) from one K2 launch; the
-    backward scales the kernel's saved gradients by d(loss)/d(sq_sum)."""
+    """sq_sum (differentiable), out [R,8] and prob [R,K] (neither; prob is
+    empty without ``want_prob``) from one K2 launch; the backward scales the
+    kernel's saved gradients by d(loss)/d(sq_sum)."""
+
+    N_LEADING = 11   # arguments before *params
 
     @staticmethod
     def forward(ctx, center, ray, depth, target8, w3, wv, mlp, bg,
-                density_activ, *params):
-        out, dcenter, dray, grads = launch_rm_train(
+                density_activ, noise, want_prob, *params):
+        out, dcenter, dray, grads, prob = launch_rm_train(
             mlp, center.detach().contiguous(), ray.detach().contiguous(),
-            depth, target8, w3, wv, bg, density_activ)
+            depth, target8, w3, wv, bg, density_activ, noise, want_prob)
         fused_render_rays_pe_train.launches += 1
         ctx.save_for_backward(dcenter, dray, *grads)
-        ctx.mark_non_differentiable(out)
-        return sq_sum_from_out(out, target8, bg), out
+        if prob is None:
+            prob = out.new_empty(0)
+        ctx.mark_non_differentiable(out, prob)
+        return sq_sum_from_out(out, target8, bg), out, prob
 
     @staticmethod
-    def backward(ctx, g_sq, g_out):
+    def backward(ctx, g_sq, g_out, g_prob):
         dcenter, dray, *grads = ctx.saved_tensors
-        return ((dcenter * g_sq, dray * g_sq) + (None,) * 7
+        return ((dcenter * g_sq, dray * g_sq) + (None,) * (_RmTrain.N_LEADING - 2)
                 + tuple(g * g_sq for g in grads))
 
 
@@ -329,11 +360,15 @@ fused_render_rays_pe.backward_launches = 0    # K4 launches
 def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
                                progress=None, barf_c2f=None,
                                setbg_opaque=False, bgcolor=None,
-                               density_activ="softplus"):
+                               density_activ="softplus", noise=None,
+                               want_prob=False):
     """Training render + MSE (K2). center/ray [B,R,3]; depth [B,R,K,1]
-    sorted ascending; target [B,R,3]. Returns (out_dict, sq_sum, n_terms):
+    sorted ascending; target [B,R,3]; noise [B,R,K]: the density-noise
+    draw, already scaled, optional. Returns (out_dict, sq_sum, n_terms):
     out_dict's rgb/depth/opacity are detached (metrics only); sq_sum / n_terms
-    is the photometric MSE, differentiable in center, ray and the weights."""
+    is the photometric MSE, differentiable in center, ray and the weights.
+    With ``want_prob`` out_dict also holds ``prob`` [B,R,K], the per-sample
+    compositing weights, detached: what a fine-sampling step resamples from."""
     B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
     n_rays = B * R_img
     c = center.reshape(n_rays, 3)
@@ -343,16 +378,157 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
     target8 = torch.cat([t, torch.ones_like(t[:, :1]),
                          torch.zeros_like(t[:, :1]).expand(n_rays, 4)], dim=1)
     bg = float(bgcolor) if setbg_opaque else None
+    if noise is not None:
+        noise = noise.detach().reshape(n_rays, K).contiguous()
     if not c.is_cuda:
-        sq, out = render_rays_train_plain(mlp, c, r, d, target8, progress,
-                                          barf_c2f, bg, density_activ)
+        sq, out, *prob = render_rays_train_plain(
+            mlp, c, r, d, target8, progress, barf_c2f, bg, density_activ, noise,
+            want_prob)
     else:
         w3, wv = band_weights(progress, barf_c2f, c.device)
-        sq, out = _RmTrain.apply(c, r, d, target8.contiguous(), w3, wv, mlp, bg,
-                                 density_activ, *mlp.parameters())
+        sq, out, *prob = _RmTrain.apply(
+            c, r, d, target8.contiguous(), w3, wv, mlp, bg, density_activ, noise,
+            want_prob, *mlp.parameters())
     rgb, depth_out, opacity = _split(out.detach(), B, R_img, setbg_opaque,
                                      bgcolor)
-    return dict(rgb=rgb, depth=depth_out, opacity=opacity), sq, float(n_rays * 3)
+    out_dict = dict(rgb=rgb, depth=depth_out, opacity=opacity)
+    if want_prob:
+        out_dict["prob"] = prob[0].reshape(B, R_img, K)
+    return out_dict, sq, float(n_rays * 3)
 
 
 fused_render_rays_pe_train.launches = 0
+
+
+# ------------------------------------------------ K5: the field per sample
+
+def field_samples_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
+                        density_activ="softplus", noise=None):
+    """K5's plain version: PE -> MLP on flat rays. center/ray [R,3]; depth
+    [R,K]; noise [R,K] optional -> [R*K,4] = (rgb, density)."""
+    rgb, dens = apply_nerf_samples(mlp, center, ray, depth.detach()[..., None],
+                                   progress=progress, barf_c2f=barf_c2f,
+                                   density_activ=density_activ, noise=noise)
+    return torch.cat([rgb, dens[..., None]], dim=-1).reshape(-1, 4)
+
+
+def launch_field_pe_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus",
+                        noise=None, keep=False):
+    """One K5 forward launch on CUDA tensors: center/ray [R,3], depth [R,K],
+    noise [R,K] or None. Returns (out [R*K,4], workspace, packed weights);
+    with ``keep`` the workspace holds every layer's activations, for the
+    backward launch."""
+    R, K = depth.shape
+    _check_inputs(mlp, [center, ray, depth, w3, wv]
+                  + ([] if noise is None else [noise]), K)
+    if noise is not None and noise.shape != (R, K):
+        raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
+    lib = build.load_library().lib
+    weights = pack_weights(mlp)
+    out = torch.empty((R * K, 4), dtype=torch.float32, device=depth.device)
+    ws = torch.empty(lib.niw_field_pe_fwd_workspace_floats(R * K, int(keep)),
+                     dtype=torch.float32, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    err = lib.niw_field_pe_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
+                               None if noise is None else noise.data_ptr(), R, K,
+                               w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
+                               _ACTIV[density_activ], int(keep), out.data_ptr(),
+                               ws.data_ptr(), stream)
+    build.check(err, "niw_field_pe_fwd")
+    return out, ws, weights
+
+
+def launch_field_pe_bwd(mlp, center, ray, depth, g, w3, wv, cache, weights,
+                        want_dw=True, density_activ="softplus"):
+    """One K5 backward launch: the cotangent g [R*K,4] of the forward's
+    output, with the activation ``cache`` and packed ``weights`` of the
+    forward launch that kept them -> (dcenter, dray [R,3], grads of
+    ``mlp.parameters()`` or None without ``want_dw``)."""
+    R, K = depth.shape
+    _check_inputs(mlp, [center, ray, depth, g, w3, wv, cache] + list(weights), K)
+    lib = build.load_library().lib
+    if (g.shape != (R * K, 4)
+            or cache.numel() != lib.niw_field_pe_fwd_workspace_floats(R * K, 1)):
+        raise ValueError("cotangent must be [R*K,4] and the cache that of a "
+                         "kept forward launch on the same rays")
+    dws = [torch.empty_like(w) for w in weights] if want_dw else []
+    dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
+    dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
+    ws = torch.empty(lib.niw_field_pe_bwd_workspace_floats(R * K),
+                     dtype=torch.float32, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    err = lib.niw_field_pe_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
+                               g.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
+                               _ptrs(weights), _ACTIV[density_activ],
+                               cache.data_ptr(), int(want_dw), dcenter.data_ptr(),
+                               dray.data_ptr(), _ptrs(dws) if want_dw else None,
+                               ws.data_ptr(), stream)
+    build.check(err, "niw_field_pe_bwd")
+    return dcenter, dray, unpack_grads(dws) if want_dw else None
+
+
+class _FieldPe(torch.autograd.Function):
+    """out [R*K,4] from one K5 forward launch that keeps its activations
+    (the noised density pre-activation among them); the backward is one K5
+    backward launch, without the weight-gradient part when no weight needs
+    a gradient."""
+
+    N_LEADING = 8   # arguments before *params
+
+    @staticmethod
+    def forward(ctx, center, ray, depth, noise, w3, wv, mlp, density_activ, *params):
+        c, r = center.detach().contiguous(), ray.detach().contiguous()
+        out, cache, weights = launch_field_pe_fwd(mlp, c, r, depth, w3, wv,
+                                                  density_activ, noise, keep=True)
+        fused_apply_nerf_samples_pe.launches += 1
+        ctx.save_for_backward(c, r, depth, w3, wv, cache, *weights)
+        ctx.mlp, ctx.density_activ = mlp, density_activ
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        c, r, depth, w3, wv, cache, *weights = ctx.saved_tensors
+        want_dw = any(ctx.needs_input_grad[_FieldPe.N_LEADING:])
+        dcenter, dray, grads = launch_field_pe_bwd(
+            ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, weights,
+            want_dw, ctx.density_activ)
+        fused_apply_nerf_samples_pe.backward_launches += 1
+        n_params = len(ctx.needs_input_grad) - _FieldPe.N_LEADING
+        return ((dcenter, dray) + (None,) * (_FieldPe.N_LEADING - 2)
+                + (tuple(grads) if want_dw else (None,) * n_params))
+
+
+def fused_apply_nerf_samples_pe(mlp, center, ray, depth, *, progress=None,
+                                barf_c2f=None, density_activ="softplus",
+                                noise=None):
+    """The field along rays with the PE inside (K5). center/ray [B,R,3];
+    depth [B,R,K,1]; noise [B,R,K]: the density-noise draw, already scaled,
+    optional. Returns (rgb [B,R,K,3], density [B,R,K]), differentiable in
+    center, ray and the weights (not in depth): on CUDA, where grad is
+    enabled and one of them requires it, the forward keeps its activations
+    and the backward is a second kernel launch."""
+    B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
+    c = center.reshape(B * R_img, 3)
+    r = ray.reshape(B * R_img, 3)
+    d = depth.detach().reshape(B * R_img, K).contiguous()
+    if noise is not None:
+        noise = noise.detach().reshape(B * R_img, K).contiguous()
+    if not c.is_cuda:
+        out = field_samples_plain(mlp, c, r, d, progress, barf_c2f, density_activ,
+                                  noise)
+    else:
+        w3, wv = band_weights(progress, barf_c2f, c.device)
+        if torch.is_grad_enabled() and (c.requires_grad or r.requires_grad or any(
+                p.requires_grad for p in mlp.parameters())):
+            out = _FieldPe.apply(c, r, d, noise, w3, wv, mlp, density_activ,
+                                 *mlp.parameters())
+        else:
+            out = launch_field_pe_fwd(mlp, c.contiguous(), r.contiguous(), d, w3, wv,
+                                      density_activ, noise)[0]
+            fused_apply_nerf_samples_pe.launches += 1
+    return out[:, :3].reshape(B, R_img, K, 3), out[:, 3].reshape(B, R_img, K)
+
+
+fused_apply_nerf_samples_pe.launches = 0             # K5 forward launches
+fused_apply_nerf_samples_pe.backward_launches = 0    # K5 backward launches

@@ -90,11 +90,20 @@ class NerfMLP(nn.Module):
             else:
                 _xavier_(lin.weight, gains[0], generator)
 
-    def forward(self, points_3D, ray_unit=None, progress=None, barf_c2f=None,
-                density_activ="softplus"):
-        """points_3D, ray_unit: [...,3] -> (rgb [...,3], density [...])."""
+    def encode(self, points_3D, ray_unit=None, progress=None, barf_c2f=None):
+        """The MLP's inputs: (points and their PE [...,3+6 L_3D], unit ray
+        and its PE [...,3+6 L_view] or None without view dependence)."""
         enc = positional_encoding_c2f(points_3D, self.L_3D, progress, barf_c2f)
         points_enc = torch.cat([points_3D, enc], dim=-1)
+        if not self.view_dep:
+            return points_enc, None
+        ray_enc = positional_encoding_c2f(ray_unit, self.L_view, progress, barf_c2f)
+        return points_enc, torch.cat([ray_unit, ray_enc], dim=-1)
+
+    def forward_encoded(self, points_enc, view_enc=None, density_activ="softplus",
+                        noise=None):
+        """The layers on encoded inputs -> (rgb [...,3], density [...]).
+        ``noise`` [...] is added to the density before its activation."""
         feat = points_enc
         density = None
         n_feat = len(self.mlp_feat)
@@ -103,13 +112,14 @@ class NerfMLP(nn.Module):
                 feat = torch.cat([feat, points_enc], dim=-1)
             feat = F.linear(feat, lin.weight, lin.bias)
             if li == n_feat - 1:
-                density = density_activation(density_activ, feat[..., 0])
+                density = feat[..., 0]
+                if noise is not None:
+                    density = density + noise
+                density = density_activation(density_activ, density)
                 feat = feat[..., 1:]
             feat = torch.relu(feat)
         if self.view_dep:
-            ray_enc = positional_encoding_c2f(ray_unit, self.L_view, progress,
-                                              barf_c2f)
-            feat = torch.cat([feat, ray_unit, ray_enc], dim=-1)
+            feat = torch.cat([feat, view_enc], dim=-1)
         n_rgb = len(self.mlp_rgb)
         for li, lin in enumerate(self.mlp_rgb):
             feat = F.linear(feat, lin.weight, lin.bias)
@@ -117,12 +127,26 @@ class NerfMLP(nn.Module):
                 feat = torch.relu(feat)
         return torch.sigmoid(feat), density
 
+    def forward(self, points_3D, ray_unit=None, progress=None, barf_c2f=None,
+                density_activ="softplus", noise=None):
+        """points_3D, ray_unit: [...,3] -> (rgb [...,3], density [...]).
+        ``noise`` [...]: the density-noise regularizer's draw, already scaled
+        by ``nerf.density_noise_reg``, added before the density activation."""
+        points_enc, view_enc = self.encode(points_3D, ray_unit, progress, barf_c2f)
+        return self.forward_encoded(points_enc, view_enc, density_activ, noise)
 
-def apply_nerf_samples(mlp, center, ray, depth_samples, **kwargs):
-    """Field along rays. center/ray [B,R,3]; depth [B,R,K,1] ->
-    rgb [B,R,K,3], density [B,R,K]."""
+
+def sample_points(center, ray, depth_samples):
+    """(points [B,R,K,3], unit rays [B,R,K,3]) of center/ray [B,R,3] at
+    depth [B,R,K,1]."""
     points = center[..., None, :] + ray[..., None, :] * depth_samples
     ray_unit = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True),
                                  min=1e-12)
-    ray_unit = ray_unit[..., None, :].expand(points.shape)
+    return points, ray_unit[..., None, :].expand(points.shape)
+
+
+def apply_nerf_samples(mlp, center, ray, depth_samples, **kwargs):
+    """Field along rays. center/ray [B,R,3]; depth [B,R,K,1] ->
+    rgb [B,R,K,3], density [B,R,K]. ``noise`` [B,R,K] optional."""
+    points, ray_unit = sample_points(center, ray, depth_samples)
     return mlp(points, ray_unit, **kwargs)

@@ -2,7 +2,6 @@
 
 Random draws come from an explicit ``torch.Generator``, or are passed in as
 ``rand`` / ``u`` so that tests can hand both packages the same numbers.
-Fine (inverse-CDF) sampling is not ported yet (ROADMAP M9).
 """
 
 from __future__ import annotations
@@ -55,3 +54,34 @@ def sample_ray_subset(n_total, n_pick, mode="stratified", generator=None,
     bounds = (i * n_total) // n_pick
     lo, hi = bounds[:-1], bounds[1:]
     return lo + (u * (hi - lo).to(u.dtype)).to(torch.int64)
+
+
+def sample_depth_from_pdf(pdf, num_samples, num_samples_fine, depth_range):
+    """Deterministic inverse-transform sampling from per-ray weights.
+
+    pdf [B,R,N]: compositing weights of the N coarse bins (not normalized,
+    as the reference takes them). The cdf is inverted at the midpoints of
+    ``num_samples_fine`` equal bins of [0,1]: ``searchsorted(right=True)``
+    brackets each, and the depth is interpolated between the bracketing
+    bin edges of the linear depth grid. A midpoint beyond an unnormalized
+    cdf's end lands in the last bin (index clipped to N). Returns metric
+    depths [B,R,Nf,1].
+    """
+    depth_min, depth_max = depth_range
+    N = num_samples
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)     # [B,R,N+1]
+    grid = torch.linspace(0.0, 1.0, num_samples_fine + 1, dtype=pdf.dtype,
+                          device=pdf.device)
+    unif = (0.5 * (grid[:-1] + grid[1:])).expand(
+        cdf.shape[:-1] + (num_samples_fine,)).contiguous()
+    idx = torch.searchsorted(cdf, unif, right=True)                    # in 1..N+1
+    lo = torch.clamp(idx - 1, min=0)
+    hi = torch.clamp(idx, max=N)
+    step = (depth_max - depth_min) / N
+    depth_low = depth_min + lo.to(pdf.dtype) * step
+    depth_high = depth_min + hi.to(pdf.dtype) * step
+    cdf_low = torch.gather(cdf, -1, lo)
+    cdf_high = torch.gather(cdf, -1, hi)
+    t = (unif - cdf_low) / (cdf_high - cdf_low + 1e-8)
+    return (depth_low + t * (depth_high - depth_low))[..., None]

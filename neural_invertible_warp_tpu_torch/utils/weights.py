@@ -2,8 +2,8 @@
 ``nn.Module`` state_dicts.
 
 ``from_jax_params(tree)`` maps a JAX params dict (top-level groups ``nerf``,
-``se3_refine``, ``warp_mlp``, ``warp_latent``) of numpy arrays to a state_dict keyed as the
-reference torch Graph (``nerf.mlp_feat.i.weight``,
+``nerf_fine``, ``se3_refine``, ``warp_mlp``, ``warp_latent``) of numpy arrays
+to a state_dict keyed as the reference torch Graph (``nerf.mlp_feat.i.weight``,
 ``se3_refine.weight``, ``warp_mlp.lin{b}_a_{l}.weight_v``,
 ``warp_latent.weight``, ...);
 ``to_jax_params(module)`` is its inverse and returns numpy arrays. JAX
@@ -87,8 +87,9 @@ def deform_to_jax(net, get=_ident):
 def from_jax_params(tree):
     """JAX params dict of numpy arrays -> reference-named state_dict."""
     sd = {}
-    if "nerf" in tree:
-        sd.update(nerf_from_jax(tree["nerf"], prefix="nerf."))
+    for name in ("nerf", "nerf_fine"):
+        if name in tree:
+            sd.update(nerf_from_jax(tree[name], prefix=name + "."))
     if "warp_mlp" in tree:
         sd.update(deform_from_jax(tree["warp_mlp"], prefix="warp_mlp."))
     for name in ("se3_refine", "warp_latent"):    # per-image embedding tables
@@ -98,14 +99,15 @@ def from_jax_params(tree):
 
 
 def to_jax_params(module, get=_ident):
-    """The port's Graph module (children nerf, se3_refine, warp_mlp,
-    warp_latent) ->
+    """The port's Graph module (children nerf, nerf_fine, se3_refine,
+    warp_mlp, warp_latent) ->
     JAX params dict of numpy arrays. ``get`` maps each parameter to the
     tensor to export (the parameter itself by default; the checkpoint uses
     it to export Adam moments in the same layout)."""
     tree = {}
-    if hasattr(module, "nerf"):
-        tree["nerf"] = nerf_to_jax(module.nerf, get)
+    for name in ("nerf", "nerf_fine"):
+        if hasattr(module, name):
+            tree[name] = nerf_to_jax(getattr(module, name), get)
     if hasattr(module, "warp_mlp"):
         tree["warp_mlp"] = deform_to_jax(module.warp_mlp, get)
     for name in ("se3_refine", "warp_latent"):

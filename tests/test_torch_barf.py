@@ -157,7 +157,7 @@ def test_barf_adam_step_and_checkpoint(systems, tmp_path):
         assert torch.equal(psys.optim.moments(a)[0], fresh.optim.moments(b)[0]), name
 
 
-@pytest.mark.parametrize("dataset,item", [("blender", "M9"), ("dtu", "M10")])
+@pytest.mark.parametrize("dataset,item", [("iphone", "M14"), ("dtu", "M10")])
 def test_barf_on_other_data_names_the_roadmap_item(tmp_path, dataset, item):
     opt = _options(tmp_path)
     opt.data.dataset = dataset
