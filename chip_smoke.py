@@ -150,9 +150,7 @@ K5_CASES = [("{} {}{}".format(K_, activ, ", noise" if noise else ""), FINE_RAYS,
              activ, noise)
             for K_ in FINE_K for activ in ("softplus", "relu") for noise in (False, True)
             ] + [("ragged relu, noise", 37, 64, "relu", True)]
-K1_CASES = [("{} {}".format(K_, activ), FINE_RAYS, K_, activ, False)
-            for K_ in FINE_K for activ in ("softplus", "relu")
-            ] + [("ragged relu", 37, 64, "relu", False)]
+K1_CASES = K5_CASES
 K2_NOISE_CASES = [("{} {}, noise, prob".format(K_, activ), FINE_RAYS, K_, activ, True)
                   for K_ in FINE_K for activ in ("softplus", "relu")]
 
@@ -777,8 +775,7 @@ def field_fn(which):
     if which == "k5":
         return fp.fused_apply_nerf_samples_pe
     if which == "k1":
-        return lambda mlp, c, r, d, noise=None, **kw: ff.fused_apply_nerf_samples(
-            mlp, c, r, d, **kw)
+        return ff.fused_apply_nerf_samples
     return nerf_mlp.apply_nerf_samples
 
 
@@ -879,26 +876,28 @@ def phase_kernels_field(mlp, device):
                 records[which + "_bwd"]["max_abs_err"] = max(
                     records[which + "_bwd"]["max_abs_err"], err_g)
     # K1's own input cotangents, at the encoded inputs of a K = 64 batch
-    (center, ray, depth, _, _), _ = fine_batch(FINE_RAYS, 64, 70, device)
+    (center, ray, depth, _, noise), _ = fine_batch(FINE_RAYS, 64, 70, device)
+    noise = noise.reshape(-1) * NOISE_REG
     from neural_invertible_warp_tpu_torch.ops import nerf_mlp
     with torch.no_grad():
         xp, view = mlp.encode(*nerf_mlp.sample_points(center, ray, depth))
     xp, view = xp.reshape(-1, 63), view.reshape(-1, 27).contiguous()
     g_out = torch.randn(xp.shape[0], 4, generator=torch.Generator().manual_seed(6)).to(device)
-    print("kernels: K1 on encoded inputs [{},63], [{},27], softplus: dxp, dview".format(
-        xp.shape[0], xp.shape[0]))
+    print("kernels: K1 on encoded inputs [{},63], [{},27], softplus, noise: dxp, "
+          "dview".format(xp.shape[0], xp.shape[0]))
     grads = []
     for fn in (ff.fused_mlp, ff.mlp_plain):
         x, v = xp.clone().requires_grad_(True), view.clone().requires_grad_(True)
-        grads.append(torch.autograd.grad(fn(mlp, x, v), [x, v], g_out))
+        grads.append(torch.autograd.grad(fn(mlp, x, v, noise=noise), [x, v], g_out))
     for name, gk, gp in zip(("dxp", "dview"), *grads):
         compare(name, gk, gp, TOL["grad"], failures)
 
-    # times and bounds at the main path's shapes: relu density, K5 with noise
-    for which, noisy in (("k5", True), ("k1", False)):
+    # times and bounds at the main path's shapes: relu density with noise
+    lib = build.load_library().lib
+    for which in ("k5", "k1"):
         for n_samples in FINE_K:
             (center, ray, depth, _, noise), _ = fine_batch(FINE_RAYS, n_samples, 80, device)
-            noise = noise * NOISE_REG if noisy else None
+            noise = noise * NOISE_REG
             sfx = "" if n_samples == FINE_K[0] else "_k{}".format(n_samples)
             N = FINE_RAYS * n_samples
             out = torch.empty(N, 4, device="meta")
@@ -906,10 +905,12 @@ def phase_kernels_field(mlp, device):
                 ins = [center, ray, depth, noise]
                 douts = [center, ray]
             else:
-                ins = [torch.empty(N, 63, device="meta"), torch.empty(N, 27, device="meta")]
-                douts = ins
-            cache = torch.empty(build.load_library().lib.niw_field_pe_fwd_workspace_floats(
-                N, 1), device="meta")   # the kept activations the backward reads
+                douts = [torch.empty(N, 63, device="meta"), torch.empty(N, 27, device="meta")]
+                ins = douts + [noise]
+            # the kept activations the backward reads
+            workspace_floats = (lib.niw_field_pe_fwd_workspace_floats if which == "k5"
+                                else lib.niw_field_fwd_workspace_floats)
+            cache = torch.empty(workspace_floats(N, 1), device="meta")
             for rec, backward in ((records[which + "_fwd"], False),
                                   (records[which + "_bwd"], True)):
                 rec["ms" + sfx] = timed_field(which, mlp, center, ray, depth, noise, "relu",
@@ -925,10 +926,10 @@ def phase_kernels_field(mlp, device):
                 if not sfx:
                     rec["bound_by"] = b[1]
             f, b = records[which + "_fwd"], records[which + "_bwd"]
-            print("kernels: {} at [1,{}]x{}, relu{}: forward {:.3f} ms (plain {:.3f}, bound "
+            print("kernels: {} at [1,{}]x{}, relu, noise: forward {:.3f} ms (plain {:.3f}, bound "
                   "{:.3f}); backward alone with weight gradients {:.3f} ms (plain {:.3f}, "
                   "bound {:.3f}); card: {}".format(
-                      which.upper(), FINE_RAYS, n_samples, ", noise" if noisy else "",
+                      which.upper(), FINE_RAYS, n_samples,
                       f["ms" + sfx], f["plain_ms" + sfx], f["bound_ms" + sfx], b["ms" + sfx],
                       b["plain_ms" + sfx], b["bound_ms" + sfx], card_line()))
 
@@ -1118,13 +1119,11 @@ def phase_slice_fine(device):
     opt.tpu.fused_raymarch_full = False
     tier_ms["fallback"] = _tier_steps(system, first)
     window({"k2": FINE_TIER_STEPS, "k5_fwd": FINE_TIER_STEPS, "k5_bwd": FINE_TIER_STEPS})
-    # MLP-only tier: K1 forward + backward per field (it has no noise operand)
+    # MLP-only tier: K1 forward + backward per field
     opt.tpu.fused_pe = False
-    opt.nerf.density_noise_reg = None
     tier_ms["mlp"] = _tier_steps(system, first)
     window({"k1_fwd": 2 * FINE_TIER_STEPS, "k1_bwd": 2 * FINE_TIER_STEPS})
     opt.tpu.fused_pe, opt.tpu.fused_raymarch_full = True, True
-    opt.nerf.density_noise_reg = NOISE_REG
 
     print("fine: loss_render {:.5f} -> {:.5f}, loss_render_fine {:.5f} -> {:.5f} in {} "
           "steps; val PSNR {:.2f} dB (fine field), evaluation PSNR {:.2f} dB, SSIM "
@@ -1186,32 +1185,32 @@ def main():
     records["k2"].update(k2_extra)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
+    paths = {"flagship_train": launches, "flagship_eval": launches_eval,
+             "fine": launches_fine}
+
+    def kernel(key, name, source, replaces, record):
+        # launches: over the three paths, each counted from 0 by its own phase
+        by_path = {path: counts[key] for path, counts in paths.items() if counts.get(key)}
+        return dict(name=name, route="cuda", source=pkg + source, replaces=pallas + replaces,
+                    launches=sum(by_path.values()), launches_by_path=by_path, **record)
     kernels = [
-        dict(name="K1 field forward (MLP on encoded inputs)", route="cuda",
-             source=pkg + "field.cu", replaces=pallas + "fused_field.py:166",
-             launches=launches_fine["k1_fwd"], **records_field["k1_fwd"]),
-        dict(name="K1 field backward", route="cuda", source=pkg + "field.cu",
-             replaces=pallas + "fused_field.py:245",
-             launches=launches_fine["k1_bwd"], **records_field["k1_bwd"]),
-        dict(name="K5 field_pe forward (PE + MLP per sample)", route="cuda",
-             source=pkg + "field_pe.cu", replaces=pallas + "fused_pe.py:151",
-             launches=launches_fine["k5_fwd"], **records_field["k5_fwd"]),
-        dict(name="K5 field_pe backward", route="cuda", source=pkg + "field_pe.cu",
-             replaces=pallas + "fused_pe.py:171",
-             launches=launches_fine["k5_bwd"], **records_field["k5_bwd"]),
-        dict(name="K2 rm_train (one-call train render)", route="cuda",
-             source=pkg + "rm_train.cu",
-             replaces="neural_invertible_warp_tpu/ops/pallas/fused_pe.py:886",
-             launches=launches["k2"] + launches_fine["k2"], **records["k2"]),
-        dict(name="K3 rm_fwd (composited forward render)", route="cuda",
-             source=pkg + "rm_fwd.cu",
-             replaces="neural_invertible_warp_tpu/ops/pallas/fused_pe.py:568",
-             launches=launches["k3"] + launches_eval["k3"], **records["k3"]),
-        dict(name="K4 rm_bwd (backward of the composited render)", route="cuda",
-             source=pkg + "rm_bwd.cu",
-             replaces="neural_invertible_warp_tpu/ops/pallas/fused_pe.py:597",
-             launches=launches_eval["k4"], **records["k4"]),
+        kernel("k1_fwd", "K1 field forward (MLP on encoded inputs)", "field.cu",
+               "fused_field.py:166", records_field["k1_fwd"]),
+        kernel("k1_bwd", "K1 field backward", "field.cu", "fused_field.py:245",
+               records_field["k1_bwd"]),
+        kernel("k5_fwd", "K5 field_pe forward (PE + MLP per sample)", "field_pe.cu",
+               "fused_pe.py:151", records_field["k5_fwd"]),
+        kernel("k5_bwd", "K5 field_pe backward", "field_pe.cu", "fused_pe.py:171",
+               records_field["k5_bwd"]),
+        kernel("k2", "K2 rm_train (one-call train render)", "rm_train.cu",
+               "fused_pe.py:886", records["k2"]),
+        kernel("k3", "K3 rm_fwd (composited forward render)", "rm_fwd.cu",
+               "fused_pe.py:568", records["k3"]),
+        kernel("k4", "K4 rm_bwd (backward of the composited render)", "rm_bwd.cu",
+               "fused_pe.py:597", records["k4"]),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, "{} was not launched on any path".format(k["name"]))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@
 // sample) -> the 8x256 trunk with the skip at layer 4, density from the last
 // trunk layer (softplus or relu), the 283 -> 128 -> 3 sigmoid head ->
 // out [N,4] = (rgb, density). Backward: the VJP for g [N,4] -> dxp [N,63],
-// dview [N,27] and, on demand, the 20 weight gradients. No noise operand, as
-// in the TPU kernel.
+// dview [N,27] and, on demand, the 20 weight gradients. An optional [N] noise
+// is added to the density pre-activation, as in K5 and K2 (the TPU kernel
+// has no such operand, and its caller leaves it for the plain chain when
+// noise is active): the kept cache holds the noised value, so the backward
+// takes the activation's derivative there.
 //
 // Bound: operations, as for K5 (the PE is 0.2% of the work). Design: K5's
 // launch sequence with a copy of the encoded inputs into the skip and head
@@ -28,11 +31,12 @@ extern "C" long long niw_field_bwd_workspace_floats(long long N) {
   return grad_floats(N) + plan_splits((int)N).n * PART_PER_SPLIT;
 }
 
-// xp [N,63], view [N,27]; W: the 20 packed weights; activ 0 softplus, 1 relu;
-// out [N,4]; ws: niw_field_fwd_workspace_floats(N, keep) floats.
-extern "C" int niw_field_fwd(const float* xp, const float* view, int N,
-                             const float* const* W, int activ, int keep, float* out,
-                             float* ws, void* stream) {
+// xp [N,63], view [N,27]; noise [N] or null; W: the 20 packed weights; activ
+// 0 softplus, 1 relu; out [N,4]; ws: niw_field_fwd_workspace_floats(N, keep)
+// floats.
+extern "C" int niw_field_fwd(const float* xp, const float* view, const float* noise,
+                             int N, const float* const* W, int activ, int keep,
+                             float* out, float* ws, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Cache c = keep ? cache_at(ws, N) : scratch_at(ws, N);
   const long long n_in = (long long)N * ((LD_C4 - COL_XP) + (LD_V - COL_VIEW));
@@ -41,13 +45,14 @@ extern "C" int niw_field_fwd(const float* xp, const float* view, int N,
   int err = mlp_forward(W, c, N, s);
   if (err) return err;
   NIW_LAUNCH(head_forward_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
-      c.R0, c.V, W[WR1], W[BR1], nullptr, N, activ, out));
+      c.R0, c.V, W[WR1], W[BR1], noise, N, activ, out));
   return 0;
 }
 
 // g [N,4]; cache: the workspace of niw_field_fwd(..., keep = 1) on the same
-// inputs; dW: 20 gradient buffers (read only when want_dw); ws:
-// niw_field_bwd_workspace_floats(N) floats.
+// inputs (it holds the noised density pre-activation); dW: 20 gradient
+// buffers (read only when want_dw); ws: niw_field_bwd_workspace_floats(N)
+// floats.
 extern "C" int niw_field_bwd(const float* g, int N, const float* const* W, int activ,
                              float* cache, int want_dw, float* dxp, float* dview,
                              float* const* dW, float* ws, void* stream) {

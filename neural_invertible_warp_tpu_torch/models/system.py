@@ -142,8 +142,9 @@ class NerfSystem:
         if mode == "pe":
             return fused_pe.fused_apply_nerf_samples_pe(mlp, center, ray, depth,
                                                         noise=noise, **kw)
-        if mode == "field" and noise is None:   # K1 has no noise operand
-            return fused_field.fused_apply_nerf_samples(mlp, center, ray, depth, **kw)
+        if mode == "field":
+            return fused_field.fused_apply_nerf_samples(mlp, center, ray, depth,
+                                                        noise=noise, **kw)
         return nerf_mlp.apply_nerf_samples(mlp, center, ray, depth, noise=noise, **kw)
 
     def _field_composite(self, mlp, center, ray, depth, noise, kw, bg):

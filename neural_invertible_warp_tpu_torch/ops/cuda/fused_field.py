@@ -7,8 +7,9 @@ The PE of the points and of the unit rays is PyTorch, under autograd; the
 kernel takes xp [N,63] and view [N,27] per sample and returns [N,4] = (rgb,
 density). Under autograd the forward keeps its activations and the backward
 kernel returns dxp, dview and, where a weight needs one, the weight
-gradients. There is no density-noise operand, as in the TPU kernel: a
-caller with noise active takes the plain chain.
+gradients. Unlike the TPU kernel it takes the density-noise draw ([N], added
+to the density pre-activation, as K5 and K2 take it), so the MLP-only tier
+stays on its kernel when noise is active.
 
 The wrapper takes the plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises. Sources: ``csrc/field.cu``,
@@ -20,112 +21,58 @@ from __future__ import annotations
 import torch
 
 from ..nerf_mlp import sample_points
-from . import build
-from .fused_pe import _ACTIV, _check_inputs, _ptrs, pack_weights, unpack_grads
+from .fused_pe import _check_noise, field_launch_bwd, field_launch_fwd, run_field_kernel
 
 D_XP = 63
 D_VIEW = 27
 
 
-def mlp_plain(mlp, xp, view, density_activ="softplus"):
-    """K1's plain version: the layers on xp [N,63], view [N,27] -> [N,4]."""
-    rgb, dens = mlp.forward_encoded(xp, view, density_activ)
+def mlp_plain(mlp, xp, view, density_activ="softplus", noise=None):
+    """K1's plain version: the layers on xp [N,63], view [N,27] (noise [N]
+    optional) -> [N,4]."""
+    rgb, dens = mlp.forward_encoded(xp, view, density_activ, noise)
     return torch.cat([rgb, dens[..., None]], dim=-1)
 
 
-def _check_encoded(mlp, xp, view):
-    # K = 1: the per-ray limits of the PE kernels do not apply here
-    _check_inputs(mlp, [xp, view], 1)
+def _check_encoded(xp, view):
     if xp.shape[1:] != (D_XP,) or view.shape != (xp.shape[0], D_VIEW):
         raise ValueError("encoded inputs must be [N,63] and [N,27]: {} {}".format(
             tuple(xp.shape), tuple(view.shape)))
 
 
-def launch_field_fwd(mlp, xp, view, density_activ="softplus", keep=False):
-    """One K1 forward launch on CUDA tensors. Returns (out [N,4], workspace,
-    packed weights); with ``keep`` the workspace holds every layer's
-    activations, for the backward launch."""
-    _check_encoded(mlp, xp, view)
+# K = 1 below: the per-ray limits of the PE kernels do not apply to K1
+
+def launch_field_fwd(mlp, xp, view, density_activ="softplus", noise=None, keep=False):
+    """One K1 forward launch on CUDA tensors: xp [N,63], view [N,27], noise
+    [N] or None. Returns (out [N,4], workspace, packed weights)."""
+    _check_encoded(xp, view)
     N = xp.shape[0]
-    lib = build.load_library().lib
-    weights = pack_weights(mlp)
-    out = torch.empty((N, 4), dtype=torch.float32, device=xp.device)
-    ws = torch.empty(lib.niw_field_fwd_workspace_floats(N, int(keep)),
-                     dtype=torch.float32, device=xp.device)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    err = lib.niw_field_fwd(xp.data_ptr(), view.data_ptr(), N, _ptrs(weights),
-                            _ACTIV[density_activ], int(keep), out.data_ptr(),
-                            ws.data_ptr(), stream)
-    build.check(err, "niw_field_fwd")
-    return out, ws, weights
+    tensors = [xp, view] + _check_noise(noise, (N,))
+    head = (xp.data_ptr(), view.data_ptr(), None if noise is None else noise.data_ptr(), N)
+    return field_launch_fwd("niw_field", mlp, head, tensors, N, 1, density_activ, keep)
 
 
 def launch_field_bwd(mlp, g, cache, weights, want_dw=True, density_activ="softplus"):
-    """One K1 backward launch: the cotangent g [N,4] with the activation
-    ``cache`` and packed ``weights`` of the forward launch that kept them ->
-    (dxp [N,63], dview [N,27], grads of ``mlp.parameters()`` or None without
-    ``want_dw``)."""
+    """One K1 backward launch: g [N,4] -> (dxp [N,63], dview [N,27], grads of
+    ``mlp.parameters()`` or None without ``want_dw``)."""
     N = g.shape[0]
-    _check_inputs(mlp, [g, cache] + list(weights), 1)
-    lib = build.load_library().lib
-    if g.shape != (N, 4) or cache.numel() != lib.niw_field_fwd_workspace_floats(N, 1):
-        raise ValueError("cotangent must be [N,4] and the cache that of a kept "
-                         "forward launch on the same samples")
-    dws = [torch.empty_like(w) for w in weights] if want_dw else []
-    dxp = torch.empty((N, D_XP), dtype=torch.float32, device=g.device)
-    dview = torch.empty((N, D_VIEW), dtype=torch.float32, device=g.device)
-    ws = torch.empty(lib.niw_field_bwd_workspace_floats(N), dtype=torch.float32,
-                     device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.niw_field_bwd(g.data_ptr(), N, _ptrs(weights), _ACTIV[density_activ],
-                            cache.data_ptr(), int(want_dw), dxp.data_ptr(),
-                            dview.data_ptr(), _ptrs(dws) if want_dw else None,
-                            ws.data_ptr(), stream)
-    build.check(err, "niw_field_bwd")
-    return dxp, dview, unpack_grads(dws) if want_dw else None
+    return field_launch_bwd("niw_field", mlp, (g.data_ptr(), N), [], g, cache, weights, N,
+                            1, [(N, D_XP), (N, D_VIEW)], want_dw, density_activ)
 
 
-class _Field(torch.autograd.Function):
-    """out [N,4] from one K1 forward launch that keeps its activations; the
-    backward is one K1 backward launch, without the weight-gradient part
-    when no weight needs a gradient."""
-
-    N_LEADING = 4   # arguments before *params
-
-    @staticmethod
-    def forward(ctx, xp, view, mlp, density_activ, *params):
-        out, cache, weights = launch_field_fwd(
-            mlp, xp.detach().contiguous(), view.detach().contiguous(),
-            density_activ, keep=True)
-        fused_mlp.launches += 1
-        ctx.save_for_backward(cache, *weights)
-        ctx.mlp, ctx.density_activ = mlp, density_activ
-        return out
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g_out):
-        cache, *weights = ctx.saved_tensors
-        want_dw = any(ctx.needs_input_grad[_Field.N_LEADING:])
-        dxp, dview, grads = launch_field_bwd(ctx.mlp, g_out.contiguous(), cache,
-                                             weights, want_dw, ctx.density_activ)
-        fused_mlp.backward_launches += 1
-        n_params = len(ctx.needs_input_grad) - _Field.N_LEADING
-        return ((dxp, dview) + (None,) * (_Field.N_LEADING - 2)
-                + (tuple(grads) if want_dw else (None,) * n_params))
-
-
-def fused_mlp(mlp, xp, view, density_activ="softplus"):
+def fused_mlp(mlp, xp, view, density_activ="softplus", noise=None):
     """The MLP on encoded inputs (K1): xp [N,63], view [N,27] -> [N,4] =
-    (rgb, density), differentiable in xp, view and the weights."""
+    (rgb, density), differentiable in xp, view and the weights. noise [N]:
+    the density-noise draw, already scaled, optional."""
+    if noise is not None:
+        noise = noise.detach().contiguous()
     if not xp.is_cuda:
-        return mlp_plain(mlp, xp, view, density_activ)
-    if torch.is_grad_enabled() and (xp.requires_grad or view.requires_grad or any(
-            p.requires_grad for p in mlp.parameters())):
-        return _Field.apply(xp, view, mlp, density_activ, *mlp.parameters())
-    out = launch_field_fwd(mlp, xp.contiguous(), view.contiguous(), density_activ)[0]
-    fused_mlp.launches += 1
-    return out
+        return mlp_plain(mlp, xp, view, density_activ, noise)
+    return run_field_kernel(
+        fused_mlp, mlp, xp, view,
+        lambda xp, view, keep: launch_field_fwd(mlp, xp, view, density_activ, noise, keep),
+        lambda xp, view, g, cache, weights, want_dw: launch_field_bwd(
+            mlp, g, cache, weights, want_dw, density_activ))
 
 
 fused_mlp.launches = 0             # K1 forward launches
@@ -133,12 +80,13 @@ fused_mlp.backward_launches = 0    # K1 backward launches
 
 
 def fused_apply_nerf_samples(mlp, center, ray, depth, *, progress=None,
-                             barf_c2f=None, density_activ="softplus"):
+                             barf_c2f=None, density_activ="softplus", noise=None):
     """The field along rays with the PE outside the kernel (K1). center/ray
-    [B,R,3]; depth [B,R,K,1] -> (rgb [B,R,K,3], density [B,R,K])."""
+    [B,R,3]; depth [B,R,K,1]; noise [B,R,K] optional -> (rgb [B,R,K,3],
+    density [B,R,K])."""
     B, R, K = depth.shape[0], depth.shape[1], depth.shape[2]
     points, ray_unit = sample_points(center, ray, depth)
     xp, view = mlp.encode(points, ray_unit, progress, barf_c2f)
     out = fused_mlp(mlp, xp.reshape(-1, xp.shape[-1]), view.reshape(-1, view.shape[-1]),
-                    density_activ)
+                    density_activ, None if noise is None else noise.reshape(-1))
     return out[:, :3].reshape(B, R, K, 3), out[:, 3].reshape(B, R, K)

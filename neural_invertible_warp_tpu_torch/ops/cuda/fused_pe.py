@@ -412,91 +412,125 @@ def field_samples_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
     return torch.cat([rgb, dens[..., None]], dim=-1).reshape(-1, 4)
 
 
+def field_launch_fwd(symbol, mlp, head, tensors, N, K, density_activ, keep):
+    """One forward launch of a per-sample field kernel: ``symbol`` is
+    ``niw_field_pe`` (K5) or ``niw_field`` (K1), ``head`` its arguments ahead
+    of the weights, ``tensors`` the operands to check. Returns (out [N,4],
+    workspace, packed weights); with ``keep`` the workspace holds every
+    layer's activations, for the backward launch."""
+    _check_inputs(mlp, tensors, K)
+    lib = build.load_library().lib
+    weights = pack_weights(mlp)
+    device = tensors[0].device
+    out = torch.empty((N, 4), dtype=torch.float32, device=device)
+    ws = torch.empty(getattr(lib, symbol + "_fwd_workspace_floats")(N, int(keep)),
+                     dtype=torch.float32, device=device)
+    err = getattr(lib, symbol + "_fwd")(
+        *head, _ptrs(weights), _ACTIV[density_activ], int(keep), out.data_ptr(),
+        ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, symbol + "_fwd")
+    return out, ws, weights
+
+
+def field_launch_bwd(symbol, mlp, head, tensors, g, cache, weights, N, K, grad_shapes,
+                     want_dw, density_activ):
+    """One backward launch of a per-sample field kernel: the cotangent g
+    [N,4] with the activation ``cache`` and packed ``weights`` of the forward
+    launch that kept them -> (the two input gradients of ``grad_shapes``,
+    grads of ``mlp.parameters()`` or None without ``want_dw``)."""
+    _check_inputs(mlp, tensors + [g, cache] + list(weights), K)
+    lib = build.load_library().lib
+    if (g.shape != (N, 4)
+            or cache.numel() != getattr(lib, symbol + "_fwd_workspace_floats")(N, 1)):
+        raise ValueError("cotangent must be [N,4] and the cache that of a kept "
+                         "forward launch on the same samples")
+    dws = [torch.empty_like(w) for w in weights] if want_dw else []
+    d_a, d_b = (torch.empty(shape, dtype=torch.float32, device=g.device)
+                for shape in grad_shapes)
+    ws = torch.empty(getattr(lib, symbol + "_bwd_workspace_floats")(N),
+                     dtype=torch.float32, device=g.device)
+    err = getattr(lib, symbol + "_bwd")(
+        *head, _ptrs(weights), _ACTIV[density_activ], cache.data_ptr(), int(want_dw),
+        d_a.data_ptr(), d_b.data_ptr(), _ptrs(dws) if want_dw else None, ws.data_ptr(),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    build.check(err, symbol + "_bwd")
+    return d_a, d_b, unpack_grads(dws) if want_dw else None
+
+
+def _check_noise(noise, shape):
+    if noise is not None and noise.shape != shape:
+        raise ValueError("noise must be {}, one value per sample: {}".format(
+            list(shape), list(noise.shape)))
+    return [] if noise is None else [noise]
+
+
 def launch_field_pe_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus",
                         noise=None, keep=False):
     """One K5 forward launch on CUDA tensors: center/ray [R,3], depth [R,K],
-    noise [R,K] or None. Returns (out [R*K,4], workspace, packed weights);
-    with ``keep`` the workspace holds every layer's activations, for the
-    backward launch."""
+    noise [R,K] or None. Returns (out [R*K,4], workspace, packed weights)."""
     R, K = depth.shape
-    _check_inputs(mlp, [center, ray, depth, w3, wv]
-                  + ([] if noise is None else [noise]), K)
-    if noise is not None and noise.shape != (R, K):
-        raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
-    lib = build.load_library().lib
-    weights = pack_weights(mlp)
-    out = torch.empty((R * K, 4), dtype=torch.float32, device=depth.device)
-    ws = torch.empty(lib.niw_field_pe_fwd_workspace_floats(R * K, int(keep)),
-                     dtype=torch.float32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    err = lib.niw_field_pe_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
-                               None if noise is None else noise.data_ptr(), R, K,
-                               w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
-                               _ACTIV[density_activ], int(keep), out.data_ptr(),
-                               ws.data_ptr(), stream)
-    build.check(err, "niw_field_pe_fwd")
-    return out, ws, weights
+    tensors = [center, ray, depth, w3, wv] + _check_noise(noise, (R, K))
+    head = (center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
+            None if noise is None else noise.data_ptr(), R, K, w3.data_ptr(),
+            wv.data_ptr())
+    return field_launch_fwd("niw_field_pe", mlp, head, tensors, R * K, K, density_activ,
+                            keep)
 
 
 def launch_field_pe_bwd(mlp, center, ray, depth, g, w3, wv, cache, weights,
                         want_dw=True, density_activ="softplus"):
-    """One K5 backward launch: the cotangent g [R*K,4] of the forward's
-    output, with the activation ``cache`` and packed ``weights`` of the
-    forward launch that kept them -> (dcenter, dray [R,3], grads of
+    """One K5 backward launch: g [R*K,4] -> (dcenter, dray [R,3], grads of
     ``mlp.parameters()`` or None without ``want_dw``)."""
     R, K = depth.shape
-    _check_inputs(mlp, [center, ray, depth, g, w3, wv, cache] + list(weights), K)
-    lib = build.load_library().lib
-    if (g.shape != (R * K, 4)
-            or cache.numel() != lib.niw_field_pe_fwd_workspace_floats(R * K, 1)):
-        raise ValueError("cotangent must be [R*K,4] and the cache that of a "
-                         "kept forward launch on the same rays")
-    dws = [torch.empty_like(w) for w in weights] if want_dw else []
-    dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
-    dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
-    ws = torch.empty(lib.niw_field_pe_bwd_workspace_floats(R * K),
-                     dtype=torch.float32, device=depth.device)
-    stream = torch.cuda.current_stream(depth.device).cuda_stream
-    err = lib.niw_field_pe_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
-                               g.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
-                               _ptrs(weights), _ACTIV[density_activ],
-                               cache.data_ptr(), int(want_dw), dcenter.data_ptr(),
-                               dray.data_ptr(), _ptrs(dws) if want_dw else None,
-                               ws.data_ptr(), stream)
-    build.check(err, "niw_field_pe_bwd")
-    return dcenter, dray, unpack_grads(dws) if want_dw else None
+    head = (center.data_ptr(), ray.data_ptr(), depth.data_ptr(), g.data_ptr(), R, K,
+            w3.data_ptr(), wv.data_ptr())
+    return field_launch_bwd("niw_field_pe", mlp, head, [center, ray, depth, w3, wv], g,
+                            cache, weights, R * K, K, [(R, 3), (R, 3)], want_dw,
+                            density_activ)
 
 
-class _FieldPe(torch.autograd.Function):
-    """out [R*K,4] from one K5 forward launch that keeps its activations
-    (the noised density pre-activation among them); the backward is one K5
-    backward launch, without the weight-gradient part when no weight needs
-    a gradient."""
+class _FieldSamples(torch.autograd.Function):
+    """out [N,4] of a per-sample field kernel (K5 or K1) from one forward
+    launch that keeps its activations (the noised density pre-activation
+    among them); the backward is one backward launch, without the
+    weight-gradient part when no weight needs a gradient. ``a`` and ``b``
+    are the kernel's two differentiable inputs; ``fwd(a, b, keep)`` and
+    ``bwd(a, b, g, cache, weights, want_dw)`` launch it with its other
+    operands bound; ``wrapper`` carries the launch counts."""
 
-    N_LEADING = 8   # arguments before *params
+    N_LEADING = 5   # arguments before *params
 
     @staticmethod
-    def forward(ctx, center, ray, depth, noise, w3, wv, mlp, density_activ, *params):
-        c, r = center.detach().contiguous(), ray.detach().contiguous()
-        out, cache, weights = launch_field_pe_fwd(mlp, c, r, depth, w3, wv,
-                                                  density_activ, noise, keep=True)
-        fused_apply_nerf_samples_pe.launches += 1
-        ctx.save_for_backward(c, r, depth, w3, wv, cache, *weights)
-        ctx.mlp, ctx.density_activ = mlp, density_activ
+    def forward(ctx, a, b, fwd, bwd, wrapper, *params):
+        a, b = a.detach().contiguous(), b.detach().contiguous()
+        out, cache, weights = fwd(a, b, True)
+        wrapper.launches += 1
+        ctx.save_for_backward(a, b, cache, *weights)
+        ctx.bwd, ctx.wrapper = bwd, wrapper
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        c, r, depth, w3, wv, cache, *weights = ctx.saved_tensors
-        want_dw = any(ctx.needs_input_grad[_FieldPe.N_LEADING:])
-        dcenter, dray, grads = launch_field_pe_bwd(
-            ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, weights,
-            want_dw, ctx.density_activ)
-        fused_apply_nerf_samples_pe.backward_launches += 1
-        n_params = len(ctx.needs_input_grad) - _FieldPe.N_LEADING
-        return ((dcenter, dray) + (None,) * (_FieldPe.N_LEADING - 2)
+        a, b, cache, *weights = ctx.saved_tensors
+        want_dw = any(ctx.needs_input_grad[_FieldSamples.N_LEADING:])
+        d_a, d_b, grads = ctx.bwd(a, b, g_out.contiguous(), cache, weights, want_dw)
+        ctx.wrapper.backward_launches += 1
+        n_params = len(ctx.needs_input_grad) - _FieldSamples.N_LEADING
+        return ((d_a, d_b) + (None,) * (_FieldSamples.N_LEADING - 2)
                 + (tuple(grads) if want_dw else (None,) * n_params))
+
+
+def run_field_kernel(wrapper, mlp, a, b, fwd, bwd):
+    """A per-sample field kernel on CUDA inputs ``a``, ``b``: where grad is
+    enabled and an input or a weight requires it, through the autograd
+    Function; else one forward launch that keeps nothing."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or any(
+            p.requires_grad for p in mlp.parameters())):
+        return _FieldSamples.apply(a, b, fwd, bwd, wrapper, *mlp.parameters())
+    out = fwd(a.contiguous(), b.contiguous(), False)[0]
+    wrapper.launches += 1
+    return out
 
 
 def fused_apply_nerf_samples_pe(mlp, center, ray, depth, *, progress=None,
@@ -519,14 +553,12 @@ def fused_apply_nerf_samples_pe(mlp, center, ray, depth, *, progress=None,
                                   noise)
     else:
         w3, wv = band_weights(progress, barf_c2f, c.device)
-        if torch.is_grad_enabled() and (c.requires_grad or r.requires_grad or any(
-                p.requires_grad for p in mlp.parameters())):
-            out = _FieldPe.apply(c, r, d, noise, w3, wv, mlp, density_activ,
-                                 *mlp.parameters())
-        else:
-            out = launch_field_pe_fwd(mlp, c.contiguous(), r.contiguous(), d, w3, wv,
-                                      density_activ, noise)[0]
-            fused_apply_nerf_samples_pe.launches += 1
+        out = run_field_kernel(
+            fused_apply_nerf_samples_pe, mlp, c, r,
+            lambda c, r, keep: launch_field_pe_fwd(mlp, c, r, d, w3, wv, density_activ,
+                                                   noise, keep),
+            lambda c, r, g, cache, weights, want_dw: launch_field_pe_bwd(
+                mlp, c, r, d, g, w3, wv, cache, weights, want_dw, density_activ))
     return out[:, :3].reshape(B, R_img, K, 3), out[:, 3].reshape(B, R_img, K)
 
 

@@ -112,13 +112,14 @@ def test_k5_plain_matches_pallas(setup, small_blocks, case, n_img, c2f, activ, n
                 fp.fused_apply_nerf_samples_pe)
 
 
-@pytest.mark.parametrize("case,n_img,c2f,activ,noisy", [c for c in CASES if not c[4]],
-                         ids=[i for i, c in zip(IDS, CASES) if not c[4]])
-def test_k1_plain_matches_pallas(setup, case, n_img, c2f, activ, noisy):
+@pytest.mark.parametrize("case,n_img,c2f,activ,noisy", CASES, ids=IDS)
+def test_k1_plain_matches_pallas(setup, small_blocks, case, n_img, c2f, activ, noisy):
     """K1's plain version (PE under autograd, then the MLP on encoded
     inputs) against ``fused_field.fused_apply_nerf_samples`` and its VJP
-    kernel. K1 has no noise operand on either side."""
-    _field_case(setup, n_img, c2f, activ, noisy, jff.fused_apply_nerf_samples,
+    kernel. The Pallas K1 has no noise operand, the port's has one that must
+    mean what K5's means: the noise cases are held to the Pallas K5."""
+    _field_case(setup, n_img, c2f, activ, noisy,
+                jfp.fused_apply_nerf_samples_pe if noisy else jff.fused_apply_nerf_samples,
                 ff.fused_apply_nerf_samples)
 
 
@@ -194,9 +195,11 @@ def test_cpu_field_wrappers_run_plain_and_launch_nothing(setup):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     got[0].sum().backward()
     assert c.grad is not None
+    for nz in (None, noise):
+        ref = apply_nerf_samples(mlp, c, r, depth, noise=nz)
+        got = ff.fused_apply_nerf_samples(mlp, c, r, depth, noise=nz)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     ref = apply_nerf_samples(mlp, c, r, depth)
-    got = ff.fused_apply_nerf_samples(mlp, c, r, depth)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
     flat = fp.field_samples_plain(mlp, c[0], r[0], depth[0, :, :, 0])
     assert torch.equal(flat[:, 3].reshape(3, K), ref[1][0])
     assert counts() == before
@@ -216,7 +219,8 @@ def test_field_launchers_reject_cpu_tensors(setup, launch):
             fp.launch_field_pe_bwd(mlp, c, r, d, torch.zeros(16, 4), w3, wv, torch.zeros(4),
                                    fp.pack_weights(mlp))
         elif launch == "k1_fwd":
-            ff.launch_field_fwd(mlp, torch.zeros(4, 63), torch.zeros(4, 27))
+            ff.launch_field_fwd(mlp, torch.zeros(4, 63), torch.zeros(4, 27),
+                                noise=torch.zeros(4))
         elif launch == "k1_bwd":
             ff.launch_field_bwd(mlp, torch.zeros(4, 4), torch.zeros(4), fp.pack_weights(mlp))
         else:

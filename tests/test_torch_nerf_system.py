@@ -9,7 +9,9 @@ comparison would say nothing about the kernels' contracts): "default" (both
 fields through the one-call train kernel, the coarse one returning the
 weights to resample from), "fallback" (``tpu.fused_raymarch_full: false``:
 coarse field through the per-sample PE kernel, fine field through the train
-kernel), "mlp" (``tpu.fused_pe: false``: the MLP-only kernel, no noise) and
+kernel), "mlp" (``tpu.fused_pe: false``: the MLP-only kernel, no noise),
+"mlp_noise" (the same tier with the config's noise, where the JAX package
+takes its plain chain and the port its MLP-only kernel with the noise) and
 "off" (the plain chain). The port reads the same switches and runs, on CPU
 tensors, the same tier's plain versions. Both start from the JAX init over
 the weight bridge; every draw of the step (ray indices, depth jitter, both
@@ -58,6 +60,9 @@ TIERS = {
     "default": ("pe", []),
     "fallback": ("pe", ["--tpu.fused_raymarch_full!"]),
     "mlp": ("field", ["--tpu.fused_pe!", "--nerf.density_noise_reg="]),
+    # with noise the JAX package leaves its MLP-only kernel (which has no
+    # noise operand) for the plain chain; the port's takes the noise
+    "mlp_noise": ("field", ["--tpu.fused_pe!"]),
     "off": ("off", ["--tpu.fused_pe!", "--tpu.fused_kernel!"]),
 }
 JAX_KERNEL_FNS = [(jfp, "fused_render_rays_pe_train"), (jfp, "fused_render_rays_pe"),
@@ -216,10 +221,11 @@ def test_eval_render_and_validation_read_the_fine_field(tmp_path, monkeypatch):
         "{}_{}.png".format(n, i) for n in ("rgb", "rgb_GT", "depth") for i in range(N_IMG))
 
 
-def test_mlp_only_tier_with_noise_takes_the_plain_chain(tmp_path, monkeypatch):
-    """The MLP-only kernel has no noise operand: with density noise active
-    that tier's training calls go to the plain chain, as in the JAX
-    package, while its eval renders (no noise) use the kernel's wrapper."""
+def test_mlp_only_tier_with_noise_goes_through_the_k1_wrapper(tmp_path, monkeypatch):
+    """The port's MLP-only kernel takes the density noise, unlike the JAX
+    package's: with ``tpu.fused_pe`` off every field call of a train step
+    (noise on, as nerf_llff_repr has it, or off) and of an eval render goes
+    through K1's wrapper, the training calls with that field's own draw."""
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
     opt = nerf_llff_repr_options()
     opt.data.image_size = [H, W]
@@ -232,15 +238,19 @@ def test_mlp_only_tier_with_noise_takes_the_plain_chain(tmp_path, monkeypatch):
     calls = []
     orig = ff.fused_apply_nerf_samples
     monkeypatch.setattr(ff, "fused_apply_nerf_samples",
-                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
-    psys.train_step()
-    assert not calls
+                        lambda *a, noise=None, **kw: calls.append(noise)
+                        or orig(*a, noise=noise, **kw))
+    draws = [torch.randn(N_IMG, 4, k, generator=torch.Generator().manual_seed(k))
+             for k in (4, 8)]
+    psys.train_step(noise_rand=draws)
+    assert len(calls) == 2
+    reg = opt.nerf.density_noise_reg
+    assert all(torch.equal(n, d * reg) for n, d in zip(calls, draws))
     with torch.no_grad():
         psys.render_rays(torch.zeros(1, 2, 3), torch.ones(1, 2, 3), mode="eval")
-    assert len(calls) == 2
     opt.nerf.density_noise_reg = None
     psys.train_step()
-    assert len(calls) == 4
+    assert len(calls) == 6 and calls[2:] == [None] * 4
 
 
 def test_nerf_llff_repr_dict_equals_yaml_resolution():
@@ -301,7 +311,7 @@ def test_chip_smoke_field_references_match_the_wrappers_on_cpu(tmp_path, monkeyp
     from neural_invertible_warp_tpu_torch.ops.nerf_mlp import NerfMLP
     mlp = NerfMLP(nerf_llff_repr_options().arch, generator=torch.Generator().manual_seed(0))
     (center, ray, depth, _, noise), coeffs = cs.fine_batch(3, 8, seed=0, device="cpu")
-    for which, nz in (("k5", noise), ("k1", None)):
+    for which, nz in (("k5", noise), ("k1", noise), ("k1", None)):
         got = cs.field_grads(which, mlp, center, ray, depth, nz, coeffs, "relu")
         ref = cs.field_grads("plain", mlp, center, ray, depth, nz, coeffs, "relu")
         assert all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3]))
