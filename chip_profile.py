@@ -6,6 +6,11 @@ Builds the flagship system (barf_inn_llff at full width) on chip_smoke.py's
 synthetic 480x640 scene and profiles three steady windows with
 torch.profiler (CPU and CUDA activities):
   train   10 train steps after 30 warm-up steps (K2 each);
+  train, fused warp   the same 10 steps with ``tpu.fused_inn: true`` (K6
+          forward and backward each step in place of the warp's plain
+          chain), after 5 more warm-up steps, beside the window above;
+  train, again        the first window once more, switch off, so that the
+          fused window stands between two of its kind;
   refine  20 iterations of test-time pose refinement after 5 (K3 under
           autograd, K4 with the weights frozen, Adam on one se(3));
   render  one full-image render (150 chunks through K3).
@@ -18,7 +23,9 @@ samples, 1024 rays, two fields), two windows:
 For each window it prints the wall time per unit (host clock,
 device-synced, taken without the profiler), the device-busy time per unit
 (the sum of the durations of all device kernels and copies in the trace),
-the idle share, the peak device memory, and the device time by kernel name.
+the idle share, the count of device operations (kernels and copies) per
+unit, the peak device memory, and the device time by kernel name (the
+twelve largest, and every kernel of the fused warp).
 Every line names the card and its power limit. Needs one CUDA device.
 """
 
@@ -34,21 +41,25 @@ import torch
 import chip_smoke as cs
 
 N_WARM_STEPS, N_TRAIN_STEPS = 30, 10
+N_WARM_FUSED = 5
 N_WARM_REFINE, N_REFINE = 5, 20
 N_WARM_FINE = 20
 TOP = 12
 
 
 def device_time_by_name(prof):
-    """{kernel name: total device microseconds} over the trace's device
-    events. Annotation ranges that the profiler mirrors onto the device
-    track (``Optimizer.step#Adam.step``) span kernels already counted."""
+    """({kernel name: total device microseconds}, number of device events)
+    over the trace's device events. Annotation ranges that the profiler
+    mirrors onto the device track (``Optimizer.step#Adam.step``) span
+    kernels already counted."""
     from torch.autograd import DeviceType
     by_name = defaultdict(float)
+    n_events = 0
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA and "#" not in evt.name:
             by_name[evt.name] += evt.time_range.elapsed_us()
-    return by_name
+            n_events += 1
+    return by_name, n_events
 
 
 def short(name):
@@ -70,16 +81,17 @@ def window(label, unit, n_units, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = device_time_by_name(prof)
+    by_name, n_events = device_time_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3 / n_units
     cs.check(busy_ms > 0, "the profiler saw no device time")
     ours = sum(t for n, t in by_name.items() if "niw::" in n) / 1e3 / n_units
     print("profile {}: {:.2f} ms wall per {} (unprofiled), device busy {:.2f} ms, idle share "
-          "{:.1f}%; hand-written kernels {:.2f} ms, everything else {:.2f} ms; peak device "
-          "memory {:.2f} GB; card: {}".format(
-              label, wall_ms, unit, busy_ms, 100 * max(0.0, 1 - busy_ms / wall_ms), ours,
-              busy_ms - ours, peak_gb, cs.card_line()))
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+          "{:.1f}%; {:.0f} device operations per {}; hand-written kernels {:.2f} ms, everything "
+          "else {:.2f} ms; peak device memory {:.2f} GB; card: {}".format(
+              label, wall_ms, unit, busy_ms, 100 * max(0.0, 1 - busy_ms / wall_ms),
+              n_events / n_units, unit, ours, busy_ms - ours, peak_gb, cs.card_line()))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, t in ranked[:TOP] + [kv for kv in ranked[TOP:] if "niw::inn::" in kv[0]]:
         print("  {:9.3f} ms per {}  {}".format(t / 1e3 / n_units, unit, short(name)))
 
 
@@ -115,6 +127,14 @@ def main():
         system.train_step()
 
     window("train", "step", N_TRAIN_STEPS, train_steps(system))
+    opt.tpu.fused_inn = True
+    for _ in range(N_WARM_FUSED):
+        system.train_step()
+    window("train, fused warp", "step", N_TRAIN_STEPS, train_steps(system))
+    opt.tpu.fused_inn = False
+    for _ in range(N_WARM_FUSED):
+        system.train_step()
+    window("train, again", "step", N_TRAIN_STEPS, train_steps(system))
 
     system.prealign()
     intr, pixels = system.train_data["intr"][:1], system.train_data["pixels"][:1]

@@ -1,12 +1,12 @@
-"""Model registry of the port. The paper's LLFF INN-warp models, vanilla
-NeRF (with fine sampling) and SE(3) BARF on LLFF and Blender are ported so
-far; every other name of the JAX registry raises ``KeyError`` naming the
+"""Model registry of the port. The paper's INN-warp models on LLFF and
+Blender, vanilla NeRF (with fine sampling) and SE(3) BARF on LLFF and Blender
+are ported so far; every other name of the JAX registry raises ``KeyError`` naming the
 ROADMAP item that brings it."""
 
 from __future__ import annotations
 
 _NOT_YET = {
-    "barf_se3_field": "M9", "barf_inn_blender": "M10",
+    "barf_se3_field": "M9",
     "nerf_dtu": "M10", "barf_dtu": "M10", "barf_inn_dtu": "M10",
     "nerf_inn_dtu": "M10", "nerf_gaussian": "M11", "garf": "M11",
     "garf_se3_field": "M11", "homography": "M11", "planar": "M11",
@@ -15,7 +15,7 @@ _NOT_YET = {
 
 
 def get_system_class(name):
-    if name in ("barf_inn_llff", "nerf_inn_llff"):
+    if name in ("barf_inn_llff", "nerf_inn_llff", "barf_inn_blender"):
         from .inn_warp import InnWarpSystem
         return InnWarpSystem
     if name == "nerf":

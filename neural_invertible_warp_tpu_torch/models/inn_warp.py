@@ -1,25 +1,31 @@
-"""Invertible-neural-warp pose model, the paper's flagship (port of
-neural_invertible_warp_tpu/models/inn_warp.py).
+"""Invertible-neural-warp pose models, the paper's contribution (port of
+neural_invertible_warp_tpu/models/inn_warp.py): ``barf_inn_llff``,
+``nerf_inn_llff`` and ``barf_inn_blender``.
 
-Each image has a learnable latent code (``l2fbarf``); a shared invertible
+Each image has a conditioning code (``warp_latent.enc_type``: ``l2fbarf`` a
+learnable embedding, ``posenc`` a fixed encoding of the frame id,
+``extrinsic`` a learnable 6-vector pushed through a PE); a shared invertible
 DeformNetwork warps camera-frame ray points ([pixel grid on z=1; camera
-center]) into world space; rays are re-derived as warped grid minus warped
-center and rendered; a global-alignment loss fits a rigid pose to the
-(camera-frame, warped) point pairs with the quaternion Procrustes solver,
-keeps it as the pose readout ``aux["global_rigid"]`` and penalizes the
-warp's deviation from it. LLFF only: the Blender pose-noise variants, the
-``posenc``/``extrinsic`` latents and fine sampling under the warp are not
-ported yet.
+center], on Blender first moved by the noisy initial poses) into world
+space; rays are re-derived as warped grid minus warped center and rendered;
+a global-alignment loss fits a rigid pose to the (camera-frame, warped)
+point pairs with a Procrustes solver, keeps it as the pose readout
+``aux["global_rigid"]`` and penalizes the warp's deviation from it. With
+``tpu.fused_inn`` the warp runs as one CUDA kernel per direction (K6) where
+the network is the paper's configuration, and as the plain chain elsewhere.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..ops import align, inn, rays
+from ..ops import align, inn, lie, posenc, rays
 from ..ops import pose as pose_ops
+from ..ops.cuda import fused_inn
 from ..ops.nerf_mlp import NerfMLP
+from ..utils import log
 from .barf import BarfSystem
 from .system import Graph
 
@@ -31,37 +37,70 @@ class InnWarpSystem(BarfSystem):
     def __init__(self, opt, device):
         super().__init__(opt, device)
         wl = opt.get("warp_latent")
-        if not wl or wl.enc_type != "l2fbarf":
-            raise NotImplementedError(
-                "warp latents other than l2fbarf are not ported yet (ROADMAP M3)")
+        self.enc_type = wl.enc_type if wl else "l2fbarf"
         self.multires = opt.inn.real_nvp.multires
         self.actfn = opt.inn.get("actfn", "softplus")
         self.anneal_mode = opt.inn.real_nvp.get("anneal") or "reference"
+        self._warned_unfused = False
+
+    def latent_dim(self):
+        opt = self.opt
+        if self.enc_type == "l2fbarf":
+            return opt.warp_latent.embed_dim
+        if self.enc_type == "posenc":
+            return 2 * opt.warp_latent.posenc.freq_len
+        if self.enc_type == "extrinsic":
+            return 6 + 2 * 6 * opt.warp_latent.extrinsic.L
+        raise NotImplementedError(self.enc_type)
 
     def build_graph(self, generator):
         opt = self.opt
-        nerf = NerfMLP(self.arch, view_dep=opt.nerf.view_dep, generator=generator)
-        warp = inn.DeformNetwork(opt.warp_latent.embed_dim,
-                                 d_hidden=opt.inn.real_nvp.d_hidden, n_blocks=3,
-                                 n_layers=1, multires=self.multires,
-                                 actfn=self.actfn, anneal=self.anneal_mode,
-                                 generator=generator)
-        latent = nn.Embedding(self.n_train, opt.warp_latent.embed_dim)
-        with torch.no_grad():   # torch.nn.Embedding default init: N(0, 1)
-            latent.weight.normal_(0.0, 1.0, generator=generator)
-        return Graph(nerf=nerf, warp_mlp=warp, warp_latent=latent)
+        graph = Graph(nerf=NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
+                                   generator=generator))
+        if opt.nerf.fine_sampling:
+            graph.nerf_fine = NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
+                                      generator=generator)
+        graph.warp_mlp = inn.DeformNetwork(
+            self.latent_dim(), d_hidden=opt.inn.real_nvp.d_hidden, n_blocks=3,
+            n_layers=1, multires=self.multires, actfn=self.actfn,
+            anneal=self.anneal_mode, generator=generator)
+        if self.enc_type in ("l2fbarf", "extrinsic"):   # posenc has no learnable latent
+            width = opt.warp_latent.embed_dim if self.enc_type == "l2fbarf" else 6
+            graph.warp_latent = nn.Embedding(self.n_train, width)
+            with torch.no_grad():   # torch.nn.Embedding default init: N(0, 1)
+                graph.warp_latent.weight.normal_(0.0, 1.0, generator=generator)
+        return graph
 
     def init_aux(self):
-        # pose readout, refreshed every step by the Procrustes fit
-        return {"global_rigid": pose_ops.identity_pose(
-            (self.n_train,), device=self.device).contiguous()}
+        """On Blender the pose noise composed onto the GT poses (``barf``: an
+        se(3) draw; ``l2g``: a rotation and a translation draw), from the
+        system's generator; and the pose readout, which starts at the
+        initial poses and is refreshed every step by the Procrustes fit."""
+        opt = self.opt
+        aux = {}
+        if opt.data.dataset == "blender":
+            # an empty ``noise_type:`` means the default se(3) noise
+            noise_type = opt.camera.get("noise_type") or "barf"
+            draw = dict(generator=self.generator, device=self.device)
+            if noise_type == "barf" and opt.camera.get("noise_barf"):
+                se3_noise = torch.randn((self.n_train, 6), **draw) * opt.camera.noise_barf
+                aux["pose_noise"] = lie.se3_to_SE3(se3_noise)
+            elif noise_type == "l2g":
+                so3_noise = torch.randn((self.n_train, 3), **draw) * opt.camera.noise_l2g_r
+                t_noise = torch.randn((self.n_train, 3), **draw) * opt.camera.noise_l2g_t
+                aux["pose_noise"] = torch.cat(
+                    [lie.so3_to_SO3(so3_noise), t_noise[..., None]], dim=-1)
+        aux["global_rigid"] = self._initial_pose_all(aux).contiguous()
+        return aux
 
     def param_labels(self):
         opt = self.opt
-        return {"nerf": "main",
-                "warp_mlp": "pose" if opt.inn.optimize.enabled else "frozen",
-                "warp_latent": ("latent" if opt.warp_latent.optimize.enabled
-                                else "frozen")}
+        labels = {name: "main" for name, _ in self.graph.named_children()}
+        labels["warp_mlp"] = "pose" if opt.inn.optimize.enabled else "frozen"
+        if "warp_latent" in labels:
+            labels["warp_latent"] = ("latent" if opt.warp_latent.optimize.enabled
+                                     else "frozen")
+        return labels
 
     def make_schedules(self):
         """main + pose (with warmup) + latent: the pose lr and schedule
@@ -76,6 +115,42 @@ class InnWarpSystem(BarfSystem):
 
     # ----------------------------------------------------------------- poses
 
+    def _initial_pose_all(self, aux=None):
+        """Initial w2c poses of the training images: identity on LLFF, the
+        GT poses with the pose noise on Blender (``l2g`` noise is applied
+        after the pose, ``barf`` noise before it)."""
+        opt = self.opt
+        aux = self.aux if aux is None else aux
+        if opt.data.dataset == "blender" and self.train_data is not None:
+            pose = self.train_data["pose"]
+            if "pose_noise" in aux:
+                if opt.camera.get("noise_type") == "l2g":
+                    pose = pose_ops.compose([pose, aux["pose_noise"]])
+                else:
+                    pose = pose_ops.compose([aux["pose_noise"], pose])
+            return pose
+        return pose_ops.identity_pose((self.n_train,), device=self.device)
+
+    def _warp_feat(self):
+        """The per-image conditioning code [n_train, latent_dim]."""
+        opt = self.opt
+        if self.enc_type == "l2fbarf":
+            return self.graph.warp_latent.weight
+        if self.enc_type == "posenc":
+            frame_id = (torch.arange(1, self.n_train + 1, dtype=torch.float32,
+                                     device=self.device) / self.n_train)[:, None]
+            return posenc.positional_encoding(frame_id, opt.warp_latent.posenc.freq_len)
+        if self.enc_type == "extrinsic":
+            latent = self.graph.warp_latent.weight
+            rot, trans = latent[:, :3], latent[:, 3:]
+            rot_pe = posenc.positional_encoding(rot, opt.warp_latent.extrinsic.L)
+            # The translation is encoded with the PE of the ROTATION part, as
+            # the reference does (it passes ``rot`` to both encodings).
+            # Checkpoints and the paper's extrinsic-latent ablation depend on
+            # this feature layout: do not repair it.
+            return torch.cat([rot, rot_pe, trans, rot_pe], dim=-1)
+        raise NotImplementedError(self.enc_type)
+
     def alpha_ratio(self, step):
         opt = self.opt
         if opt.inn.real_nvp.get("c2f"):
@@ -84,38 +159,69 @@ class InnWarpSystem(BarfSystem):
             return torch.clamp(ratio, 0.0, 1.0).to(self.device)
         return torch.tensor(1.0, device=self.device)
 
+    def warp_points(self, pts, step):
+        """Warp [B,N,3] camera-frame points into world space: through the
+        fused kernel's wrapper under ``tpu.fused_inn`` where it covers the
+        network, else through the plain chain."""
+        feat = self._warp_feat()
+        alpha = self.alpha_ratio(step)
+        net = self.graph.warp_mlp
+        if (self.opt.get("tpu") or {}).get("fused_inn", True):
+            if fused_inn.supports(net):
+                return fused_inn.fused_deform_forward(net, feat, pts, alpha)
+            if not self._warned_unfused:
+                self._warned_unfused = True
+                log.warn("tpu.fused_inn is on, but the fused warp covers only the "
+                         "paper's INN configuration: taking the plain chain")
+        return net(feat, pts, alpha)
+
+    def get_train_pose(self):
+        raise RuntimeError("INN models render from warped local rays; "
+                           "use _forward_train")
+
     def get_all_training_poses(self):
-        """Pose readout = global_rigid o initial (identity on LLFF)."""
-        pose_init = pose_ops.identity_pose((self.n_train,), device=self.device)
-        pose = pose_ops.compose([self.aux["global_rigid"], pose_init])
+        """Pose readout = global_rigid o initial."""
+        with torch.no_grad():
+            pose = pose_ops.compose([self.aux["global_rigid"], self._initial_pose_all()])
         return pose, self.train_data["pose"]
 
-    def render_rays(self, center, ray, **kwargs):
-        if self.opt.nerf.fine_sampling:
-            raise NotImplementedError(
-                "fine sampling under the INN warp is not ported yet (ROADMAP M9)")
-        return super().render_rays(center, ray, **kwargs)
-
     # ------------------------------------------------------------- train fwd
+
+    def _l2g_depth_range(self, aux=None):
+        """The Blender ``l2g`` variant rescales the depth range every step
+        from the spread of the pose readout's camera centers. Returns
+        (near, far) as 0-d tensors."""
+        aux = self.aux if aux is None else aux
+        depth_min, depth_max = self.opt.nerf.depth.range
+        position = pose_ops.invert_pose(aux["global_rigid"])[..., 3]        # [B,3]
+        diameter = torch.max(torch.linalg.norm(
+            position[:, None, :] - position[None, :, :], dim=-1))
+        total = depth_max + depth_min
+        return depth_min / total * diameter, depth_max / total * diameter
 
     def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         opt = self.opt
         data = self.train_data
+        pose_init = None
+        depth_range = None
+        if opt.data.dataset == "blender":
+            pose_init = self._initial_pose_all()
+            if opt.camera.get("noise_type") == "l2g":
+                depth_range = self._l2g_depth_range()
         center_cam, grid_cam = rays.get_unwarped_center_and_ray(
-            data["intr"], ray_idx, self.W)
+            data["intr"], ray_idx, self.W, pose_init=pose_init)
         center_cam, grid_cam = center_cam.detach(), grid_cam.detach()
         N = ray_idx.shape[0]
         coords = torch.cat([grid_cam, center_cam], dim=1)             # [B,2N,3]
-        warped = self.graph.warp_mlp(self.graph.warp_latent.weight, coords,
-                                     self.alpha_ratio(step))
+        warped = self.warp_points(coords, step)
         grid_w, center_w = warped[:, :N], warped[:, N:]
         ray = grid_w - center_w
         progress = (torch.tensor(float(step), dtype=torch.float32)
                     / opt.max_iter).to(self.device)
         target = data["pixels"][:, ray_idx]
         out = self.render_rays(center_w, ray, mode="train", progress=progress,
-                               target=target, depth_rand=depth_rand,
-                               noise_rand=noise_rand)
+                               depth_range=depth_range, target=target,
+                               depth_rand=depth_rand, noise_rand=noise_rand)
         extras = dict(grid_cam=grid_cam, center_cam=center_cam,
                       grid_w=grid_w, center_w=center_w)
         return out, target, extras
@@ -136,3 +242,37 @@ class InnWarpSystem(BarfSystem):
     def update_aux(self, extras):
         if "svd_poses" in extras:
             self.aux["global_rigid"] = extras["svd_poses"]
+
+
+def verify_warp_rigidity(system, n_probes=10, seed=0):
+    """Diagnostic: how rigid is the learned warp? For random vector pairs
+    anchored at the warped origin, the angle between them before and after
+    the warp of image 0 and the norm ratio; an exactly rigid warp preserves
+    both. Returns dict of per-probe arrays (angles in degrees)."""
+    rng = np.random.RandomState(seed)
+    net = system.graph.warp_mlp
+    alpha = system.alpha_ratio(system.step)
+
+    def ang(a, b):
+        c = np.dot(a, b) / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-12)
+        return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+    with torch.no_grad():
+        feat = system._warp_feat()[:1]
+
+        def warp(p):
+            pts = torch.as_tensor(p, dtype=torch.float32, device=system.device)
+            return net(feat, pts[None, None], alpha)[0, 0].cpu().numpy()
+
+        origin_w = warp(np.zeros(3, np.float32))
+        angles_before, angles_after, norm_ratios = [], [], []
+        for _ in range(n_probes):
+            v1 = rng.randn(3).astype(np.float32)
+            v2 = rng.randn(3).astype(np.float32)
+            w1, w2 = warp(v1) - origin_w, warp(v2) - origin_w
+            angles_before.append(ang(v1, v2))
+            angles_after.append(ang(w1, w2))
+            norm_ratios.append(float(np.linalg.norm(w1) / max(np.linalg.norm(v1), 1e-12)))
+    return dict(angle_before=np.array(angles_before),
+                angle_after=np.array(angles_after),
+                norm_ratio=np.array(norm_ratios))

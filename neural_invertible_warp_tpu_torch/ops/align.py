@@ -1,9 +1,12 @@
 """Rigid/similarity alignment (port of neural_invertible_warp_tpu/ops/align.py).
 
-* ``rigid_points_registration(method="quat")``: differentiable batched
-  Kabsch fit. The rotation comes from the SVD-free Horn-quaternion solver
-  (``ProcrustesQuat``, a ``torch.autograd.Function`` carrying the JAX
-  package's implicit-differential VJP). The SVD method is ROADMAP M4's.
+* ``rigid_points_registration``: differentiable batched Kabsch fit. The
+  rotation comes from the SVD-free Horn-quaternion solver (method "quat":
+  ``ProcrustesQuat``, a ``torch.autograd.Function`` carrying the JAX
+  package's implicit-differential VJP) or from the SVD with a determinant
+  flip (method "svd": ``ProcrustesSVD``, carrying the JAX package's
+  orthogonal-Procrustes differential, whose denominators are sums of
+  singular values; torch's own SVD backward divides by their differences).
 * ``procrustes_analysis_np`` / ``procrustes_analysis`` (host float64 / tensor
   fp32) and ``apply_sim3_to_poses``: the validation-time sim(3) between
   predicted and ground-truth camera centers.
@@ -123,15 +126,57 @@ class ProcrustesQuat(torch.autograd.Function):
         return procrustes_rotation_quat_vjp(R, M, G)
 
 
-def rigid_points_registration(x, y, method="quat"):
-    """(R, t) with R @ x_i + t ~= y_i. x, y: [...,N,3]. Differentiable."""
-    if method != "quat":
-        raise NotImplementedError(
-            "procrustes method {!r} is not ported yet (ROADMAP M4)".format(method))
+def procrustes_rotation_svd_fwd(M):
+    """R = argmax_{R in SO(3)} <R, M> by SVD with a determinant flip of the
+    last singular direction. Returns (R, U, s, Vt, c), c [...,3] the signs."""
+    U, s, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    c = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    R = (U * c[..., None, :]) @ Vt
+    return R, U, s, Vt, c
+
+
+def procrustes_rotation_svd_vjp(U, s, Vt, c, G):
+    """Mbar = U Q V^T with, for G' = U^T G V, Q_ij = c_j (G'_ij - G'_ji) /
+    (s_i + s_j) where c_i c_j > 0, (c_j G'_ij - c_i G'_ji) / (s_j - s_i)
+    (clamped away from 0) elsewhere, and a zero diagonal."""
+    eps = 1e-8
+    Gp = U.transpose(-1, -2) @ G @ Vt.transpose(-1, -2)
+    ci, cj = c[..., :, None], c[..., None, :]
+    si, sj = s[..., :, None], s[..., None, :]
+    GpT = Gp.transpose(-1, -2)
+    Q_same = cj * (Gp - GpT) / (si + sj + eps)
+    diff = sj - si
+    eps_t = torch.full_like(diff, eps)
+    denom_mix = torch.where(torch.abs(diff) < eps,
+                            torch.where(diff < 0, -eps_t, eps_t), diff)
+    Q_mix = (cj * Gp - ci * GpT) / denom_mix
+    Q = torch.where(ci * cj > 0, Q_same, Q_mix)
+    Q = Q * (1.0 - torch.eye(3, dtype=Q.dtype, device=Q.device))
+    return U @ Q @ Vt
+
+
+class ProcrustesSVD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, M):
+        R, U, s, Vt, c = procrustes_rotation_svd_fwd(M)
+        ctx.save_for_backward(U, s, Vt, c)
+        return R
+
+    @staticmethod
+    def backward(ctx, G):
+        return procrustes_rotation_svd_vjp(*ctx.saved_tensors, G)
+
+
+def rigid_points_registration(x, y, method="svd"):
+    """(R, t) with R @ x_i + t ~= y_i. x, y: [...,N,3]; method "svd" or
+    "quat" (the same rotation). Differentiable."""
+    rot_fn = {"svd": ProcrustesSVD, "quat": ProcrustesQuat}[method]
     cx = torch.mean(x, dim=-2, keepdim=True)
     cy = torch.mean(y, dim=-2, keepdim=True)
     M = (y - cy).transpose(-1, -2) @ (x - cx)                      # [...,3,3]
-    R = ProcrustesQuat.apply(M)
+    R = rot_fn.apply(M)
     t = cy[..., 0, :] - (R @ cx[..., 0, :, None])[..., 0]
     return R, t
 

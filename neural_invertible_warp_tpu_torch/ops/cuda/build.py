@@ -55,6 +55,12 @@ _SIGNATURES = {
                        _P, _P], ctypes.c_int),
     "niw_field_bwd": ([_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P,
                        _P, _P, _P], ctypes.c_int),
+    "niw_inn_prep_floats": ([ctypes.c_int], ctypes.c_longlong),
+    "niw_inn_bwd_workspace_floats": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
+    "niw_inn_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                     _P], ctypes.c_int),
+    "niw_inn_bwd": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                     _P, _P, _P, _P, _P], ctypes.c_int),
 }
 
 

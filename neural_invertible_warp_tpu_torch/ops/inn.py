@@ -8,7 +8,7 @@ MLP_b of the embedded new focus coordinate. Hidden layers use weight norm
 with explicit (v, g, b) parameters; output layers start at zero, so the
 warp starts as the identity. Parameter names follow the reference
 state_dict: ``lin{b}_a_{l}``, ``lin{b}_b_{l}``, ``lin{b}_c``.
-Only the forward warp is ported (the inverse is ROADMAP M3's).
+``inverse`` runs the blocks in reverse with the exact algebraic inverses.
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ class DeformNetwork(nn.Module):
         self.n_blocks = n_blocks
         self.n_layers = n_layers
         self.multires = multires
+        self.actfn = actfn
         self.act = _activation(actfn)
         self.anneal = anneal
         for b in range(n_blocks):
@@ -117,15 +118,29 @@ class DeformNetwork(nn.Module):
             h = self.act(getattr(self, "{}_{}".format(prefix, l))(h))
         return getattr(self, "{}_{}".format(prefix, n_hidden))(h)
 
+    def _split(self, b, code, x):
+        """(focus axis, other axes, latent rows [B,N,D], focus [B,N,1], other
+        [B,N,2]) of block b."""
+        focus_ax, other_ax = _AXES[((b // 3) % 2, b % 3)]
+        code_b = getattr(self, "lin{}_c".format(b))(code) + code     # [B,D]
+        code_n = code_b[:, None, :].expand(x.shape[:-1] + code_b.shape[-1:])
+        focus = x[..., focus_ax:focus_ax + 1]
+        other = torch.stack([x[..., other_ax[0]], x[..., other_ax[1]]], -1)
+        return focus_ax, other_ax, code_n, focus, other
+
+    @staticmethod
+    def _join(focus_ax, other_ax, focus, other):
+        cols = [None, None, None]
+        cols[focus_ax] = focus[..., 0]
+        cols[other_ax[0]] = other[..., 0]
+        cols[other_ax[1]] = other[..., 1]
+        return torch.stack(cols, dim=-1)
+
     def forward(self, code, pts, alpha_ratio):
         """Warp points forward. code: [B,D]; pts: [B,N,3] -> [B,N,3]."""
         x = pts
         for b in range(self.n_blocks):
-            focus_ax, other_ax = _AXES[((b // 3) % 2, b % 3)]
-            code_b = getattr(self, "lin{}_c".format(b))(code) + code     # [B,D]
-            code_n = code_b[:, None, :].expand(x.shape[:-1] + code_b.shape[-1:])
-            focus = x[..., focus_ax:focus_ax + 1]
-            other = torch.stack([x[..., other_ax[0]], x[..., other_ax[1]]], -1)
+            focus_ax, other_ax, code_n, focus, other = self._split(b, code, x)
             h = torch.cat([self._embed(other, alpha_ratio), code_n], dim=-1)
             focus = focus - self._mlp("lin{}_a".format(b), self.n_layers, h)
             h = torch.cat([self._embed(focus, alpha_ratio), code_n], dim=-1)
@@ -135,14 +150,33 @@ class DeformNetwork(nn.Module):
             o = other - trans
             other = torch.stack([c * o[..., 0] + s * o[..., 1],
                                  -s * o[..., 0] + c * o[..., 1]], dim=-1)
-            cols = [None, None, None]
-            cols[focus_ax] = focus[..., 0]
-            cols[other_ax[0]] = other[..., 0]
-            cols[other_ax[1]] = other[..., 1]
-            x = torch.stack(cols, dim=-1)
+            x = self._join(focus_ax, other_ax, focus, other)
+        return x
+
+    def inverse(self, code, pts, alpha_ratio):
+        """The exact inverse warp: the blocks in reverse, part b (the 2-D
+        rigid transform, forward this time) before part a (the shift added
+        back). code: [B,D]; pts: [B,N,3] -> [B,N,3]."""
+        x = pts
+        for b in reversed(range(self.n_blocks)):
+            focus_ax, other_ax, code_n, focus, other = self._split(b, code, x)
+            h = torch.cat([self._embed(focus, alpha_ratio), code_n], dim=-1)
+            out = self._mlp("lin{}_b".format(b), 1, h)
+            theta, trans = out[..., 0], out[..., 1:3]
+            c, s = torch.cos(theta), torch.sin(theta)
+            other = torch.stack([c * other[..., 0] - s * other[..., 1],
+                                 s * other[..., 0] + c * other[..., 1]], dim=-1) + trans
+            h = torch.cat([self._embed(other, alpha_ratio), code_n], dim=-1)
+            focus = focus + self._mlp("lin{}_a".format(b), self.n_layers, h)
+            x = self._join(focus_ax, other_ax, focus, other)
         return x
 
 
 def deform_forward(net, code, pts, alpha_ratio):
     """Functional alias of ``DeformNetwork.forward``, named as in the JAX package."""
     return net(code, pts, alpha_ratio)
+
+
+def deform_inverse(net, code, pts, alpha_ratio):
+    """Functional alias of ``DeformNetwork.inverse``."""
+    return net.inverse(code, pts, alpha_ratio)

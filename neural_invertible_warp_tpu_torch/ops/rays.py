@@ -2,7 +2,7 @@
 
 Pixel centers sit at (x+0.5, y+0.5) with row-major index y*W + x; grid
 points live on the z=1 camera plane; rays are grid - center, unnormalized.
-NDC conversion is not ported yet (ROADMAP M9).
+NDC conversion is not ported yet (ROADMAP M1).
 """
 
 from __future__ import annotations
@@ -36,8 +36,13 @@ def get_center_and_ray(pose, intr, ray_idx, W):
     return center_3D, grid_3D - center_3D
 
 
-def get_unwarped_center_and_ray(intr, ray_idx, W):
+def get_unwarped_center_and_ray(intr, ray_idx, W, pose_init=None):
     """Camera-frame (center, grid) points fed to the INN warp: the centers
-    are the camera origin, the grid points lie on the z=1 plane."""
+    are the camera origin, the grid points lie on the z=1 plane, unless
+    ``pose_init`` [B,3,4] maps both into an initial world frame."""
     grid_3D = _grid_cam(pixel_centers_from_idx(ray_idx, W), intr)
-    return torch.zeros_like(grid_3D), grid_3D
+    center_3D = torch.zeros_like(grid_3D)
+    if pose_init is not None:
+        grid_3D = pose_ops.cam2world(grid_3D, pose_init)
+        center_3D = pose_ops.cam2world(center_3D, pose_init)
+    return center_3D, grid_3D

@@ -8,7 +8,8 @@ fp32 on both sides; the warp composes three coupling blocks of small
 matmuls (rtol 1e-5, atol 1e-6 on points; gradients rtol 1e-4, atol 1e-6,
 and for weight gradients atol 1e-5 of the leaf's largest entry, for
 summation order). Procrustes: rotations to 1e-5; the VJP through the
-adjugate solve to rtol 1e-4.
+adjugate solve to rtol 1e-4; the SVD method's rotation equals the
+quaternion method's to 1e-5.
 """
 
 import numpy as np
@@ -139,8 +140,10 @@ def test_rigid_points_registration_grads():
     np.testing.assert_allclose(t_t.detach().numpy(), np.asarray(t_j), atol=1e-5)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_j[0]), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(yt.grad.numpy(), np.asarray(g_j[1]), rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="M4"):
-        align.rigid_points_registration(xt, yt, method="svd")
+    # the SVD method fits the same transform (its VJP: tests/test_torch_inn_family.py)
+    R_s, t_s = align.rigid_points_registration(xt, yt, method="svd")
+    np.testing.assert_allclose(R_s.detach().numpy(), R_t.detach().numpy(), atol=1e-5)
+    np.testing.assert_allclose(t_s.detach().numpy(), t_t.detach().numpy(), atol=1e-5)
 
 
 def test_sim3_alignment_matches_jax():

@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.ops.cuda.build",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_pe",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_field",
+    "neural_invertible_warp_tpu_torch.ops.cuda.fused_inn",
     "neural_invertible_warp_tpu_torch.utils.ckpt",
     "neural_invertible_warp_tpu_torch.train",
     "chip_smoke",
@@ -130,6 +131,16 @@ def test_registry_names_the_roadmap_item(name, item):
         get_system_class(name)
 
 
+def test_registry_resolves_the_inn_warp_models():
+    """The three INN-warp names of the JAX registry are one system class."""
+    from neural_invertible_warp_tpu_torch.models import get_system_class
+    from neural_invertible_warp_tpu_torch.models.inn_warp import InnWarpSystem
+    for name in ("barf_inn_llff", "nerf_inn_llff", "barf_inn_blender"):
+        assert get_system_class(name) is InnWarpSystem
+    with pytest.raises(KeyError, match="unknown model"):
+        get_system_class("barf_inn_mars")
+
+
 def test_unported_render_branches_raise(tmp_path):
     import torch
     from neural_invertible_warp_tpu_torch.config import process_options
@@ -145,18 +156,21 @@ def test_unported_render_branches_raise(tmp_path):
     ray = torch.ones(1, 2, 3)
     with pytest.raises(ValueError, match="render mode"):
         system.render_rays(center, ray, mode="test")
-    opt.nerf.fine_sampling = True      # ported for the nerf and barf models only
-    with pytest.raises(NotImplementedError, match="M9"):
-        system.render_rays(center, ray, mode="train", target=torch.zeros(1, 2, 3))
-    opt.nerf.fine_sampling = flagship_options().nerf.fine_sampling
+    from neural_invertible_warp_tpu_torch.ops import sampling
+    for mode in ("topk", "permutation"):       # the other ray draws of tpu.ray_sample
+        with pytest.raises(NotImplementedError, match="M9"):
+            sampling.sample_ray_subset(16, 4, mode=mode)
     opt.camera.ndc = True
     with pytest.raises(NotImplementedError, match="M1"):
         system.render_rays(center, ray, mode="eval")
+    with pytest.raises(NotImplementedError, match="M1"):
+        system.render_rays(center, ray, mode="train", target=torch.zeros(1, 2, 3))
 
 
 def test_chip_smoke_plain_references_match_the_wrappers_on_cpu(monkeypatch, tmp_path):
-    """chip_smoke.py's plain references (K2 loss and gradients, the chunked
-    validation image) equal what the port's wrappers and render_image give
+    """chip_smoke.py's plain references (K2 loss and gradients, K6's output
+    and gradients, the chunked validation image) equal what the port's
+    wrappers and render_image give
     on the CPU, where the wrappers run the plain version: so on the card a
     difference can only come from the kernels."""
     import torch
@@ -176,6 +190,21 @@ def test_chip_smoke_plain_references_match_the_wrappers_on_cpu(monkeypatch, tmp_
         torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
         for g, r in zip(got[2], ref[2]):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+    # K6: through the wrapper ("kernel") the CPU runs the plain version; the
+    # chain associates the first-layer product otherwise (5e-4 per leaf, as
+    # tests/test_torch_fused_inn.py holds it)
+    net, code, pts = cs.inn_setup(2, 7, 8, seed=0, device="cpu")
+    for alpha in (0.0, 0.37, 1.0):
+        out_k, grads_k = cs.inn_grads("kernel", net, code, pts, alpha)
+        out_p, grads_p = cs.inn_grads("plain", net, code, pts, alpha)
+        out_c, grads_c = cs.inn_grads("chain", net, code, pts, alpha)
+        assert torch.equal(out_k, out_p) and float((out_k - pts).abs().max()) > 1e-2
+        assert len(grads_k) == len(grads_p) == len(grads_c) == 2 + 36
+        torch.testing.assert_close(out_c, out_k, rtol=1e-5, atol=1e-5)
+        for g, r, c in zip(grads_k, grads_p, grads_c):
+            assert torch.equal(g, r) and float(r.abs().max()) > 0
+            assert float(torch.linalg.norm(c - g)) <= 5e-4 * float(torch.linalg.norm(c))
 
     opt = flagship_options()
     opt.output_root = str(tmp_path)
