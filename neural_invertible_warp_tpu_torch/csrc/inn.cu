@@ -458,13 +458,17 @@ static __global__ void epilogue_kernel(EpilogueArgs a) {
     }
     return acc;
   };
+  // each lane parks its dW_k in dv's row and corrects them in place once t is known
+  float* dv = dW[0] + (size_t)j * n_in;
   float t = 0.f;
-  for (int k = lane; k < n_in; k += 32) t = fmaf(dw_of(k), v[k], t);
+  for (int k = lane; k < n_in; k += 32) {
+    dv[k] = dw_of(k);
+    t = fmaf(dv[k], v[k], t);
+  }
   for (int off = 16; off; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
   const float g = W[1][j];
   const float back = __fdiv_rn(g * t, norm * norm * norm);
-  for (int k = lane; k < n_in; k += 32)
-    dW[0][(size_t)j * n_in + k] = dw_of(k) * scale - v[k] * back;
+  for (int k = lane; k < n_in; k += 32) dv[k] = dv[k] * scale - v[k] * back;
   if (lane == 0) {
     dW[1][j] = __fdiv_rn(t, norm);
     float db0 = 0.f;

@@ -11,8 +11,9 @@ space; rays are re-derived as warped grid minus warped center and rendered;
 a global-alignment loss fits a rigid pose to the (camera-frame, warped)
 point pairs with a Procrustes solver, keeps it as the pose readout
 ``aux["global_rigid"]`` and penalizes the warp's deviation from it. With
-``tpu.fused_inn`` the warp runs as one CUDA kernel per direction (K6) where
-the network is the paper's configuration, and as the plain chain elsewhere.
+``tpu.fused_inn`` the warp runs as one CUDA kernel per direction (K6), which
+covers the paper's configuration of the network; the switch raises on any
+other. With the switch off (the default) the warp is the plain chain.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from ..ops import align, inn, lie, posenc, rays
 from ..ops import pose as pose_ops
 from ..ops.cuda import fused_inn
 from ..ops.nerf_mlp import NerfMLP
-from ..utils import log
 from .barf import BarfSystem
 from .system import Graph
 
@@ -41,7 +41,6 @@ class InnWarpSystem(BarfSystem):
         self.multires = opt.inn.real_nvp.multires
         self.actfn = opt.inn.get("actfn", "softplus")
         self.anneal_mode = opt.inn.real_nvp.get("anneal") or "reference"
-        self._warned_unfused = False
 
     def latent_dim(self):
         opt = self.opt
@@ -161,18 +160,13 @@ class InnWarpSystem(BarfSystem):
 
     def warp_points(self, pts, step):
         """Warp [B,N,3] camera-frame points into world space: through the
-        fused kernel's wrapper under ``tpu.fused_inn`` where it covers the
-        network, else through the plain chain."""
+        fused kernel's wrapper under ``tpu.fused_inn`` (which raises for a
+        network the kernel does not cover), else through the plain chain."""
         feat = self._warp_feat()
         alpha = self.alpha_ratio(step)
         net = self.graph.warp_mlp
-        if (self.opt.get("tpu") or {}).get("fused_inn", True):
-            if fused_inn.supports(net):
-                return fused_inn.fused_deform_forward(net, feat, pts, alpha)
-            if not self._warned_unfused:
-                self._warned_unfused = True
-                log.warn("tpu.fused_inn is on, but the fused warp covers only the "
-                         "paper's INN configuration: taking the plain chain")
+        if (self.opt.get("tpu") or {}).get("fused_inn", False):
+            return fused_inn.fused_deform_forward(net, feat, pts, alpha)
         return net(feat, pts, alpha)
 
     def get_train_pose(self):

@@ -46,13 +46,23 @@ N_BLOCKS = 3
 _BLOCK_AXES = [(2, (0, 1)), (1, (0, 2)), (0, (1, 2))]
 
 
+def uncovered(net):
+    """The settings of this DeformNetwork that the kernel does not cover, as
+    "name=value (kernel: value)" strings; empty for the paper's
+    configuration (reference anneal, softplus, multires 6, three blocks, one
+    128-wide hidden layer per branch)."""
+    have = dict(anneal=net.anneal, actfn=net.actfn, multires=net.multires,
+                n_blocks=net.n_blocks, n_layers=net.n_layers,
+                d_hidden=net.lin0_a_0.bias.shape[0])
+    want = dict(anneal="reference", actfn="softplus", multires=MULTIRES,
+                n_blocks=N_BLOCKS, n_layers=1, d_hidden=D_HID)
+    return ["{}={} (kernel: {})".format(k, have[k], want[k])
+            for k in want if have[k] != want[k]]
+
+
 def supports(net):
-    """Whether the kernel covers this DeformNetwork: the paper's
-    configuration (reference anneal, softplus, multires 6, three blocks,
-    one 128-wide hidden layer per branch)."""
-    return (net.anneal == "reference" and net.actfn == "softplus"
-            and net.multires == MULTIRES and net.n_blocks == N_BLOCKS
-            and net.n_layers == 1 and net.lin0_a_0.bias.shape[0] == D_HID)
+    """Whether the kernel covers this DeformNetwork."""
+    return not uncovered(net)
 
 
 def leaves_of(net):
@@ -213,9 +223,9 @@ def fused_deform_forward(net, code, pts, alpha_ratio):
     [B,d_feat]; pts [B,N,3] -> [B,N,3], differentiable in code, pts and the
     network's parameters."""
     if not supports(net):
-        raise ValueError("the warp kernel covers the paper's configuration only "
-                         "(reference anneal, softplus, multires 6, 3 blocks, one "
-                         "128-wide hidden layer per branch)")
+        raise ValueError("the warp kernel covers the paper's configuration only; "
+                         "this network has " + ", ".join(uncovered(net))
+                         + ". Turn tpu.fused_inn off for it")
     rw1, rw2 = row_windows(pts.shape[1], alpha_ratio, pts.device)
     codes, leaves = block_codes(net, code), leaves_of(net)
     if not pts.is_cuda:

@@ -81,7 +81,8 @@ def test_supports(setup):
                dict(d_hidden=64), dict(n_layers=2), dict(n_blocks=2)):
         other = inn.DeformNetwork(D_FEAT, **dict(dict(d_hidden=128, multires=6), **kw))
         assert not fused_inn.supports(other), kw
-        with pytest.raises(ValueError, match="paper's configuration"):
+        (name, value), = kw.items()
+        with pytest.raises(ValueError, match="paper's configuration.*{}={} ".format(name, value)):
             fused_inn.fused_deform_forward(other, torch.zeros(1, D_FEAT),
                                            torch.zeros(1, 2, 3), 0.5)
 
@@ -167,8 +168,9 @@ def _options(tmp_path):
 
 def test_step0_with_the_fused_warp(tmp_path, monkeypatch):
     """``tpu.fused_inn: true`` sends the warp of the train step through the
-    wrapper (here its plain version); the dispatch falls back to the chain,
-    with the same result, for a configuration the kernel does not cover."""
+    wrapper (here its plain version), with the same result as the chain
+    with the switch off; with the switch on, a configuration the kernel does
+    not cover raises and names the setting."""
     opt = _options(tmp_path / "jax")
     jsys = jax_system_class("barf_inn_llff")(opt)
     train, test = _arrays(N_IMG, 0), _arrays(1, 1)
@@ -238,8 +240,8 @@ def test_step0_with_the_fused_warp(tmp_path, monkeypatch):
     np.testing.assert_allclose(total_off, total_t, rtol=1e-6)
     for a, b in zip(g_off, g_t):   # entries far below the leaf's largest are rounding noise
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4 * np.abs(a).max() + 1e-9)
-    # switch on, a network the kernel does not cover: the chain again
+    # switch on, a network the kernel does not cover: no silent plain chain
     psys.opt.tpu.fused_inn = True
     psys.graph.warp_mlp.anneal = "bands"
-    port_step0()
-    assert calls == [1]
+    with pytest.raises(ValueError, match="anneal=bands"):
+        port_step0()
