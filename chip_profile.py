@@ -20,12 +20,15 @@ samples, 1024 rays, two fields), two windows:
                compositing weights, the resample, K2 at 192 samples);
   fine render  one full-image render (300 chunks, K5 at 64 and at 192
                samples each, compositing and the resample in PyTorch).
+Then PDC-Net (random weights from a seed) through PdcNetMatcher, one window:
+  matcher      5 pairs of 480x640 views after 3 (24 K7 and 9 adjoint
+               launches per pair), with K7's share of the device time.
 For each window it prints the wall time per unit (host clock,
 device-synced, taken without the profiler), the device-busy time per unit
 (the sum of the durations of all device kernels and copies in the trace),
 the idle share, the count of device operations (kernels and copies) per
 unit, the peak device memory, and the device time by kernel name (the
-twelve largest, and every kernel of the fused warp).
+twelve largest, and every kernel of the fused warp and of K7).
 Every line names the card and its power limit. Needs one CUDA device.
 """
 
@@ -44,6 +47,7 @@ N_WARM_STEPS, N_TRAIN_STEPS = 30, 10
 N_WARM_FUSED = 5
 N_WARM_REFINE, N_REFINE = 5, 20
 N_WARM_FINE = 20
+N_WARM_MATCH, N_MATCH = 3, 5
 TOP = 12
 
 
@@ -85,13 +89,17 @@ def window(label, unit, n_units, fn):
     busy_ms = sum(by_name.values()) / 1e3 / n_units
     cs.check(busy_ms > 0, "the profiler saw no device time")
     ours = sum(t for n, t in by_name.items() if "niw::" in n) / 1e3 / n_units
+    k7 = sum(t for n, t in by_name.items() if "niw::corr::" in n) / 1e3 / n_units
     print("profile {}: {:.2f} ms wall per {} (unprofiled), device busy {:.2f} ms, idle share "
-          "{:.1f}%; {:.0f} device operations per {}; hand-written kernels {:.2f} ms, everything "
-          "else {:.2f} ms; peak device memory {:.2f} GB; card: {}".format(
+          "{:.1f}%; {:.0f} device operations per {}; hand-written kernels {:.2f} ms (K7 and its "
+          "adjoint {:.3f} ms, {:.1f}% of busy), everything else {:.2f} ms; peak device memory "
+          "{:.2f} GB; card: {}".format(
               label, wall_ms, unit, busy_ms, 100 * max(0.0, 1 - busy_ms / wall_ms),
-              n_events / n_units, unit, ours, busy_ms - ours, peak_gb, cs.card_line()))
+              n_events / n_units, unit, ours, k7, 100 * k7 / busy_ms, busy_ms - ours, peak_gb,
+              cs.card_line()))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    for name, t in ranked[:TOP] + [kv for kv in ranked[TOP:] if "niw::inn::" in kv[0]]:
+    for name, t in ranked[:TOP] + [kv for kv in ranked[TOP:]
+                                   if "niw::inn::" in kv[0] or "niw::corr::" in kv[0]]:
         print("  {:9.3f} ms per {}  {}".format(t / 1e3 / n_units, unit, short(name)))
 
 
@@ -172,6 +180,22 @@ def main():
     pose, intr = system.test_data["pose"][:1], system.test_data["intr"][:1]
     n_chunks = -(-H * W // opt.nerf.rand_rays)
     window("fine render", "chunk", n_chunks, lambda: system.render_image(pose, intr))
+
+    del trainer, system
+    torch.cuda.empty_cache()
+    from neural_invertible_warp_tpu_torch.ops.pdcnet.pdcnet import PDCNet
+    from neural_invertible_warp_tpu_torch.utils import matchers
+    matcher = matchers.PdcNetMatcher(PDCNet(torch.Generator().manual_seed(0)),
+                                     min_confidence=cs.PDCNET_MIN_CONFIDENCE)
+    images = cs.make_scene(H, W, 2, seed=4)["image"]
+
+    def match(n):
+        for _ in range(n):
+            matcher(0, 1, images[0], images[1])
+    print("profile: PDC-Net through PdcNetMatcher, one pair at {}x{}; card: {}".format(
+        H, W, cs.card_line()))
+    match(N_WARM_MATCH)
+    window("matcher", "pair", N_MATCH, lambda: match(N_MATCH))
 
 
 if __name__ == "__main__":

@@ -49,11 +49,24 @@ Phases, one or more lines each:
      narrow-latent and a 4096-point shape, under the loss sum(sin(3 out))
      and again under sum(out); two backward runs must give the same bits;
      kernel, plain version and chain timed side by side;
-  9. fused-warp slice: the flagship again with ``tpu.fused_inn: true``, 100
+  9. kernel_k7: K7 (PDC-Net's 9x9 local correlation) and its adjoints in f1
+     and in f2 through the wrappers against their plain versions on the card,
+     at the calls of a 480x640 pair ([1,128,120,160], [1,256,60,80],
+     [1,256,32,32]), of a DTU 300x400 pair ([1,128,74,100], [1,256,37,50])
+     and at a ragged shape with B = 2; the zero-displacement channel of
+     identical maps against their mean of squares; the autograd Function's
+     gradients against the adjoint kernels; kernel, plain version and the
+     unfold + einsum route timed as CUDA graph replays, beside the bound;
+ 10. fused-warp slice: the flagship again with ``tpu.fused_inn: true``, 100
      steps through the Trainer: K6 forward, K6 backward and K2 once per step
      each, step-0 losses equal to the fused-off run's of phase 4, the loss
      falls, the pose readout is a rotation, a training view at its pose
-     readout reaches the PSNR floor; ms/step beside phase 4's.
+     readout reaches the PSNR floor; ms/step beside phase 4's;
+ 11. pose_init_pdcnet: PDC-Net at its published widths (random weights from
+     a seed) through PdcNetMatcher over the pose-nearest pairs of 6 views at
+     480x640 and one 300x400 pair: 24 K7 and 9 adjoint launches per pair;
+     flow and P_R finite, P_R in [0, 1]; the whole matcher against the same
+     module with K7's plain versions; keypoint counts both ways; ms per pair.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -62,6 +75,7 @@ with code 2 before doing anything.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -207,6 +221,36 @@ TOL_FUSED_STEP0 = 1e-5
 TOL_FUSED_STEP1 = 1e-2
 
 
+# K7, PDC-Net's 9x9 local correlation, and its adjoints: (name, B, C, H, W).
+# A 480x640 pair gives the H-Net's VGG levels at 1/4 (128 channels) and 1/8
+# (256) and the L-Net's 32x32 (256); a DTU 300x400 pair 74x100 and 37x50. Each
+# output is held to 1e-5 of its max against the plain version (fp32 sums of
+# C products in another order read ~1e-7).
+K7_CASES = [("480x640, 1/4", 1, 128, 120, 160), ("480x640, 1/8", 1, 256, 60, 80),
+            ("256x256 net, 32x32", 1, 256, 32, 32), ("300x400, 1/4", 1, 128, 74, 100),
+            ("300x400, 1/8", 1, 256, 37, 50), ("ragged", 2, 40, 13, 45)]
+TOL_K7 = 1e-5
+# The pose-init path: PdcNetMatcher over the pose-nearest pairs of 6 views at
+# 480x640 (2 neighbours each) and one DTU-sized pair. Per pair, each of the
+# three local levels runs the local GOCor (3 iterations x 2 correlations + 1
+# adjoint, then 1 correlation with the query) and one plain local
+# correlation: 8 K7 and 3 adjoint launches per level. The whole matcher is
+# held against the same module with K7's plain versions: flow to 5e-4 of its
+# max, P_R to 2e-3 absolute; keypoints may differ only where P_R lies within
+# the pair's P_R difference of min_confidence. Not 1e-4: GOCor's descent
+# direction takes sign(score) (the derivative of its leaky-relu objective),
+# so a score that rounds to the other side of 0 in one of two fp32
+# evaluations moves that filter by a finite step; on an H100 the two routes
+# read up to 1.1e-4 (flow) and 7.2e-4 (P_R) apart, and each is as far from a
+# float64 evaluation (printed for two pairs).
+PDCNET_VIEWS, PDCNET_NEIGHBOURS = 6, 2
+PDCNET_DTU_HW = (300, 400)
+PDCNET_MIN_CONFIDENCE = 0.1
+K7_FWD_PER_PAIR, K7_ADJ_PER_PAIR = 3 * 8, 3 * 3
+TOL_PDCNET_FLOW = 5e-4
+TOL_PDCNET_PR = 2e-3
+
+
 def check(ok, msg):
     """Raise (under -O too, unlike assert) when a smoke check fails."""
     if not ok:
@@ -233,6 +277,20 @@ def time_ms(fn, warmup=3, runs=20):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def graph_ms(fn):
+    """Device time of fn()'s launch sequence alone: captured into a CUDA
+    graph after a warm-up call and replayed (median of 20 after 3), so that
+    no host time lies between or before its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = fn()      # kept alive while the graph replays
+    ms = time_ms(graph.replay)
+    del graph, outputs
+    return ms
 
 
 def compare(name, got, ref, tol, failures):
@@ -1062,7 +1120,11 @@ def field_counts():
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn as fi
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
-    return {"k6_fwd": fi.fused_deform_forward.launches,
+    from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+    return {"k7_fwd": k7.local_correlation.launches,
+            "k7_adj": k7.local_correlation_transpose.launches,
+            "k7_adj_f2": k7.local_correlation_transpose_f2.launches,
+            "k6_fwd": fi.fused_deform_forward.launches,
             "k6_bwd": fi.fused_deform_forward.backward_launches,
             "k2": fp.fused_render_rays_pe_train.launches,
             "k3": fp.fused_render_rays_pe.launches,
@@ -1076,6 +1138,10 @@ def reset_counts():
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn as fi
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+    k7.local_correlation.launches = 0
+    k7.local_correlation_transpose.launches = 0
+    k7.local_correlation_transpose_f2.launches = 0
     fi.fused_deform_forward.launches = 0
     fi.fused_deform_forward.backward_launches = 0
     fp.fused_render_rays_pe_train.launches = 0
@@ -1320,17 +1386,8 @@ def inn_device_ms(net, code, pts, alpha):
         leaves = [l.detach().contiguous() for l in fi.leaves_of(net)]
         g = torch.randn(pts.shape, generator=torch.Generator().manual_seed(9)).to(pts.device)
         _, prep = fi.launch_inn_fwd(pts, rw1, rw2, codes, leaves)
-        fi.launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g)
-        torch.cuda.synchronize()
-        times = []
-        for launch in (lambda: fi.launch_inn_fwd(pts, rw1, rw2, codes, leaves),
-                       lambda: fi.launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g)):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                outputs = launch()      # kept alive while the graph replays
-            times.append(time_ms(graph.replay))
-            del outputs
-    return times
+        return [graph_ms(lambda: fi.launch_inn_fwd(pts, rw1, rw2, codes, leaves)),
+                graph_ms(lambda: fi.launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g))]
 
 
 def phase_kernel_inn(device):
@@ -1423,17 +1480,220 @@ def phase_kernel_inn(device):
     return records
 
 
-def print_k7_bound():
-    """The bound of the one TPU kernel still to port, K7 (the 9x9 local
-    correlation, forward only: [B,C,H,W] x 2 -> [B,81,H,W], 81 C multiply-adds
-    per pixel), at the calls PDC-Net makes for a 480x640 pair: its VGG levels
-    at 1/4 (128 channels) and 1/8 (256), and 32x32 (256) in its 256x256 net."""
-    for C, H, W in ((128, 120, 160), (256, 60, 80), (256, 32, 32)):
-        f = torch.empty(1, C, H, W, device="meta")
-        out = torch.empty(1, 81, H, W, device="meta")
-        ms, by = bound(2 * 81 * C * H * W, [f, f], [out])
-        print("kernels: K7 (to port) at [1,{},{},{}] x 2 -> [1,81,{},{}]: bound {:.5f} ms "
-              "({})".format(C, H, W, H, W, ms, by))
+# --------------------------------------------------- K7, the local correlation
+
+def k7_inputs(B, C, H, W, seed, device):
+    """f1, f2 [B,C,H,W] and a cost-volume cotangent m [B,81,H,W]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(device)
+                 for shape in ((B, C, H, W), (B, C, H, W), (B, 81, H, W)))
+
+
+def k7_library(f1, f2):
+    """The nearest PyTorch route to K7: ``F.unfold`` of f2's 9x9 windows,
+    then one einsum with f1 (two calls; no single library call computes a
+    local cost volume)."""
+    B, C, H, W = f1.shape
+    u = torch.nn.functional.unfold(f2, 9, padding=4).view(B, C, 81, H * W)
+    return torch.einsum("bcp,bcdp->bdp", f1.reshape(B, C, H * W), u).view(B, 81, H, W) / C
+
+
+def k7_library_adjoint(m, f2):
+    """The same route for the adjoint in f1: unfold, then one einsum with m."""
+    B, C, H, W = f2.shape
+    u = torch.nn.functional.unfold(f2, 9, padding=4).view(B, C, 81, H * W)
+    return torch.einsum("bdp,bcdp->bcp", m.reshape(B, 81, H * W), u).view(B, C, H, W) / C
+
+
+def phase_kernel_k7(device):
+    """K7 and its two adjoints through the wrappers against their plain
+    versions on the card, at the calls PDC-Net makes for a 480x640 pair and
+    a DTU 300x400 pair and at a ragged shape; times beside the bound and the
+    unfold + einsum route. Returns the JSON records of K7 and its adjoint in
+    f1 (the one the matcher launches)."""
+    from neural_invertible_warp_tpu_torch.ops import correlation as plain
+    from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+    failures = []
+    records = {k: dict(max_abs_err=0.0, by_shape={}) for k in ("k7_fwd", "k7_adj")}
+    adj2 = records["k7_adj"]["f2_adjoint"] = dict(max_abs_err=0.0, by_shape={})
+    for i, (case, B, C, H, W) in enumerate(K7_CASES):
+        f1, f2, m = k7_inputs(B, C, H, W, 200 + i, device)
+        shape = "[{},{},{},{}]".format(B, C, H, W)
+        print("kernels: K7 local correlation, {}: {} x 2 -> [{},81,{},{}]".format(
+            case, shape, B, H, W))
+        out = k7.local_correlation(f1, f2)
+        df1 = k7.local_correlation_transpose(m, f2)
+        df2 = k7.local_correlation_transpose_f2(m, f1)
+        err = compare("forward", out, plain.local_correlation(f1, f2), TOL_K7, failures)
+        err_1 = compare("adjoint in f1", df1, plain.local_correlation_transpose(m, f2), TOL_K7,
+                        failures)
+        err_2 = compare("adjoint in f2", df2, plain.local_correlation_transpose_f2(m, f1),
+                        TOL_K7, failures)
+        same = k7.local_correlation(f1, f1)[:, 40]
+        compare("d=0 of f1, f1", same, (f1 * f1).mean(dim=1), TOL_K7, failures)
+        check(torch.equal(k7.local_correlation(f1, f2), out), "two K7 runs differ")
+        # the autograd Function's backward is the two adjoint launches
+        a, b = f1.clone().requires_grad_(True), f2.clone().requires_grad_(True)
+        ga, gb = torch.autograd.grad((k7.local_correlation(a, b) * m).sum(), [a, b])
+        check(torch.equal(ga, df1) and torch.equal(gb, df2),
+              "the backward of _LocalCorrelation is not its adjoint kernels")
+        records["k7_fwd"]["max_abs_err"] = max(records["k7_fwd"]["max_abs_err"], err)
+        records["k7_adj"]["max_abs_err"] = max(records["k7_adj"]["max_abs_err"], err_1)
+        adj2["max_abs_err"] = max(adj2["max_abs_err"], err_2)
+        flops = 2 * 81 * B * C * H * W
+        t = {"k7_fwd": dict(
+            ms=graph_ms(lambda: k7.local_correlation(f1, f2)),
+            wrapper_ms=time_ms(lambda: k7.local_correlation(f1, f2)),
+            plain_ms=graph_ms(lambda: plain.local_correlation(f1, f2)),
+            library_ms=graph_ms(lambda: k7_library(f1, f2))),
+            "k7_adj": dict(
+            ms=graph_ms(lambda: k7.local_correlation_transpose(m, f2)),
+            wrapper_ms=time_ms(lambda: k7.local_correlation_transpose(m, f2)),
+            plain_ms=graph_ms(lambda: plain.local_correlation_transpose(m, f2)),
+            library_ms=graph_ms(lambda: k7_library_adjoint(m, f2))),
+            "k7_adj_f2": dict(
+            ms=graph_ms(lambda: k7.local_correlation_transpose_f2(m, f1)),
+            plain_ms=graph_ms(lambda: plain.local_correlation_transpose_f2(m, f1)))}
+        t["k7_fwd"]["bound_ms"], t["k7_fwd"]["bound_by"] = bound(flops, [f1, f2], [out])
+        for k in ("k7_adj", "k7_adj_f2"):
+            t[k]["bound_ms"], t[k]["bound_by"] = bound(flops, [m, f1], [df1])
+        if i == 0:      # the library route computes the same functions
+            compare("unfold+einsum", k7_library(f1, f2), plain.local_correlation(f1, f2),
+                    TOL_K7, failures)
+            compare("unfold+einsum adj", k7_library_adjoint(m, f2),
+                    plain.local_correlation_transpose(m, f2), TOL_K7, failures)
+        for key, name in (("k7_fwd", "forward"), ("k7_adj", "adjoint in f1"),
+                          ("k7_adj_f2", "adjoint in f2")):
+            r = t[key]
+            print("  {:<14} {:.4f} ms (wrapper {}), plain version {:.4f} ms, unfold + einsum "
+                  "(two calls) {}, bound {:.5f} ms ({}); graph replay".format(
+                      name, r["ms"], "{:.4f}".format(r["wrapper_ms"]) if "wrapper_ms" in r
+                      else "-", r["plain_ms"], "{:.4f} ms".format(r["library_ms"])
+                      if "library_ms" in r else "-", r["bound_ms"], r["bound_by"]))
+        records["k7_fwd"]["by_shape"][shape] = t["k7_fwd"]
+        records["k7_adj"]["by_shape"][shape] = t["k7_adj"]
+        adj2["by_shape"][shape] = t["k7_adj_f2"]
+        del out, df1, df2, f1, f2, m
+        torch.cuda.empty_cache()
+    # the record's own times are those of PDC-Net's largest call
+    _, B, C, H, W = K7_CASES[0]
+    first = "[{},{},{},{}]".format(B, C, H, W)
+    for k in ("k7_fwd", "k7_adj"):
+        records[k].update({n: records[k]["by_shape"][first][n] for n in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print("kernels: K7 at {}: forward {:.4f} ms, adjoint in f1 {:.4f} ms, adjoint in f2 "
+          "{:.4f} ms (CUDA graph replay), bound {:.5f} ms; card: {}".format(
+              first, records["k7_fwd"]["ms"], records["k7_adj"]["ms"],
+              adj2["by_shape"][first]["ms"], records["k7_fwd"]["bound_ms"], card_line()))
+    check(not failures, "kernel and plain version disagree: {}".format(failures))
+    return records
+
+
+# --------------------------------------------- the PDC-Net matcher (pose init)
+
+class plain_correlation:
+    """Within the block, PDC-Net's correlations (the module attributes that
+    ``ops/pdcnet`` calls) are K7's plain versions on CUDA tensors too: the
+    reference route of the matcher's comparison."""
+
+    def __enter__(self):
+        from neural_invertible_warp_tpu_torch.ops import correlation as plain
+        from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+        self.saved = k7.local_correlation, k7.local_correlation_transpose
+        k7.local_correlation = plain.local_correlation
+        k7.local_correlation_transpose = plain.local_correlation_transpose
+
+    def __exit__(self, *exc):
+        from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+        k7.local_correlation, k7.local_correlation_transpose = self.saved
+
+
+def phase_pose_init_pdcnet(device):
+    """PDC-Net at its published widths, random weights from a seed, through
+    PdcNetMatcher over the pose-nearest pairs of 6 views at 480x640 and one
+    pair at 300x400. Returns the launch counts of the path."""
+    from neural_invertible_warp_tpu_torch.ops.pdcnet import pdcnet as pdcnet_mod
+    from neural_invertible_warp_tpu_torch.ops.pdcnet.pdcnet import PDCNet
+    from neural_invertible_warp_tpu_torch.utils import matchers
+    net = PDCNet(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in net.parameters())
+    matcher = matchers.PdcNetMatcher(net, min_confidence=PDCNET_MIN_CONFIDENCE)
+    check(matcher.device == device, matcher.device)
+    H, W = IMAGE_HW
+    scene = make_scene(H, W, PDCNET_VIEWS, seed=4)
+    pairs = [(scene, i, j) for i, j in matchers.nearest_pose_pairs(
+        scene["pose"], PDCNET_NEIGHBOURS)]
+    dtu = make_scene(*PDCNET_DTU_HW, 2, seed=5)
+    pairs.append((dtu, 0, 1))
+    print("pdcnet: PDC-Net ({:.1f} M parameters, random weights) through PdcNetMatcher: {} "
+          "pose-nearest pairs of {} views at {}x{}, one pair at {}x{}".format(
+              n_params / 1e6, len(pairs) - 1, PDCNET_VIEWS, H, W, *PDCNET_DTU_HW))
+    reset_counts()
+    matches, seconds = [], []
+    for s, i, j in pairs:
+        t0 = time.time()
+        matches.append(matcher(i, j, s["image"][i], s["image"][j]))
+        seconds.append(time.time() - t0)       # the matches are on the host: synced
+    launches = {k: v for k, v in field_counts().items() if v}
+    check(launches == {"k7_fwd": K7_FWD_PER_PAIR * len(pairs),
+                       "k7_adj": K7_ADJ_PER_PAIR * len(pairs)},
+          "launches {} for {} pairs".format(launches, len(pairs)))
+
+    # the kernel route against the same module with K7's plain versions, and
+    # on two pairs both against a float64 evaluation of the plain route
+    net64 = copy.deepcopy(net).double()
+    failures, worst = [], dict(flow=0.0, p_r=0.0)
+    for n, ((s, i, j), (kp_i, kp_j)) in enumerate(zip(pairs, matches)):
+        flow, p_r = matcher.flow_and_confidence(s["image"][i], s["image"][j])
+        with plain_correlation():
+            flow_p, p_r_p = matcher.flow_and_confidence(s["image"][i], s["image"][j])
+        h, w = s["image"].shape[1:3]
+        check(flow.shape == (1, 2, h // 4, w // 4) and p_r.shape == (1, 1, h // 4, w // 4),
+              (flow.shape, p_r.shape))
+        check(bool(torch.isfinite(flow).all() and torch.isfinite(p_r).all()), "not finite")
+        check(float(p_r.min()) >= 0.0 and float(p_r.max()) <= 1.0, "P_R outside [0, 1]")
+        check(float(flow.abs().max()) > 0.1, "the flow is trivial")
+        err_f = float((flow - flow_p).abs().max()) / float(flow_p.abs().max())
+        err_p = float((p_r - p_r_p).abs().max())
+        worst["flow"], worst["p_r"] = max(worst["flow"], err_f), max(worst["p_r"], err_p)
+        if err_f > TOL_PDCNET_FLOW or err_p > TOL_PDCNET_PR:
+            failures.append((i, j, err_f, err_p))
+        line = ""
+        if n in (0, len(pairs) - 1):
+            with plain_correlation(), torch.no_grad():
+                flow_64, p_r_64 = pdcnet_mod.estimate_flow_and_confidence_map(
+                    net64, matcher.image_tensor(s["image"][j]).double(),
+                    matcher.image_tensor(s["image"][i]).double())
+            scale = float(flow_64.abs().max())
+            line = ("; from float64: flow {:.2e} (plain route {:.2e}) of max, P_R {:.2e} "
+                    "({:.2e})".format(float((flow - flow_64).abs().max()) / scale,
+                                      float((flow_p - flow_64).abs().max()) / scale,
+                                      float((p_r - p_r_64).abs().max()),
+                                      float((p_r_p - p_r_64).abs().max())))
+        # a keypoint can flip only where the two P_R lie on either side of
+        # min_confidence, so within this pair's P_R difference of it
+        kp_plain = pdcnet_mod.matches_from_flow_and_confidence(
+            flow_p, p_r_p, (h, w), PDCNET_MIN_CONFIDENCE)[1]
+        near = int(((p_r_p - PDCNET_MIN_CONFIDENCE).abs() <= err_p).sum())
+        flips = abs(len(kp_i) - len(kp_plain))
+        print("  pair ({},{}) at {}x{}: kernel vs plain route: flow max |diff| / max |flow| "
+              "{:.2e}, P_R max |diff| {:.2e}{}; keypoints {} (plain route {}; {} pixels with P_R "
+              "within that of {}); P_R in [{:.3f}, {:.3f}]; {:.1f} ms".format(
+                  i, j, h, w, err_f, err_p, line, len(kp_i), len(kp_plain), near,
+                  PDCNET_MIN_CONFIDENCE, float(p_r.min()), float(p_r.max()), 1e3 * seconds[n]))
+        check(flips <= near, "keypoints differ by {} where only {} pixels lie at the "
+              "threshold".format(flips, near))
+        check(kp_i.shape == kp_j.shape, (kp_i.shape, kp_j.shape))
+    del net64
+    ms = statistics.median(seconds[1:-1]) * 1e3
+    print("pdcnet: launches {} ({} and {} per pair); {:.1f} ms per 480x640 pair (median of "
+          "pairs 2-{}, first {:.1f} ms), {:.1f} ms at {}x{}; kernel vs plain route: flow "
+          "{:.2e} of max (tol {:.0e}), P_R {:.2e} (tol {:.0e}); card: {}".format(
+              launches, K7_FWD_PER_PAIR, K7_ADJ_PER_PAIR, ms, len(pairs) - 1,
+              seconds[0] * 1e3, seconds[-1] * 1e3, *PDCNET_DTU_HW, worst["flow"],
+              TOL_PDCNET_FLOW, worst["p_r"], TOL_PDCNET_PR, card_line()))
+    check(not failures, "kernel and plain routes of the matcher disagree: {}".format(failures))
+    return launches
 
 
 def phase_slice_fused_inn(device, off):
@@ -1525,15 +1785,17 @@ def main():
     launches_fine = phase_slice_fine(device)
     records["k2"].update(k2_extra)
     records_inn = phase_kernel_inn(device)
-    print_k7_bound()
+    records_k7 = phase_kernel_k7(device)
     launches_fused = phase_slice_fused_inn(device, summary_off)
+    launches_pdcnet = phase_pose_init_pdcnet(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
-             "fine": launches_fine, "flagship_fused_inn": launches_fused}
+             "fine": launches_fine, "flagship_fused_inn": launches_fused,
+             "pose_init_pdcnet": launches_pdcnet}
 
     def kernel(key, name, source, replaces, record):
-        # launches: over the four paths, each counted from 0 by its own phase
+        # launches: over the five paths, each counted from 0 by its own phase
         by_path = {path: counts[key] for path, counts in paths.items() if counts.get(key)}
         return dict(name=name, route="cuda", source=pkg + source, replaces=pallas + replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path, **record)
@@ -1556,6 +1818,10 @@ def main():
                records_inn["k6_fwd"]),
         kernel("k6_bwd", "K6 inn backward", "inn.cu", "fused_inn.py:266",
                records_inn["k6_bwd"]),
+        kernel("k7_fwd", "K7 local correlation (9x9 cost volume)", "correlation.cu",
+               "correlation_kernel.py:23", records_k7["k7_fwd"]),
+        kernel("k7_adj", "K7 adjoint in f1 (GOCor's filter gradient)", "correlation.cu",
+               "correlation_kernel.py:23", records_k7["k7_adj"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, "{} was not launched on any path".format(k["name"]))

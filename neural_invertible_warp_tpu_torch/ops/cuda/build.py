@@ -61,6 +61,9 @@ _SIGNATURES = {
                      _P], ctypes.c_int),
     "niw_inn_bwd": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
                      _P, _P, _P, _P, _P], ctypes.c_int),
+    "niw_corr_fwd": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
+    "niw_corr_adj_f1": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
+    "niw_corr_adj_f2": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
 }
 
 

@@ -27,6 +27,9 @@ from neural_invertible_warp_tpu_torch.utils import ckpt, weights
 
 from test_torch_train_step import H, W, N_IMG, _arrays, _draws, _leaves
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 OVERRIDES = [
     "--model=barf", "--yaml=barf_llff", "--barf_c2f=[0.1,0.5]",
     "--data.image_size=[16,16]", "--arch.layers_feat=[null,32,32,32,32]",

@@ -22,6 +22,9 @@ from neural_invertible_warp_tpu.ops import ssim as jssim
 from neural_invertible_warp_tpu_torch.ops import align, lpips, metrics, render, ssim
 from neural_invertible_warp_tpu_torch.ops import pose as pose_ops
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 ATOL_LPIPS = 1e-4
 # torchvision AlexNet feature convolutions [out, in, kh, kw]

@@ -32,6 +32,9 @@ from neural_invertible_warp_tpu_torch.utils import weights
 
 from test_torch_fused_pe import ARCH, C2F, PROGRESS, _rel_l2, setup, small_blocks  # noqa: F401
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 K = 16
 NOISE_REG = 0.7
 # (name, images, c2f, density activation, noise)

@@ -26,6 +26,9 @@ from neural_invertible_warp_tpu_torch.ops import sampling
 from neural_invertible_warp_tpu_torch.ops.nerf_mlp import NerfMLP, apply_nerf_samples
 from neural_invertible_warp_tpu_torch.utils import weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 
 def _composite_like_pdf(rng, shape):
     """Weights T * alpha of random densities: non-negative, sum <= 1."""

@@ -44,6 +44,9 @@ from neural_invertible_warp_tpu_torch.utils import weights
 
 from test_torch_train_step import H, W, N_IMG, OVERRIDES, _arrays, _draws, _leaves
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 D_FEAT = 16
 TOL_GRAD_REL_L2 = 5e-4
 CASES = {"3x40": (slice(0, 3), slice(0, 40)), "ragged 1x7": (slice(0, 1), slice(0, 7))}

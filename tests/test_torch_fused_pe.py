@@ -31,6 +31,9 @@ from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
 from neural_invertible_warp_tpu_torch.ops.nerf_mlp import NerfMLP
 from neural_invertible_warp_tpu_torch.utils import weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 ARCH = DotDict(dict(
     layers_feat=[None, 256, 256, 256, 256, 256, 256, 256, 256],
     layers_rgb=[None, 128, 3], skip=[4], posenc=dict(L_3D=10, L_view=4),

@@ -24,6 +24,9 @@ from neural_invertible_warp_tpu.ops import lie as jlie
 from neural_invertible_warp_tpu_torch.ops import align, inn
 from neural_invertible_warp_tpu_torch.utils import weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 D_FEAT, D_HIDDEN = 8, 16
 
 

@@ -51,6 +51,9 @@ from neural_invertible_warp_tpu_torch.utils import ckpt, weights
 from test_torch_inn_align import D_FEAT, D_HIDDEN, _perturbed_params, _point_pairs
 from test_torch_train_step import H, W, N_IMG, OVERRIDES, _arrays, _leaves
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 LLFF = OVERRIDES
 BLENDER = [
     "--model=barf_inn_blender", "--yaml=barf_blender_inn", "--data.image_size=[16,16]",

@@ -50,6 +50,9 @@ from neural_invertible_warp_tpu_torch.models.system import NerfSystem
 from neural_invertible_warp_tpu_torch.nerf_llff_repr import nerf_llff_repr_options
 from neural_invertible_warp_tpu_torch.utils import ckpt, weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 H = W = 8
 N_IMG, N_RAYS, K, K_FINE = 2, 4, 16, 16
 OVERRIDES = ["--model=nerf", "--yaml=nerf_llff_repr", "--data.image_size=[8,8]",

@@ -27,6 +27,9 @@ from neural_invertible_warp_tpu_torch.ops import lie, nerf_mlp, pose, posenc
 from neural_invertible_warp_tpu_torch.ops import rays, render, sampling
 from neural_invertible_warp_tpu_torch.utils import weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(0)
 
 

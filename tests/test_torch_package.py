@@ -6,11 +6,15 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from neural_invertible_warp_tpu import config
 from neural_invertible_warp_tpu import dotdict as jax_dotdict
 from neural_invertible_warp_tpu_torch.dotdict import DotDict
 from neural_invertible_warp_tpu_torch.flagship import flagship_options
+
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,6 +30,11 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_pe",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_field",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_inn",
+    "neural_invertible_warp_tpu_torch.ops.cuda.correlation",
+    "neural_invertible_warp_tpu_torch.ops.correlation",
+    "neural_invertible_warp_tpu_torch.ops.pdcnet.pdcnet",
+    "neural_invertible_warp_tpu_torch.ops.pdcnet.convert",
+    "neural_invertible_warp_tpu_torch.utils.matchers",
     "neural_invertible_warp_tpu_torch.utils.ckpt",
     "neural_invertible_warp_tpu_torch.train",
     "chip_smoke",
@@ -250,12 +259,34 @@ def _imported_roots(path):
     return roots
 
 
+def test_matchers_run_on_the_card_unless_the_cpu_is_asked_for():
+    """``PdcNetMatcher`` and ``ZnccMatcher`` take ``cuda:0`` by default and
+    raise without a card instead of running on the CPU."""
+    from neural_invertible_warp_tpu_torch.ops.pdcnet.pdcnet import PDCNet
+    from neural_invertible_warp_tpu_torch.utils import matchers
+    net = PDCNet(torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert matchers.PdcNetMatcher(net).device == torch.device("cuda", 0)
+        return
+    for make in (lambda: matchers.PdcNetMatcher(net), matchers.ZnccMatcher,
+                 lambda: matchers.PdcNetMatcher(net, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert matchers.PdcNetMatcher(net, device="cpu").device == torch.device("cpu")
+    assert next(net.parameters()).device == torch.device("cpu")
+
+
 def test_no_port_source_imports_jax_or_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
     the JAX package (the bare name, not the port's), anywhere in the file."""
     sources = _port_sources()
     assert len(sources) > 30
-    found = ["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
+    pkg = os.path.join(ROOT, "neural_invertible_warp_tpu_torch")
+    assert {os.path.join(pkg, *p.split("/")) for p in (
+        "ops/correlation.py", "ops/cuda/correlation.py", "ops/pdcnet/layers.py",
+        "ops/pdcnet/vgg.py", "ops/pdcnet/blocks.py", "ops/pdcnet/gocor.py",
+        "ops/pdcnet/pdcnet.py", "ops/pdcnet/convert.py", "utils/matchers.py")} <= set(sources)
+    found =["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
              for path in sources for root, line in _imported_roots(path)
              if root in BANNED_IMPORTS]
     assert not found, found
@@ -489,6 +520,7 @@ def test_train_and_evaluate_entry_points_on_cpu(tmp_path):
 
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"                  # as torch.set_num_threads(1) above
     run = subprocess.run(
         [sys.executable, "-m", "neural_invertible_warp_tpu_torch.evaluate"] + flags
         + ["--device=cpu"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
@@ -507,6 +539,28 @@ def test_train_and_evaluate_entry_points_on_cpu(tmp_path):
     assert sorted(views) == sorted("{}_{}.png".format(n, i) for n in ("rgb", "rgb_GT", "depth")
                                    for i in range(n_val))
     assert len(os.listdir(os.path.join(out_dir, "novel_view"))) == 60
+
+
+def test_chip_smoke_k7_references_on_cpu():
+    """chip_smoke.py's K7 yardsticks on the CPU: the unfold + einsum routes
+    compute K7 and its adjoint in f1 (to 1e-5, another summation order), and
+    ``plain_correlation`` routes the matcher's correlations to the plain
+    versions and back."""
+    import chip_smoke as cs
+    from neural_invertible_warp_tpu_torch.ops import correlation as plain
+    from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+    f1, f2, m = cs.k7_inputs(2, 20, 9, 33, seed=0, device="cpu")
+    torch.testing.assert_close(cs.k7_library(f1, f2), plain.local_correlation(f1, f2),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cs.k7_library_adjoint(m, f2),
+                               plain.local_correlation_transpose(m, f2), rtol=1e-5, atol=1e-5)
+    wrappers = k7.local_correlation, k7.local_correlation_transpose
+    with cs.plain_correlation():
+        assert k7.local_correlation is plain.local_correlation
+        assert k7.local_correlation_transpose is plain.local_correlation_transpose
+    assert (k7.local_correlation, k7.local_correlation_transpose) == wrappers
+    assert (cs.K7_FWD_PER_PAIR, cs.K7_ADJ_PER_PAIR) == (24, 9)
+    assert {"k7_fwd", "k7_adj", "k7_adj_f2"} <= set(cs.field_counts())
 
 
 def test_chip_smoke_k4_references_match_the_wrappers_on_cpu(monkeypatch):

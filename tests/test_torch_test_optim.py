@@ -36,6 +36,9 @@ from neural_invertible_warp_tpu_torch.utils import weights
 
 from test_torch_train_step import H, W, N_IMG, _arrays, _options
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 TEST_ITER = 5
 N_TEST = 2
 PROGRESS = 0.4

@@ -30,6 +30,9 @@ from neural_invertible_warp_tpu.utils import ckpt as jckpt
 from neural_invertible_warp_tpu_torch.models import get_system_class
 from neural_invertible_warp_tpu_torch.utils import ckpt, weights
 
+# the test workers share the cores: one intra-op thread each (ROADMAP, test time)
+torch.set_num_threads(1)
+
 H = W = 16
 N_IMG = 4
 OVERRIDES = [
