@@ -13,8 +13,11 @@ Phases, one or more lines each:
      flagship shapes, with all PE bands open, and at a ragged ray count with
      a background colour; values and every gradient within the tolerances
      below; the training loss and gradients through K3 + K4 against K2's;
-     kernel and plain timed with CUDA events (median of 20 runs after 3
-     warm-up runs), beside the least time the card could take;
+     K2's comparisons each beside the kernel's and the plain version's
+     distance from a float64 evaluation; two K2 launches on the same inputs
+     must give the same bits in every output; kernel and plain timed with
+     CUDA events (median of 20 runs after 3 warm-up runs), beside the least
+     time the card could take;
   4. slice: the flagship model (barf_inn_llff at full width) trains 100
      steps through the port's Trainer on an in-memory synthetic scene, then
      renders the validation view and writes a checkpoint. Checks that every
@@ -34,7 +37,8 @@ Phases, one or more lines each:
      autograd, against the plain chain at [1,1024] rays x 64 and x 192
      samples (softplus and relu density, with and without density noise, a
      ragged ray count); K1's dxp and dview directly; K2 with its noise
-     operand and its compositing-weights output at both sample counts;
+     operand and its compositing-weights output at both sample counts (and
+     two launches of each giving the same bits);
   7. fine slice: vanilla NeRF with fine sampling (nerf_llff_repr at full
      width: two 8x256 fields, 64 + 128 samples, 1024 rays, relu density,
      density noise) trains through the Trainer (two K2 calls per step),
@@ -132,9 +136,15 @@ K4_DEPTH_COEFF = 0.01
 # trunk (skip at 4, 257 outputs at 7) and the 284 -> 128 -> 3 head
 MACS_PER_SAMPLE = (63 * 256 + 3 * 256 * 256 + 319 * 256 + 2 * 256 * 256
                    + 256 * 257 + 284 * 128 + 128 * 3)
-# H100 SXM data sheet at 700 W: fp32 outside the tensor cores, device memory
+# H100 SXM data sheet at 700 W: fp32 outside the tensor cores, TF32 on the
+# tensor cores (dense), device memory
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# K2's backward layer products (input and weight gradients) run on the
+# tensor cores in split fp32: three TF32 products (lo*hi, hi*lo, hi*hi) for
+# each fp32 one (csrc/gemm_tc.cuh); its forward products stay fp32 FMAs
+K2_TF32_PASSES = 3
 # test-time refinement of training view 0 turned by this rotation (rad, about
 # an axis in the image plane): against the field's own render the rotation
 # error must fall below MAX_REFINED_ROTATION_SHARE of it, and against either
@@ -293,28 +303,48 @@ def graph_ms(fn):
     return ms
 
 
-def compare(name, got, ref, tol, failures):
+def compare(name, got, ref, tol, failures, f64=None):
     """Print max |got - ref| against tol * max |ref|; a miss is added to
-    ``failures`` (checked once the phase has printed all its lines)."""
+    ``failures`` (checked once the phase has printed all its lines). With
+    ``f64``, a float64 evaluation, also each one's max distance from it as a
+    share of its max."""
     got, ref = got.detach().float(), ref.detach().float()
     check(got.shape == ref.shape, "{}: shape {} != {}".format(name, got.shape, ref.shape))
     check(bool(torch.isfinite(got).all()), "{}: kernel output is not finite".format(name))
     err = float((got - ref).abs().max())
     scale = max(float(ref.abs().max()), 1e-30)
     ok = err <= tol * scale
-    print("  {:<14} max_abs_err {:.3e}  rel_to_max {:.3e}  tol {:.0e}  {}".format(
-        name, err, err / scale, tol, "ok" if ok else "FAIL"))
+    vs64 = ""
+    if f64 is not None:
+        f64 = f64.detach()
+        s64 = max(float(f64.abs().max()), 1e-300)
+        vs64 = "  f64: kernel {:.3e} plain {:.3e}".format(
+            float((got.double() - f64).abs().max()) / s64,
+            float((ref.double() - f64).abs().max()) / s64)
+    print("  {:<14} max_abs_err {:.3e}  rel_to_max {:.3e}  tol {:.0e}  {}{}".format(
+        name, err, err / scale, tol, "ok" if ok else "FAIL", vs64))
     if not ok:
         failures.append(name)
     return err
 
 
-def bound(flops, tensors_in, tensors_out):
+def bound(flops, tensors_in, tensors_out, peak=PEAK_FP32_FLOPS):
     """(bound_ms, bound_by): the least time the card could take for `flops`
-    fp32 operations and for reading each input and writing each output once."""
+    operations at `peak` (fp32 by default) and for reading each input and
+    writing each output once."""
     n_bytes = sum(t.numel() * t.element_size() for t in tensors_in + tensors_out)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k2_bound(n_samples, tensors_in, tensors_out):
+    """bound() of K2's route: the forward's products in fp32 on the CUDA
+    cores, then the backward's (twice as many) as three TF32 passes on the
+    tensor cores."""
+    flops = 2 * MACS_PER_SAMPLE * n_samples
+    ops_ms = (flops / PEAK_FP32_FLOPS + K2_TF32_PASSES * 2 * flops / PEAK_TF32_FLOPS) * 1e3
+    bytes_ms, _ = bound(0, tensors_in, tensors_out)
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def ray_batch(B, R, seed, device):
@@ -358,6 +388,71 @@ def k2_plain(mlp, center, ray, depth, target, kw, weight):
     grads = torch.autograd.grad(weight * sq / (B * R * 3),
                                 [c, r] + list(mlp.parameters()))
     return sq.detach(), split_plain(out8, B, R, bg), grads
+
+
+def k2_f64(mlp, center, ray, depth, target, kw, weight):
+    """k2_plain's (sq_sum, render, gradients) with everything after the PE in
+    float64. The points, the unit rays and the PE's sin/cos are taken in
+    fp32, as the kernel and the plain version take them: at depths up to 1e6
+    the PE's arguments differ between fp32 and float64 by whole periods."""
+    from neural_invertible_warp_tpu_torch.ops import nerf_mlp, render
+    B, R = depth.shape[:2]
+    mlp64 = copy.deepcopy(mlp).double()
+    pe32 = nerf_mlp.positional_encoding_c2f
+
+    def pe_fp32(x, *args):
+        return pe32(x.float(), *args).double()
+    c = center.clone().requires_grad_(True)
+    r = ray.clone().requires_grad_(True)
+    points = c[..., None, :] + r[..., None, :] * depth
+    ray_unit = r / torch.clamp(torch.linalg.norm(r, dim=-1, keepdim=True), min=1e-12)
+    nerf_mlp.positional_encoding_c2f = pe_fp32
+    try:
+        rgb_s, dens = mlp64(points.double(), ray_unit[..., None, :].expand(points.shape).double(),
+                            progress=kw["progress"], barf_c2f=kw["barf_c2f"])
+    finally:
+        nerf_mlp.positional_encoding_c2f = pe32
+    rgb, d, op, _ = render.composite(r.double(), rgb_s, dens, depth.double())
+    if kw["setbg_opaque"]:
+        rgb = rgb + kw["bgcolor"] * (1 - op)
+    sq = torch.sum((rgb - target.double()) ** 2)
+    grads = torch.autograd.grad(weight * sq / (B * R * 3),
+                                [c, r] + list(mlp64.parameters()))
+    return sq.detach(), dict(rgb=rgb, depth=d, opacity=op), grads
+
+
+def k2_same_bits(mlp, center, ray, depth, target, kw, density_activ="softplus",
+                 noise=None):
+    """Two K2 launches on the same inputs (not counted as launches of a
+    path): the names of the outputs whose bits differ."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    B, R, K_ = depth.shape[:3]
+    w3, wv = fp.band_weights(kw.get("progress"), kw.get("barf_c2f"), center.device)
+    t = target.reshape(B * R, 3)
+    target8 = torch.cat([t, torch.ones_like(t[:, :1]), torch.zeros_like(t[:, :1]).expand(
+        B * R, 4)], dim=1).contiguous()
+    args = (mlp, center.reshape(B * R, 3).contiguous(), ray.reshape(B * R, 3).contiguous(),
+            depth.reshape(B * R, K_).contiguous(), target8, w3, wv,
+            float(kw["bgcolor"]) if kw.get("setbg_opaque") else None, density_activ,
+            None if noise is None else noise.reshape(B * R, K_).contiguous(), True)
+    runs = []
+    for _ in range(2):
+        out, dcenter, dray, grads, prob = fp.launch_rm_train(*args)
+        runs.append([out, dcenter, dray, prob] + list(grads))
+    names = ["out", "dcenter", "dray", "prob"] + [
+        "d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    return [n for n, a, b in zip(names, *runs) if not torch.equal(a, b)]
+
+
+def fresh_k2_weights(fn):
+    """fn with K2's packed weights dropped before each call, as an optimizer
+    step drops them: the time of one training step's K2, packing included."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+
+    def call():
+        fp._K2_WEIGHTS.clear()
+        return fn()
+    return call
 
 
 def split_plain(out8, B, R, bg):
@@ -496,22 +591,39 @@ def phase_kernels(mlp, device):
               "progress {}, setbg_opaque {}".format(case, B, R, K, C2F, progress, bg))
         sq, out, grads = k2_wrapper(mlp, *inputs, kw, weight)
         sq_ref, out_ref, grads_ref = k2_plain(mlp, *inputs, kw, weight)
+        sq64, out64, grads64 = k2_f64(mlp, *inputs, kw, weight)
         for key in ("rgb", "depth", "opacity"):
-            err = compare(key, out[key], out_ref[key], TOL["value"], failures)
+            err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key])
             if key == "rgb":
                 records["k2"]["max_abs_err"] = max(records["k2"]["max_abs_err"], err)
-        compare("sq_sum", sq, sq_ref, TOL["value"], failures)
-        for name, gk, gr in zip(["dcenter", "dray"] + names, grads, grads_ref):
+        compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+        for name, gk, gr, g64 in zip(["dcenter", "dray"] + names, grads, grads_ref, grads64):
             compare(name, gk, gr, tol_in if name in ("dcenter", "dray") else TOL["grad"],
-                    failures)
+                    failures, g64)
+        differ = k2_same_bits(mlp, *inputs, kw)
+        print("  two launches on the same inputs: {}".format(
+            "the same bits in every output" if not differ else "bits differ in " + str(differ)))
+        if differ:
+            failures.append("K2 determinism")
         if i == 0:
-            records["k2"]["ms"] = time_ms(lambda: k2_wrapper(mlp, *inputs, kw, weight))
+            same = torch.equal(fp.k2_planes(mlp), fp.k2_planes_plain(mlp))
+            print("  weight planes of the pack kernel against its plain version: {}".format(
+                "the same bits" if same else "bits differ"))
+            if not same:
+                failures.append("K2 weight planes")
+
+            def wrapper():
+                return k2_wrapper(mlp, *inputs, kw, weight)
+            records["k2"]["ms"] = time_ms(fresh_k2_weights(wrapper))
+            records["k2"]["ms_weights_packed"] = time_ms(wrapper)
             records["k2"]["plain_ms"] = time_ms(
                 lambda: k2_plain(mlp, *inputs, kw, weight))
-            # forward, input-gradient and weight-gradient products
-            records["k2"]["bound_ms"], records["k2"]["bound_by"] = bound(
-                3 * 2 * MACS_PER_SAMPLE * B * R * K, inputs + weights,
-                [out["rgb"], out["depth"], out["opacity"]] + list(grads))
+            # forward, input-gradient and weight-gradient products: K2's
+            # route (k2_bound), and all of them in fp32 on the CUDA cores
+            io = (inputs + weights, [out["rgb"], out["depth"], out["opacity"]] + list(grads))
+            records["k2"]["bound_ms"], records["k2"]["bound_by"] = k2_bound(B * R * K, *io)
+            records["k2"]["bound_ms_fp32_cuda_cores"], _ = bound(
+                3 * 2 * MACS_PER_SAMPLE * B * R * K, *io)
             # the same loss through K3 + K4 (the tpu.fused_train: false route)
             print("kernels: K3 + K4 route against K2 at [{},{}] rays x {} samples".format(
                 B, R, K))
@@ -607,10 +719,13 @@ def phase_kernels(mlp, device):
     k2, k3, k4 = records["k2"], records["k3"], records["k4"]
     for rec in records.values():
         rec["library_ms"] = None    # no single PyTorch call computes these chains
-    print("kernels: K2 {:.3f} ms (plain {:.3f}, bound {:.3f}) forward+backward at "
-          "[18,113]x{}; K3 {:.3f} ms (plain {:.3f}, bound {:.3f}) at [1,2048]x{}; "
-          "card: {}".format(k2["ms"], k2["plain_ms"], k2["bound_ms"], K, k3["ms"],
-                            k3["plain_ms"], k3["bound_ms"], K, card_line()))
+    print("kernels: K2 {:.3f} ms with its weights packed in the call ({:.3f} packed before; "
+          "plain {:.3f}; bound {:.3f} with the backward's products in split fp32 on the tensor "
+          "cores, {:.3f} all fp32 on the CUDA cores) forward+backward at [18,113]x{}; K3 "
+          "{:.3f} ms (plain {:.3f}, bound {:.3f}) at [1,2048]x{}; card: {}".format(
+              k2["ms"], k2["ms_weights_packed"], k2["plain_ms"], k2["bound_ms"],
+              k2["bound_ms_fp32_cuda_cores"], K, k3["ms"], k3["plain_ms"], k3["bound_ms"], K,
+              card_line()))
     print("kernels: K4 at [1,2048]x{}, backward alone: weights frozen {:.3f} ms (plain "
           "{:.3f}, bound {:.3f}), with weight gradients {:.3f} ms (plain {:.3f}, bound "
           "{:.3f}); K3 + K4 forward+backward: frozen {:.3f} ms (plain {:.3f}), with "
@@ -737,6 +852,11 @@ def phase_slice(device):
     check(all(v.is_cuda for v in system.aux.values()), "aux state is not on the card")
     n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
     check(launches["k2"] == N_STEPS, launches)
+    # K2's split weights are made once per optimizer step: every Adam step
+    # advances the parameters' version counters
+    check(fp.fused_render_rays_pe_train.packs == N_STEPS,
+          "K2 packed its weights {} times in {} steps".format(
+              fp.fused_render_rays_pe_train.packs, N_STEPS))
     check(launches["k3"] == n_chunks * N_VAL, launches)
     losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in trainer.history])
     check(bool(torch.isfinite(losses).all()), "non-finite loss")
@@ -1098,6 +1218,11 @@ def phase_kernels_field(mlp, device):
         rel_l2 = activ == "relu"
         compare_leaves("gradients", names, grads_k, grads_p,
                        TOL_RELU_REL_L2 if rel_l2 else TOL["grad"], rel_l2, failures)
+        differ = k2_same_bits(mlp, center, ray, depth, target, {}, activ, noise)
+        print("  two launches on the same inputs: {}".format(
+            "the same bits in every output" if not differ else "bits differ in " + str(differ)))
+        if differ:
+            failures.append("K2 determinism, " + case)
         if activ == "relu":   # the fine slice's two K2 calls
             def k2():
                 c = center.clone().requires_grad_(True)
@@ -1105,11 +1230,12 @@ def phase_kernels_field(mlp, device):
                     mlp, c, ray, depth, target, density_activ=activ, noise=noise,
                     want_prob=True)
                 torch.autograd.grad(sq, [c] + list(mlp.parameters()))
-            k2_extra["ms_k{}".format(n_samples)] = time_ms(k2)
+            k2_extra["ms_k{}".format(n_samples)] = time_ms(fresh_k2_weights(k2))
+            k2_extra["bound_ms_k{}".format(n_samples)] = k2_bound(R * n_samples, [], [])[0]
     print("kernels: K2 with noise and prob, relu, forward+backward: {:.3f} ms at "
-          "[1,{}]x{}, {:.3f} ms at [1,{}]x{}; card: {}".format(
-              k2_extra["ms_k64"], FINE_RAYS, 64, k2_extra["ms_k192"], FINE_RAYS, 192,
-              card_line()))
+          "[1,{}]x{} (bound {:.3f}), {:.3f} ms at [1,{}]x{} (bound {:.3f}); card: {}".format(
+              k2_extra["ms_k64"], FINE_RAYS, 64, k2_extra["bound_ms_k64"], k2_extra["ms_k192"],
+              FINE_RAYS, 192, k2_extra["bound_ms_k192"], card_line()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
     return records, k2_extra
 
@@ -1145,6 +1271,7 @@ def reset_counts():
     fi.fused_deform_forward.launches = 0
     fi.fused_deform_forward.backward_launches = 0
     fp.fused_render_rays_pe_train.launches = 0
+    fp.fused_render_rays_pe_train.packs = 0
     fp.fused_render_rays_pe.launches = 0
     fp.fused_render_rays_pe.backward_launches = 0
     fp.fused_apply_nerf_samples_pe.launches = 0

@@ -42,7 +42,7 @@ extern "C" int niw_field_fwd(const float* xp, const float* view, const float* no
   const long long n_in = (long long)N * ((LD_C4 - COL_XP) + (LD_V - COL_VIEW));
   NIW_LAUNCH(copy_in_kernel<<<(unsigned)((n_in + 255) / 256), 256, 0, s>>>(
       xp, view, N, c.C4, c.V));
-  int err = mlp_forward(W, c, N, s);
+  int err = mlp_forward(SimtGemm(), W, c, N, s);
   if (err) return err;
   NIW_LAUNCH(head_forward_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       c.R0, c.V, W[WR1], W[BR1], noise, N, activ, out));
@@ -61,7 +61,7 @@ extern "C" int niw_field_bwd(const float* g, int N, const float* const* W, int a
   const GradBufs gb = grads_at(ws, N);
   NIW_LAUNCH(head_backward_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       c.R0, c.V, W[WR1], W[BR1], g, N, activ, gb.GR0, gb.GRP, gb.GDENS));
-  int err = mlp_backward(W, c, gb, N, want_dw, dW, s);
+  int err = mlp_backward(SimtGemm(), W, c, gb, N, want_dw, dW, s);
   if (err) return err;
   const long long n_out = (long long)N * (D_X + D_V);
   NIW_LAUNCH(copy_out_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(

@@ -43,7 +43,7 @@ extern "C" int niw_field_pe_fwd(const float* center, const float* ray, const flo
   const Cache c = keep ? cache_at(ws, N) : scratch_at(ws, N);
   NIW_LAUNCH(encode_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       center, ray, depth, R, K, w3, wv, c.C4, c.V));
-  int err = mlp_forward(W, c, (int)N, s);
+  int err = mlp_forward(SimtGemm(), W, c, (int)N, s);
   if (err) return err;
   NIW_LAUNCH(head_forward_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       c.R0, c.V, W[WR1], W[BR1], noise, N, activ, out));
@@ -65,7 +65,7 @@ extern "C" int niw_field_pe_bwd(const float* center, const float* ray, const flo
   const GradBufs gb = grads_at(ws, N);
   NIW_LAUNCH(head_backward_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       c.R0, c.V, W[WR1], W[BR1], g, N, activ, gb.GR0, gb.GRP, gb.GDENS));
-  int err = mlp_backward(W, c, gb, (int)N, want_dw, dW, s);
+  int err = mlp_backward(SimtGemm(), W, c, gb, (int)N, want_dw, dW, s);
   if (err) return err;
   return launch_input_backward(center, ray, depth, R, K, w3, wv, gb, false, dcenter,
                                dray, s);

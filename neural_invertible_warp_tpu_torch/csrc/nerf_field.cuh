@@ -17,8 +17,9 @@
 // are rows of dense [N, C] fp32 buffers in a workspace the wrapper allocates;
 // each MLP layer is one register-blocked SGEMM (128x128 tile, 8x8 outputs per
 // thread, k-tiles of 16 double-buffered in shared memory, fp32 FMA, no
-// tensor cores) with a fused bias/ReLU/ReLU'-mask
-// epilogue. The activation cache that the TPU kept in VMEM lives in the
+// tensor cores) with a fused bias/ReLU/ReLU'-mask epilogue; K2 runs the
+// same launch sequences on its own GEMM routes (gemm_tc.cuh; SimtGemm
+// below). The activation cache that the TPU kept in VMEM lives in the
 // workspace (~9 KB per sample forward, ~14 KB with the backward buffers).
 // Per-ray work (PE, compositing with a sequential exclusive scan, the MSE
 // cotangent, the PE/view/quadrature backward) runs one CTA per ray.
@@ -221,6 +222,24 @@ static int launch_gemm(const GemmArgs& p, int splits, cudaStream_t s) {
   return 0;
 }
 
+// The GEMM route of a launch sequence, a template parameter of mlp_forward
+// and mlp_backward: this CUDA-core SGEMM (K1, K3, K4, K5) or K2's routes in
+// gemm_tc.cuh. launch<TA, TB, B_WEIGHT>: B_WEIGHT says that B is a layer
+// weight (the forward and input-gradient products), which a route may read
+// in its own packing; ld(natural) is a weight's leading dimension in that
+// packing. A route with COL_SUMS also writes, in split mode, each split's
+// column sums of op(B) to col_sums[z * N + n] (the bias gradient of a
+// weight-gradient product), in place of colsum_partial_kernel's pass.
+struct SimtGemm {
+  static constexpr bool COL_SUMS = false;
+  static int ld(int natural) { return natural; }
+
+  template <bool TA, bool TB, bool B_WEIGHT>
+  int launch(const GemmArgs& p, int splits, cudaStream_t s, float* col_sums = nullptr) const {
+    return col_sums ? (int)cudaErrorInvalidValue : launch_gemm<TA, TB>(p, splits, s);
+  }
+};
+
 // out[i] = sum_z part[z * stride + i], in split order (deterministic).
 static __global__ void reduce_splits_kernel(const float* part, long long stride,
                                             int splits, int count, float* out) {
@@ -268,22 +287,28 @@ static Splits plan_splits(int M) {
 
 // dW[Kin, Nout] = A[M, Kin]^T @ G[M, Nout] and db[Nout] = colsum(G), with
 // deterministic two-pass split reductions through `part`.
-static int weight_grad(const float* A, int lda, int Kin, const float* G, int ldg,
-                       int Nout, int M, float* dW, float* db, float* part,
+template <class Gemm>
+static int weight_grad(const Gemm& gemm, const float* A, int lda, int Kin, const float* G,
+                       int ldg, int Nout, int M, float* dW, float* db, float* part,
                        cudaStream_t s) {
   const Splits sp = plan_splits(M);
   GemmArgs p = gemm_args(A, lda, G, ldg, part, Nout, Kin, Nout, M);
   p.k_split = sp.rows;
   p.c_split_stride = (long long)Kin * Nout;
-  int err = launch_gemm<true, false>(p, sp.n, s);
-  if (err) return err;
   const int cnt = Kin * Nout;
+  // the bias gradient's partials: after the product's (cnt + Nout <= PART_PER_SPLIT)
+  float* col_part = Gemm::COL_SUMS ? part + (long long)sp.n * cnt : part;
+  int err = gemm.template launch<true, false, false>(p, sp.n, s,
+                                                     Gemm::COL_SUMS ? col_part : nullptr);
+  if (err) return err;
   NIW_LAUNCH(reduce_splits_kernel<<<(cnt + 255) / 256, 256, 0, s>>>(
       part, (long long)cnt, sp.n, cnt, dW));
-  dim3 g2((Nout + 31) / 32, sp.n);
-  NIW_LAUNCH(colsum_partial_kernel<<<g2, dim3(32, 8), 0, s>>>(G, ldg, M, Nout, sp.rows, part));
+  if (!Gemm::COL_SUMS) {
+    dim3 g2((Nout + 31) / 32, sp.n);
+    NIW_LAUNCH(colsum_partial_kernel<<<g2, dim3(32, 8), 0, s>>>(G, ldg, M, Nout, sp.rows, part));
+  }
   NIW_LAUNCH(reduce_splits_kernel<<<(Nout + 255) / 256, 256, 0, s>>>(
-      part, (long long)Nout, sp.n, Nout, db));
+      col_part, (long long)Nout, sp.n, Nout, db));
   return 0;
 }
 
@@ -353,42 +378,45 @@ struct Cache {      // activation buffers of one call
   float *C4, *H0, *H1, *H2, *H4, *H5, *H6, *V, *R0;
 };
 
-// Trunk + first head layer for N samples; writes the caches.
-static int mlp_forward(const float* const* W, const Cache& c, int N, cudaStream_t s) {
+// Trunk + first head layer for N samples; writes the caches. W[W0..WR0] in
+// the route's packing (Gemm::ld).
+template <class Gemm>
+static int mlp_forward(const Gemm& gemm, const float* const* W, const Cache& c, int N,
+                       cudaStream_t s) {
   int err;
   GemmArgs p;
   // layer 0: xp [N,63] -> H0
-  p = gemm_args(c.C4 + COL_XP, LD_C4, W[W0], D_HID, c.H0, D_HID, N, D_HID, D_X);
+  p = gemm_args(c.C4 + COL_XP, LD_C4, W[W0], gemm.ld(D_HID), c.H0, D_HID, N, D_HID, D_X);
   p.bias = W[B0]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
-  p = gemm_args(c.H0, D_HID, W[W1], D_HID, c.H1, D_HID, N, D_HID, D_HID);
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
+  p = gemm_args(c.H0, D_HID, W[W1], gemm.ld(D_HID), c.H1, D_HID, N, D_HID, D_HID);
   p.bias = W[B1]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
-  p = gemm_args(c.H1, D_HID, W[W2], D_HID, c.H2, D_HID, N, D_HID, D_HID);
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
+  p = gemm_args(c.H1, D_HID, W[W2], gemm.ld(D_HID), c.H2, D_HID, N, D_HID, D_HID);
   p.bias = W[B2]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
   // layer 3 writes h3 into the skip buffer C4[:, :256]
-  p = gemm_args(c.H2, D_HID, W[W3], D_HID, c.C4, LD_C4, N, D_HID, D_HID);
+  p = gemm_args(c.H2, D_HID, W[W3], gemm.ld(D_HID), c.C4, LD_C4, N, D_HID, D_HID);
   p.bias = W[B3]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
   // layer 4 (skip): [h3, xp] [N,319] -> H4
-  p = gemm_args(c.C4, LD_C4, W[W4], D_HID, c.H4, D_HID, N, D_HID, D_HID + D_X);
+  p = gemm_args(c.C4, LD_C4, W[W4], gemm.ld(D_HID), c.H4, D_HID, N, D_HID, D_HID + D_X);
   p.bias = W[B4]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
-  p = gemm_args(c.H4, D_HID, W[W5], D_HID, c.H5, D_HID, N, D_HID, D_HID);
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
+  p = gemm_args(c.H4, D_HID, W[W5], gemm.ld(D_HID), c.H5, D_HID, N, D_HID, D_HID);
   p.bias = W[B5]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
-  p = gemm_args(c.H5, D_HID, W[W6], D_HID, c.H6, D_HID, N, D_HID, D_HID);
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
+  p = gemm_args(c.H5, D_HID, W[W6], gemm.ld(D_HID), c.H6, D_HID, N, D_HID, D_HID);
   p.bias = W[B6]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
   // layer 7: relu(features) into V[:, :256], raw density into V[:, 256]
-  p = gemm_args(c.H6, D_HID, W[W7], N_W7, c.V, LD_V, N, N_W7, D_HID);
+  p = gemm_args(c.H6, D_HID, W[W7], gemm.ld(N_W7), c.V, LD_V, N, N_W7, D_HID);
   p.bias = W[B7]; p.relu_cols = D_HID;
-  if ((err = launch_gemm<false, false>(p, 1, s))) return err;
+  if ((err = gemm.template launch<false, false, true>(p, 1, s))) return err;
   // head layer 0: [feature, density(zero row), view] [N,284] -> R0
-  p = gemm_args(c.V, LD_V, W[WR0], D_HEAD, c.R0, D_HEAD, N, D_HEAD, K_WR0);
+  p = gemm_args(c.V, LD_V, W[WR0], gemm.ld(D_HEAD), c.R0, D_HEAD, N, D_HEAD, K_WR0);
   p.bias = W[BR0]; p.relu_cols = D_HEAD;
-  return launch_gemm<false, false>(p, 1, s);
+  return gemm.template launch<false, false, true>(p, 1, s);
 }
 
 // ------------------------------------------------------- compositing
@@ -727,8 +755,10 @@ static __global__ void set_column_kernel(float* dst, int ld, int col, const floa
 static long long cache_floats(long long N) {
   return N * (LD_C4 + 6 * D_HID + LD_V + D_HEAD);
 }
+// GDENS takes N floats rounded up to a multiple of 4, so that every buffer
+// stays 16-byte aligned (the tensor-core route copies 16-byte chunks).
 static long long grad_floats(long long N) {
-  return N * (D_HEAD + 4 + 1 + LD_V + 2 * D_HID + LD_C4);
+  return N * (D_HEAD + 4 + LD_V + 2 * D_HID + LD_C4) + ((N + 3) & ~3LL);
 }
 static const long long PART_PER_SPLIT = 320 * 288;   // >= every Kin * Nout
 
@@ -772,7 +802,7 @@ static GradBufs grads_at(float* p, long long N) {
   GradBufs g;
   g.GR0 = p; p += N * D_HEAD;
   g.GRP = p; p += N * 4;
-  g.GDENS = p; p += N;
+  g.GDENS = p; p += (N + 3) & ~3LL;
   g.GV = p; p += N * LD_V;
   g.GA = p; p += N * D_HID;
   g.GB = p; p += N * D_HID;
@@ -785,12 +815,13 @@ static GradBufs grads_at(float* p, long long N) {
 // ---------------------------------------------------------- MLP backward
 // out (+)= G @ W^T for W [n_out, ldw] row-major, zeroed where mask <= 0 on
 // columns < mask_cols (the ReLU derivative of the layer's input).
-static int grad_in(const float* G, int ldg, const float* Wt, int ldw, float* out, int ldo,
-                   int N, int n_out, int k, const float* mask, int ldm, int mask_cols,
-                   int beta, cudaStream_t s) {
-  GemmArgs p = gemm_args(G, ldg, Wt, ldw, out, ldo, N, n_out, k);
+template <class Gemm>
+static int grad_in(const Gemm& gemm, const float* G, int ldg, const float* Wt, int ldw,
+                   float* out, int ldo, int N, int n_out, int k, const float* mask,
+                   int ldm, int mask_cols, int beta, cudaStream_t s) {
+  GemmArgs p = gemm_args(G, ldg, Wt, gemm.ld(ldw), out, ldo, N, n_out, k);
   p.mask = mask; p.ldm = ldm; p.mask_cols = mask_cols; p.beta = beta;
-  return launch_gemm<false, true>(p, 1, s);
+  return gemm.template launch<false, true, true>(p, 1, s);
 }
 
 // From the compositing backward's GR0, GRP and GDENS down to the input
@@ -798,41 +829,43 @@ static int grad_in(const float* G, int ldg, const float* Wt, int ldw, float* out
 // view PE). With want_dw, also the 20 weight gradients into dW (split-K
 // partial sums added in a fixed order); without, those ten GEMMs and bias
 // sums are skipped and dW is not touched.
-static int mlp_backward(const float* const* W, const Cache& c, const GradBufs& g, int n,
-                        int want_dw, float* const* dW, cudaStream_t s) {
+template <class Gemm>
+static int mlp_backward(const Gemm& gemm, const float* const* W, const Cache& c,
+                        const GradBufs& g, int n, int want_dw, float* const* dW,
+                        cudaStream_t s) {
   int err;
   const long long N = n;
   float *GR0 = g.GR0, *GRP = g.GRP, *GV = g.GV, *GA = g.GA, *GB = g.GB, *GC4 = g.GC4;
   float* part = g.part;
   // rgb head
   if (want_dw) {
-    if ((err = weight_grad(c.R0, D_HEAD, D_HEAD, GRP, 4, 3, n, dW[WR1], dW[BR1], part, s))) return err;
-    if ((err = weight_grad(c.V, LD_V, K_WR0, GR0, D_HEAD, D_HEAD, n, dW[WR0], dW[BR0], part, s))) return err;
+    if ((err = weight_grad(gemm, c.R0, D_HEAD, D_HEAD, GRP, 4, 3, n, dW[WR1], dW[BR1], part, s))) return err;
+    if ((err = weight_grad(gemm, c.V, LD_V, K_WR0, GR0, D_HEAD, D_HEAD, n, dW[WR0], dW[BR0], part, s))) return err;
   }
-  if ((err = grad_in(GR0, D_HEAD, W[WR0], D_HEAD, GV, LD_V, n, K_WR0, D_HEAD,
+  if ((err = grad_in(gemm, GR0, D_HEAD, W[WR0], D_HEAD, GV, LD_V, n, K_WR0, D_HEAD,
                      c.V, LD_V, D_HID, 0, s))) return err;
   NIW_LAUNCH(set_column_kernel<<<(unsigned)((N + 255) / 256), 256, 0, s>>>(
       GV, LD_V, COL_DENS, g.GDENS, N));
   // trunk, top down
-  if (want_dw && (err = weight_grad(c.H6, D_HID, D_HID, GV, LD_V, N_W7, n, dW[W7], dW[B7], part, s))) return err;
-  if ((err = grad_in(GV, LD_V, W[W7], N_W7, GA, D_HID, n, D_HID, N_W7, c.H6, D_HID, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.H5, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W6], dW[B6], part, s))) return err;
-  if ((err = grad_in(GA, D_HID, W[W6], D_HID, GB, D_HID, n, D_HID, D_HID, c.H5, D_HID, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.H4, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W5], dW[B5], part, s))) return err;
-  if ((err = grad_in(GB, D_HID, W[W5], D_HID, GA, D_HID, n, D_HID, D_HID, c.H4, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H6, D_HID, D_HID, GV, LD_V, N_W7, n, dW[W7], dW[B7], part, s))) return err;
+  if ((err = grad_in(gemm, GV, LD_V, W[W7], N_W7, GA, D_HID, n, D_HID, N_W7, c.H6, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H5, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W6], dW[B6], part, s))) return err;
+  if ((err = grad_in(gemm, GA, D_HID, W[W6], D_HID, GB, D_HID, n, D_HID, D_HID, c.H5, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H4, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W5], dW[B5], part, s))) return err;
+  if ((err = grad_in(gemm, GB, D_HID, W[W5], D_HID, GA, D_HID, n, D_HID, D_HID, c.H4, D_HID, D_HID, 0, s))) return err;
   // skip layer: [h3, xp]
-  if (want_dw && (err = weight_grad(c.C4, LD_C4, D_HID + D_X, GA, D_HID, D_HID, n, dW[W4], dW[B4], part, s))) return err;
-  if ((err = grad_in(GA, D_HID, W[W4], D_HID, GC4, LD_C4, n, D_HID + D_X, D_HID,
+  if (want_dw && (err = weight_grad(gemm, c.C4, LD_C4, D_HID + D_X, GA, D_HID, D_HID, n, dW[W4], dW[B4], part, s))) return err;
+  if ((err = grad_in(gemm, GA, D_HID, W[W4], D_HID, GC4, LD_C4, n, D_HID + D_X, D_HID,
                      c.C4, LD_C4, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.H2, D_HID, D_HID, GC4, LD_C4, D_HID, n, dW[W3], dW[B3], part, s))) return err;
-  if ((err = grad_in(GC4, LD_C4, W[W3], D_HID, GB, D_HID, n, D_HID, D_HID, c.H2, D_HID, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.H1, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W2], dW[B2], part, s))) return err;
-  if ((err = grad_in(GB, D_HID, W[W2], D_HID, GA, D_HID, n, D_HID, D_HID, c.H1, D_HID, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.H0, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W1], dW[B1], part, s))) return err;
-  if ((err = grad_in(GA, D_HID, W[W1], D_HID, GB, D_HID, n, D_HID, D_HID, c.H0, D_HID, D_HID, 0, s))) return err;
-  if (want_dw && (err = weight_grad(c.C4 + COL_XP, LD_C4, D_X, GB, D_HID, D_HID, n, dW[W0], dW[B0], part, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H2, D_HID, D_HID, GC4, LD_C4, D_HID, n, dW[W3], dW[B3], part, s))) return err;
+  if ((err = grad_in(gemm, GC4, LD_C4, W[W3], D_HID, GB, D_HID, n, D_HID, D_HID, c.H2, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H1, D_HID, D_HID, GB, D_HID, D_HID, n, dW[W2], dW[B2], part, s))) return err;
+  if ((err = grad_in(gemm, GB, D_HID, W[W2], D_HID, GA, D_HID, n, D_HID, D_HID, c.H1, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.H0, D_HID, D_HID, GA, D_HID, D_HID, n, dW[W1], dW[B1], part, s))) return err;
+  if ((err = grad_in(gemm, GA, D_HID, W[W1], D_HID, GB, D_HID, n, D_HID, D_HID, c.H0, D_HID, D_HID, 0, s))) return err;
+  if (want_dw && (err = weight_grad(gemm, c.C4 + COL_XP, LD_C4, D_X, GB, D_HID, D_HID, n, dW[W0], dW[B0], part, s))) return err;
   // dxp = skip-path part (already in GC4[:, 256:319]) + layer-0 part
-  return grad_in(GB, D_HID, W[W0], D_HID, GC4 + COL_XP, LD_C4, n, D_X, D_HID,
+  return grad_in(gemm, GB, D_HID, W[W0], D_HID, GC4 + COL_XP, LD_C4, n, D_X, D_HID,
                  nullptr, 0, 0, 1, s);
 }
 

@@ -49,6 +49,6 @@ extern "C" int niw_rm_bwd(const float* center, const float* ray, const float* de
   a.GR0 = g.GR0; a.GRP = g.GRP; a.GDENS = g.GDENS; a.dray_quad = g.DRQ;
   int err = launch_composite(a, s);
   if (err) return err;
-  if ((err = mlp_backward(W, c, g, (int)N, want_dw, dW, s))) return err;
+  if ((err = mlp_backward(SimtGemm(), W, c, g, (int)N, want_dw, dW, s))) return err;
   return launch_input_backward(center, ray, depth, R, K, w3, wv, g, true, dcenter, dray, s);
 }

@@ -30,7 +30,7 @@ extern "C" int niw_rm_fwd(const float* center, const float* ray, const float* de
   const Cache c = keep ? cache_at(ws, N) : scratch_at(ws, N);
   NIW_LAUNCH(encode_kernel<<<(unsigned)((N + 127) / 128), 128, 0, s>>>(
       center, ray, depth, R, K, w3, wv, c.C4, c.V));
-  int err = mlp_forward(W, c, (int)N, s);
+  int err = mlp_forward(SimtGemm(), W, c, (int)N, s);
   if (err) return err;
   CompositeArgs a = {};
   a.ray = ray; a.depth = depth; a.R0 = c.R0; a.V = c.V;

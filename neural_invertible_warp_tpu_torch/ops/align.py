@@ -1,8 +1,8 @@
 """Rigid/similarity alignment (port of neural_invertible_warp_tpu/ops/align.py).
 
-* ``rigid_points_registration``: differentiable batched Kabsch fit. The
-  rotation comes from the SVD-free Horn-quaternion solver (method "quat":
-  ``ProcrustesQuat``, a ``torch.autograd.Function`` carrying the JAX
+* ``rigid_points_registration``: differentiable batched (weighted) Kabsch
+  fit. The rotation comes from the SVD-free Horn-quaternion solver (method
+  "quat": ``ProcrustesQuat``, a ``torch.autograd.Function`` carrying the JAX
   package's implicit-differential VJP) or from the SVD with a determinant
   flip (method "svd": ``ProcrustesSVD``, carrying the JAX package's
   orthogonal-Procrustes differential, whose denominators are sums of
@@ -169,13 +169,21 @@ class ProcrustesSVD(torch.autograd.Function):
         return procrustes_rotation_svd_vjp(*ctx.saved_tensors, G)
 
 
-def rigid_points_registration(x, y, method="svd"):
-    """(R, t) with R @ x_i + t ~= y_i. x, y: [...,N,3]; method "svd" or
+def rigid_points_registration(x, y, weights=None, method="svd"):
+    """(R, t) with R @ x_i + t ~= y_i in the (weighted) least-squares sense.
+    x, y: [...,N,3]; weights: optional [...,N] nonnegative; method "svd" or
     "quat" (the same rotation). Differentiable."""
     rot_fn = {"svd": ProcrustesSVD, "quat": ProcrustesQuat}[method]
-    cx = torch.mean(x, dim=-2, keepdim=True)
-    cy = torch.mean(y, dim=-2, keepdim=True)
-    M = (y - cy).transpose(-1, -2) @ (x - cx)                      # [...,3,3]
+    if weights is not None:
+        w = weights[..., None]
+        wsum = torch.sum(w, dim=-2, keepdim=True)
+        cx = torch.sum(x * w, dim=-2, keepdim=True) / wsum
+        cy = torch.sum(y * w, dim=-2, keepdim=True) / wsum
+        M = ((y - cy) * w).transpose(-1, -2) @ (x - cx)            # [...,3,3]
+    else:
+        cx = torch.mean(x, dim=-2, keepdim=True)
+        cy = torch.mean(y, dim=-2, keepdim=True)
+        M = (y - cy).transpose(-1, -2) @ (x - cx)
     R = rot_fn.apply(M)
     t = cy[..., 0, :] - (R @ cx[..., 0, :, None])[..., 0]
     return R, t

@@ -20,14 +20,21 @@ weights).
 The wrappers take the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
 ``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/field_pe.cu``,
-``csrc/nerf_field.cuh``.
+``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, K2's layer products: its
+backward's on the tensor cores in split fp32, its forward's in fp32 on the
+CUDA cores. K2 reads its layer weights padded and as TF32 hi and lo planes
+(``split_tf32``), packed by one kernel launch once per optimizer step
+(``k2_weights``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import weakref
 
 import torch
+import torch.nn.functional as F
 
 from .. import posenc, render
 from ..nerf_mlp import apply_nerf_samples
@@ -92,6 +99,109 @@ def unpack_grads(dws):
     for w, b in zip(dW, db):
         out += [w.t(), b]
     return out
+
+
+# K2's layer weights W0..W7p and Wr0p, each [in, out rounded up to 4 with
+# zero columns] (csrc/gemm_tc.cuh, TcGemm::ld), go to its forward products
+# as they are and to its backward's tensor-core products (the input
+# gradients) as TF32 hi and lo planes. K2's planes buffer holds the three
+# rows of PLANE_FLOATS (weights, hi, lo), then Wr1 [128, 3] and b7p [257]
+# (csrc/rm_train.cu, pack_planes_kernel).
+N_SPLIT = 9
+PLANE_SHAPES = [(63, 256)] + [(256, 256)] * 3 + [(319, 256)] + [(256, 256)] * 2 + [
+    (256, 257), (284, 128)]
+PLANES_TAIL = 128 * 3 + 257
+
+
+def _plane_offsets():
+    offsets = [0]
+    for n_in, n_out in PLANE_SHAPES:
+        offsets.append(offsets[-1] + n_in * (-(-n_out // 4) * 4))
+    return offsets
+
+
+*PLANE_OFFSETS, PLANE_FLOATS = _plane_offsets()
+
+
+def split_tf32(w):
+    """(hi, lo) with w = hi + lo up to lo's rounding, both TF32 values in
+    fp32 (the low 13 mantissa bits zero): hi is w rounded to TF32, to
+    nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds, and lo
+    is w - hi rounded the same way. The plain version of the split that
+    K2's tensor-core GEMM applies to its operands."""
+    hi = _round_tf32(w)
+    return hi, _round_tf32(w - hi)
+
+
+def _round_tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def k2_planes_plain(mlp):
+    """K2's planes buffer through PyTorch operations: the plain version of
+    ``niw_rm_train_pack``."""
+    weights = pack_weights(mlp)
+    flat = torch.cat([F.pad(w, (0, -w.shape[1] % 4)).reshape(-1)
+                      for w in weights[:N_SPLIT]])
+    return torch.cat((flat,) + split_tf32(flat) + (weights[9].reshape(-1), weights[17]))
+
+
+def k2_planes(mlp):
+    """K2's planes buffer: one ``niw_rm_train_pack`` launch on CUDA, the
+    plain version on the CPU."""
+    params = [p.detach() for p in mlp.parameters()]
+    if not params[0].is_cuda:
+        return k2_planes_plain(mlp)
+    lib = build.load_library().lib
+    if lib.niw_rm_train_plane_offset(N_SPLIT) != PLANE_FLOATS:
+        raise RuntimeError("K2's plane layout differs between fused_pe.py and rm_train.cu")
+    planes = torch.empty(3 * PLANE_FLOATS + PLANES_TAIL, dtype=torch.float32,
+                         device=params[0].device)
+    build.check(lib.niw_rm_train_pack(_ptrs(params), planes.data_ptr(),
+                                      torch.cuda.current_stream(planes.device).cuda_stream),
+                "niw_rm_train_pack")
+    return planes
+
+
+class K2Weights:
+    """K2's weight operands: ``planes`` (k2_planes); ``ptrs``, the 20 weight
+    pointers K2 reads in the forward (W0..Wr0p into the weight row, Wr1 and
+    b7p into the tail, the other biases the module's own), and
+    ``split_ptrs``, the same with the hi row in the slots of W0..Wr0p;
+    ``lo``, the lo row's offset from the hi row in floats; ``grad_shapes``,
+    the shapes of the 20 gradients K2 writes (unpack_grads' layout)."""
+
+    def __init__(self, mlp, planes):
+        params = [p.detach() for p in mlp.parameters()]
+        self.planes = planes
+        self.lo = PLANE_FLOATS
+        base = planes.data_ptr()
+        tail = base + 4 * 3 * PLANE_FLOATS
+        biases = [params[2 * i + 1].data_ptr() for i in range(7)] + [
+            tail + 4 * 128 * 3, params[17].data_ptr(), params[19].data_ptr()]
+        self.ptrs = (ctypes.c_void_p * 20)(
+            *[base + 4 * off for off in PLANE_OFFSETS], tail, *biases)
+        self.split_ptrs = (ctypes.c_void_p * 20)(
+            *[base + 4 * (PLANE_FLOATS + off) for off in PLANE_OFFSETS], tail, *biases)
+        self.grad_shapes = PLANE_SHAPES + [(128, 3)] + [(256,)] * 7 + [(257,), (128,), (3,)]
+
+
+_K2_WEIGHTS = weakref.WeakKeyDictionary()   # mlp -> (parameter versions, K2Weights)
+
+
+def k2_weights(mlp):
+    """K2's packed and split weights, made anew only when a parameter of
+    ``mlp`` changed (its storage or its version counter, which an optimizer
+    step, an in-place update or ``load_state_dict`` advances): once per
+    optimizer step in training, not once per launch."""
+    key = tuple((p.data_ptr(), p._version) for p in mlp.parameters())
+    hit = _K2_WEIGHTS.get(mlp)
+    if hit is None or hit[0] != key:
+        hit = (key, K2Weights(mlp, k2_planes(mlp)))
+        _K2_WEIGHTS[mlp] = hit
+        fused_render_rays_pe_train.packs += 1
+    return hit[1]
 
 
 # ----------------------------------------------------------- plain versions
@@ -233,8 +343,11 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
     if noise is not None and noise.shape != (R, K):
         raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
     lib = build.load_library().lib
-    weights = pack_weights(mlp)
-    dws = [torch.empty_like(w) for w in weights]
+    packed = k2_weights(mlp)
+    sizes = [math.prod(shape) for shape in packed.grad_shapes]
+    dws = [t.view(shape) for t, shape in zip(
+        torch.empty(sum(sizes), dtype=torch.float32, device=depth.device).split(sizes),
+        packed.grad_shapes)]
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
     dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
@@ -246,7 +359,8 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
     err = lib.niw_rm_train(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
                            target8.data_ptr(),
                            None if noise is None else noise.data_ptr(), R, K,
-                           w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
+                           w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
+                           packed.lo,
                            _ACTIV[density_activ], int(bg is not None),
                            float(bg or 0.0), out.data_ptr(), dcenter.data_ptr(),
                            dray.data_ptr(), _ptrs(dws),
@@ -398,6 +512,7 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
 
 
 fused_render_rays_pe_train.launches = 0
+fused_render_rays_pe_train.packs = 0   # K2Weights made (once per optimizer step)
 
 
 # ------------------------------------------------ K5: the field per sample

@@ -149,6 +149,45 @@ def test_rigid_points_registration_grads():
     np.testing.assert_allclose(t_s.detach().numpy(), t_t.detach().numpy(), atol=1e-5)
 
 
+@pytest.mark.parametrize("method", ["svd", "quat"])
+def test_rigid_points_registration_weighted(method):
+    """The weighted fit on tests/test_align.py's case (the last 10 of 40
+    points corrupted and zero-weighted): the true (R, t), and the same
+    values and gradients in x and y as the JAX package."""
+    from scipy.spatial.transform import Rotation
+    rng = np.random.RandomState(6)
+    B, N = 2, 40
+    R = Rotation.random(B, random_state=rng).as_matrix().astype(np.float32)
+    t = rng.randn(B, 3).astype(np.float32)
+    x = rng.randn(B, N, 3).astype(np.float32)
+    y = (np.einsum("bij,bnj->bni", R, x) + t[:, None]).astype(np.float32)
+    y[:, -10:] += 100.0
+    w = np.ones((B, N), np.float32)
+    w[:, -10:] = 0.0
+    cot_R = rng.randn(B, 3, 3).astype(np.float32)
+    cot_t = rng.randn(B, 3).astype(np.float32)
+
+    def jf(x, y):
+        R_, t_ = jalign.rigid_points_registration(x, y, jnp.asarray(w), method=method)
+        return jnp.sum(R_ * cot_R) + jnp.sum(t_ * cot_t), (R_, t_)
+    (_, (R_j, t_j)), g_j = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(y))
+    xt = torch.tensor(x, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=True)
+    R_t, t_t = align.rigid_points_registration(xt, yt, torch.tensor(w), method=method)
+    (torch.sum(R_t * torch.tensor(cot_R)) + torch.sum(t_t * torch.tensor(cot_t))).backward()
+    np.testing.assert_allclose(R_t.detach().numpy(), R, atol=1e-4)
+    np.testing.assert_allclose(t_t.detach().numpy(), t, atol=1e-4)
+    np.testing.assert_allclose(R_t.detach().numpy(), np.asarray(R_j), atol=1e-5)
+    np.testing.assert_allclose(t_t.detach().numpy(), np.asarray(t_j), atol=1e-5)
+    for got, ref in ((xt.grad, g_j[0]), (yt.grad, g_j[1])):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ref).max())
+    # the zero-weighted points take no part in the fit
+    assert not np.any(xt.grad.numpy()[:, -10:]) and not np.any(yt.grad.numpy()[:, -10:])
+
+
 def test_sim3_alignment_matches_jax():
     rng = np.random.RandomState(5)
     X0 = rng.randn(6, 3).astype(np.float32)

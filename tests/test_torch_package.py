@@ -238,7 +238,8 @@ BANNED_IMPORTS = ("jax", "jaxlib", "neural_invertible_warp_tpu")
 
 def _port_sources():
     pkg = os.path.join(ROOT, "neural_invertible_warp_tpu_torch")
-    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_profile.py")]
+    paths = [os.path.join(ROOT, name)
+             for name in ("chip_smoke.py", "chip_profile.py", "chip_k2_gemm.py")]
     for base, _, files in os.walk(pkg):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(paths)
