@@ -11,23 +11,28 @@ Phases, one or more lines each:
      the forward render's autograd Function, with and without weight
      gradients), against its plain PyTorch version on the card at the
      flagship shapes, with all PE bands open, and at a ragged ray count with
-     a background colour; values and every gradient within the tolerances
-     below; the training loss and gradients through K3 + K4 against K2's;
-     K2's comparisons each beside the kernel's and the plain version's
-     distance from a float64 evaluation; two K2 launches on the same inputs
-     must give the same bits in every output; kernel and plain timed with
-     CUDA events (median of 20 runs after 3 warm-up runs), beside the least
-     time the card could take;
+     a background colour; K3 both as a render (its products split on the
+     tensor cores) and under autograd (kept for K4, products in fp32); values
+     and every gradient within the tolerances below; the training loss and
+     gradients through K3 + K4 against K2's; K2's comparisons each beside the
+     kernel's and the plain version's distance from a float64 evaluation;
+     two launches of K2, of K3 (both modes) and of K4 (frozen and with weight
+     gradients) on the same inputs must give the same bits in every output;
+     kernel and plain timed with CUDA events (median of 20 runs after 3
+     warm-up runs), beside the least time the card could take on the
+     kernel's route and all in fp32;
   4. slice: the flagship model (barf_inn_llff at full width) trains 100
      steps through the port's Trainer on an in-memory synthetic scene, then
      renders the validation view and writes a checkpoint. Checks that every
-     step went through the kernels, that the loss is finite and falls, that
-     the pose readout is a rotation, that the validation image equals the
-     plain render of the same chunks, and that a training view rendered at
-     its pose readout reaches a PSNR floor;
+     step went through the kernels, that the weights were packed once per
+     step and at most once more for the render, that the loss is finite and
+     falls, that the pose readout is a rotation, that the validation image
+     equals the plain render of the same chunks, and that a training view
+     rendered at its pose readout reaches a PSNR floor;
   5. evaluation: evaluate_full on the trained system, with test-time pose
      refinement (100 Adam steps through K3 and K4) and the full-image render
-     of the validation view, PSNR, SSIM (held against the CPU's), LPIPS
+     of the validation view, at most one weight pack for both (the weights
+     are frozen), PSNR, SSIM (held against the CPU's), LPIPS
      (unavailable without weights), quant.txt and quant_pose.txt; then a
      training view turned by a known rotation is refined back: its rotation
      error must fall and its PSNR rise;
@@ -141,10 +146,11 @@ MACS_PER_SAMPLE = (63 * 256 + 3 * 256 * 256 + 319 * 256 + 2 * 256 * 256
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# K2's backward layer products (input and weight gradients) run on the
-# tensor cores in split fp32: three TF32 products (lo*hi, hi*lo, hi*hi) for
-# each fp32 one (csrc/gemm_tc.cuh); its forward products stay fp32 FMAs
-K2_TF32_PASSES = 3
+# A layer product on the tensor cores in split fp32 is three TF32 products
+# (lo*hi, hi*lo, hi*hi) for each fp32 one (csrc/gemm_tc.cuh). K2's and K4's
+# backward products and K3's render forward take that route; K2's forward
+# and K3's forward under autograd stay fp32 FMAs on the CUDA cores
+TF32_PASSES = 3
 # test-time refinement of training view 0 turned by this rotation (rad, about
 # an axis in the image plane): against the field's own render the rotation
 # error must fall below MAX_REFINED_ROTATION_SHARE of it, and against either
@@ -337,12 +343,15 @@ def bound(flops, tensors_in, tensors_out, peak=PEAK_FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k2_bound(n_samples, tensors_in, tensors_out):
-    """bound() of K2's route: the forward's products in fp32 on the CUDA
-    cores, then the backward's (twice as many) as three TF32 passes on the
-    tensor cores."""
+def route_bound(n_samples, fp32_products, split_products, tensors_in, tensors_out):
+    """bound() of a composited kernel's route: ``fp32_products`` passes over
+    the field's layer products (forward, input gradients or weight
+    gradients, MACS_PER_SAMPLE multiply-adds per sample each) in fp32 on the
+    CUDA cores and ``split_products`` as three TF32 passes on the tensor
+    cores."""
     flops = 2 * MACS_PER_SAMPLE * n_samples
-    ops_ms = (flops / PEAK_FP32_FLOPS + K2_TF32_PASSES * 2 * flops / PEAK_TF32_FLOPS) * 1e3
+    ops_ms = (fp32_products * flops / PEAK_FP32_FLOPS
+              + split_products * TF32_PASSES * flops / PEAK_TF32_FLOPS) * 1e3
     bytes_ms, _ = bound(0, tensors_in, tensors_out)
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -570,6 +579,31 @@ def route_k3_k4(mlp, center, ray, depth, target, kw, weight):
     return loss.detach(), torch.autograd.grad(loss, [c, r] + list(mlp.parameters()))
 
 
+def k3_k4_same_bits(mlp, center, ray, depth, coeffs, kw):
+    """Two launches each of K3 (render, and kept for K4), K4 with the weights
+    frozen and K4 with weight gradients, on the same inputs, K4 at the
+    cotangent of K4's test loss (not counted as launches of a path): the
+    names of the outputs whose bits differ."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    B, R = depth.shape[:2]
+    w3, wv = fp.band_weights(kw["progress"], kw["barf_c2f"], center.device)
+    c, r = center.reshape(B * R, 3).contiguous(), ray.reshape(B * R, 3).contiguous()
+    d = depth.reshape(B * R, K).contiguous()
+    a, b, op = coeffs
+    g8 = torch.cat([a, b, op, torch.zeros_like(a)], dim=-1).reshape(B * R, 8).contiguous()
+    names = ["K3 render out", "K3 kept out", "K3 kept activations", "K4 frozen dcenter",
+             "K4 frozen dray", "K4 dcenter", "K4 dray"] + [
+        "K4 d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    runs = []
+    for _ in range(2):
+        out = fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
+        out_kept, cache, packed = fp._rm_fwd(mlp, c, r, d, w3, wv, "softplus", keep=True)
+        frozen = fp.launch_rm_bwd(mlp, c, r, d, g8, w3, wv, cache, packed, want_dw=False)
+        dcenter, dray, grads = fp.launch_rm_bwd(mlp, c, r, d, g8, w3, wv, cache, packed)
+        runs.append([out, out_kept, cache] + list(frozen[:2]) + [dcenter, dray] + grads)
+    return [n for n, x, y in zip(names, *runs) if not torch.equal(x, y)]
+
+
 def phase_kernels(mlp, device):
     """K2, K3 and K4, through the wrappers the slice calls, against their
     plain versions. Returns the JSON records."""
@@ -619,9 +653,10 @@ def phase_kernels(mlp, device):
             records["k2"]["plain_ms"] = time_ms(
                 lambda: k2_plain(mlp, *inputs, kw, weight))
             # forward, input-gradient and weight-gradient products: K2's
-            # route (k2_bound), and all of them in fp32 on the CUDA cores
+            # route (route_bound), and all of them in fp32 on the CUDA cores
             io = (inputs + weights, [out["rgb"], out["depth"], out["opacity"]] + list(grads))
-            records["k2"]["bound_ms"], records["k2"]["bound_by"] = k2_bound(B * R * K, *io)
+            records["k2"]["bound_ms"], records["k2"]["bound_by"] = route_bound(
+                B * R * K, 1, 2, *io)
             records["k2"]["bound_ms_fp32_cuda_cores"], _ = bound(
                 3 * 2 * MACS_PER_SAMPLE * B * R * K, *io)
             # the same loss through K3 + K4 (the tpu.fused_train: false route)
@@ -645,23 +680,39 @@ def phase_kernels(mlp, device):
         def k3():
             return fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
 
+        def k3_kept():
+            # under autograd: K3 keeps its activations, its products in fp32
+            c = center.clone().requires_grad_(True)
+            with torch.enable_grad():
+                return [t.detach() for t in fp.fused_render_rays_pe(mlp, c, ray, depth, **kw)]
+
         def k3_plain():
             out8 = fp.render_rays_plain(mlp, center.reshape(B * R, 3),
                                         ray.reshape(B * R, 3),
                                         depth.reshape(B * R, K), progress, C2F)
             return split_plain(out8, B, R, kw["bgcolor"])
         with torch.no_grad():
-            got, ref = k3(), k3_plain()
-            for key, g, r in zip(("rgb", "depth", "opacity"), got, ref.values()):
-                err = compare(key, g, r, TOL["value"], failures)
-                if key == "rgb":
-                    records["k3"]["max_abs_err"] = max(records["k3"]["max_abs_err"], err)
+            ref = k3_plain()
+            for mode, fn in (("render", k3), ("kept", k3_kept)):
+                print("  {} (products {}):".format(
+                    mode, "split fp32 on the tensor cores" if mode == "render"
+                    else "fp32 on the CUDA cores"))
+                got = fn()
+                for key, g, r in zip(("rgb", "depth", "opacity"), got, ref.values()):
+                    err = compare(key, g, r, TOL["value"], failures)
+                    if key == "rgb":
+                        records["k3"]["max_abs_err"] = max(records["k3"]["max_abs_err"], err)
             if i == 0:
-                records["k3"]["ms"] = time_ms(k3)
-                records["k3"]["plain_ms"] = time_ms(k3_plain)
-                records["k3"]["bound_ms"], records["k3"]["bound_by"] = bound(
-                    2 * MACS_PER_SAMPLE * B * R * K, [center, ray, depth] + weights,
-                    list(got))
+                rec = records["k3"]
+                rec["ms"] = time_ms(k3)
+                rec["ms_kept"] = time_ms(k3_kept)
+                rec["plain_ms"] = time_ms(k3_plain)
+                # the render's products split on the tensor cores (its
+                # route), the kept forward's in fp32, which is also the
+                # all-fp32 bound
+                io = ([center, ray, depth] + weights, list(got))
+                rec["bound_ms"], rec["bound_by"] = route_bound(B * R * K, 0, 1, *io)
+                rec["bound_ms_fp32"], _ = route_bound(B * R * K, 1, 0, *io)
     for i, (case, B, R, progress, bg, tol_in) in enumerate(K4_CASES):
         kw = dict(progress=progress, barf_c2f=C2F, setbg_opaque=bg,
                   bgcolor=1.0 if bg else None)
@@ -693,6 +744,13 @@ def phase_kernels(mlp, device):
         for name, gk, gr in zip(["dcenter", "dray"], grads_frozen, grads_ref):
             compare(name, gk, gr, tol_in, failures)
         if i == 0:
+            differ = k3_k4_same_bits(*args)
+            print("  two launches each of K3 (render, kept) and K4 (frozen, with weight "
+                  "gradients) on the same inputs: {}".format(
+                      "the same bits in every output" if not differ
+                      else "bits differ in " + str(differ)))
+            if differ:
+                failures.append("K3/K4 determinism")
             # K4 as test-time refinement launches it: weights frozen
             rec = records["k4"]
             rec["ms"] = k4_backward_ms(*args, frozen=True, plain=False)
@@ -710,31 +768,35 @@ def phase_kernels(mlp, device):
             cache = torch.empty(build.load_library().lib.niw_rm_fwd_workspace_floats(
                 n_samples, 1), device="meta")
             g8 = torch.empty(B * R, 8, device="meta")
-            rec["bound_ms"], rec["bound_by"] = bound(
-                2 * MACS_PER_SAMPLE * n_samples,
-                [center, ray, depth, g8, cache] + weights, list(grads[:2]))
-            rec["bound_ms_with_dw"], _ = bound(
-                2 * 2 * MACS_PER_SAMPLE * n_samples,
-                [center, ray, depth, g8, cache] + weights, list(grads))
+            # on its route (split fp32 on the tensor cores) and all in fp32
+            io_in = [center, ray, depth, g8, cache] + weights
+            rec["bound_ms"], rec["bound_by"] = route_bound(
+                n_samples, 0, 1, io_in, list(grads[:2]))
+            rec["bound_ms_with_dw"], _ = route_bound(n_samples, 0, 2, io_in, list(grads))
+            rec["bound_ms_fp32"], _ = route_bound(n_samples, 1, 0, io_in, list(grads[:2]))
+            rec["bound_ms_with_dw_fp32"], _ = route_bound(n_samples, 2, 0, io_in, list(grads))
     k2, k3, k4 = records["k2"], records["k3"], records["k4"]
     for rec in records.values():
         rec["library_ms"] = None    # no single PyTorch call computes these chains
     print("kernels: K2 {:.3f} ms with its weights packed in the call ({:.3f} packed before; "
           "plain {:.3f}; bound {:.3f} with the backward's products in split fp32 on the tensor "
-          "cores, {:.3f} all fp32 on the CUDA cores) forward+backward at [18,113]x{}; K3 "
-          "{:.3f} ms (plain {:.3f}, bound {:.3f}) at [1,2048]x{}; card: {}".format(
+          "cores, {:.3f} all fp32 on the CUDA cores) forward+backward at [18,113]x{}; K3 at "
+          "[1,2048]x{}: render {:.3f} ms (bound {:.3f} split on the tensor cores), kept "
+          "{:.3f} ms (bound {:.3f} fp32), plain {:.3f}; card: {}".format(
               k2["ms"], k2["ms_weights_packed"], k2["plain_ms"], k2["bound_ms"],
-              k2["bound_ms_fp32_cuda_cores"], K, k3["ms"], k3["plain_ms"], k3["bound_ms"], K,
-              card_line()))
+              k2["bound_ms_fp32_cuda_cores"], K, K, k3["ms"], k3["bound_ms"], k3["ms_kept"],
+              k3["bound_ms_fp32"], k3["plain_ms"], card_line()))
     print("kernels: K4 at [1,2048]x{}, backward alone: weights frozen {:.3f} ms (plain "
-          "{:.3f}, bound {:.3f}), with weight gradients {:.3f} ms (plain {:.3f}, bound "
-          "{:.3f}); K3 + K4 forward+backward: frozen {:.3f} ms (plain {:.3f}), with "
-          "weight gradients {:.3f} ms (plain {:.3f}); K3 + K4 training route at "
-          "[18,113]x{} {:.3f} ms (K2 {:.3f}); card: {}".format(
-              K, k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["ms_with_dw"],
-              k4["plain_ms_with_dw"], k4["bound_ms_with_dw"], k4["k3_k4_ms"],
-              k4["k3_k4_plain_ms"], k4["k3_k4_ms_with_dw"], k4["k3_k4_plain_ms_with_dw"],
-              K, k4["route_ms"], k2["ms"], card_line()))
+          "{:.3f}, bound {:.3f} split, {:.3f} all fp32), with weight gradients {:.3f} ms "
+          "(plain {:.3f}, bound {:.3f} split, {:.3f} all fp32); K3 + K4 "
+          "forward+backward: frozen {:.3f} ms (plain {:.3f}), with weight gradients {:.3f} "
+          "ms (plain {:.3f}); K3 + K4 training route at [18,113]x{} {:.3f} ms (K2 {:.3f}); "
+          "card: {}".format(
+              K, k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_ms_fp32"],
+              k4["ms_with_dw"], k4["plain_ms_with_dw"], k4["bound_ms_with_dw"],
+              k4["bound_ms_with_dw_fp32"], k4["k3_k4_ms"], k4["k3_k4_plain_ms"],
+              k4["k3_k4_ms_with_dw"], k4["k3_k4_plain_ms_with_dw"], K, k4["route_ms"],
+              k2["ms"], card_line()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
     return records
 
@@ -837,12 +899,21 @@ def phase_slice(device):
     system = trainer.system
     reset_counts()
     trainer.train()
+    # K2's split weights are made once per optimizer step: every Adam step
+    # advances the parameters' version counters
+    check(fp.fused_render_rays_pe_train.packs == N_STEPS,
+          "K2 packed its weights {} times in {} steps".format(
+              fp.fused_render_rays_pe_train.packs, N_STEPS))
     t0 = time.time()
     res = trainer.run_validation(system.step)
     torch.cuda.synchronize()
     val_seconds = time.time() - t0
     launches = {"k2": fp.fused_render_rays_pe_train.launches,
                 "k3": fp.fused_render_rays_pe.launches}
+    # K3 takes K2's weights: the render's chunks pack the last step's once
+    check(fp.fused_render_rays_pe_train.packs <= N_STEPS + 1,
+          "the validation render packed the weights {} times".format(
+              fp.fused_render_rays_pe_train.packs - N_STEPS))
     check(field_counts()["k6_fwd"] == 0, "the fused warp is off by default")
 
     for name, p in system.graph.named_parameters():
@@ -852,11 +923,6 @@ def phase_slice(device):
     check(all(v.is_cuda for v in system.aux.values()), "aux state is not on the card")
     n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
     check(launches["k2"] == N_STEPS, launches)
-    # K2's split weights are made once per optimizer step: every Adam step
-    # advances the parameters' version counters
-    check(fp.fused_render_rays_pe_train.packs == N_STEPS,
-          "K2 packed its weights {} times in {} steps".format(
-              fp.fused_render_rays_pe_train.packs, N_STEPS))
     check(launches["k3"] == n_chunks * N_VAL, launches)
     losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in trainer.history])
     check(bool(torch.isfinite(losses).all()), "non-finite loss")
@@ -916,12 +982,17 @@ def phase_eval(trainer, device):
     n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
     check(bool(opt.optim.test_photo), "the flagship evaluates with test-time refinement")
     fp.fused_render_rays_pe_train.launches = 0
+    fp.fused_render_rays_pe_train.packs = 0
     fp.fused_render_rays_pe.launches = 0
     fp.fused_render_rays_pe.backward_launches = 0
     t0 = time.time()
     results = system.evaluate_full(dump_images=False)
     torch.cuda.synchronize()
     eval_seconds = time.time() - t0
+    # the refinement and the render, weights frozen, take K2's cached
+    # weights: at most one pack (none when the validation render packed them)
+    packs = fp.fused_render_rays_pe_train.packs
+    check(packs <= 1, "evaluation packed the weights {} times".format(packs))
     launches = {"k2": fp.fused_render_rays_pe_train.launches,
                 "k3": fp.fused_render_rays_pe.launches,
                 "k4": fp.fused_render_rays_pe.backward_launches}
@@ -951,12 +1022,12 @@ def phase_eval(trainer, device):
     check(abs(ssim_card - ssim_cpu) <= 1e-5 and abs(ssim_card - results["SSIM"]) <= 1e-5,
           "SSIM: card {} cpu {} evaluate_full {}".format(ssim_card, ssim_cpu, results["SSIM"]))
     print("eval: {} view(s) in {:.2f} s: refinement {:.2f} s ({:.2f} ms per iteration, {} "
-          "iterations), render {:.2f} s; launches K3 {} K4 {}; refinement loss {:.5f} -> "
-          "{:.5f}; PSNR {:.2f} dB, SSIM {:.4f} (cpu {:.4f}), LPIPS unavailable, rot err "
-          "{:.3f} deg; card: {}".format(
+          "iterations), render {:.2f} s; launches K3 {} K4 {}, weights packed {} time(s); "
+          "refinement loss {:.5f} -> {:.5f}; PSNR {:.2f} dB, SSIM {:.4f} (cpu {:.4f}), "
+          "LPIPS unavailable, rot err {:.3f} deg; card: {}".format(
               N_VAL, eval_seconds, log["refine_seconds"],
               log["refine_seconds"] / n_iter * 1e3, n_iter, log["render_seconds"],
-              launches["k3"], launches["k4"], l_first, l_last, results["PSNR"],
+              launches["k3"], launches["k4"], packs, l_first, l_last, results["PSNR"],
               ssim_card, ssim_cpu, results["rot_error_deg"], card_line()))
 
     # The val view's sim(3) is fit to noise on this scene (its colours depend
@@ -993,6 +1064,8 @@ def phase_eval(trainer, device):
               "refinement against {} did not reduce the rotation error".format(label))
         check(psnr_after > psnr_before + min_gain,
               "refinement against {} did not raise the PSNR".format(label))
+    check(fp.fused_render_rays_pe_train.packs == packs,
+          "the refinements of a turned view packed the frozen weights again")
     return launches
 
 
@@ -1231,7 +1304,8 @@ def phase_kernels_field(mlp, device):
                     want_prob=True)
                 torch.autograd.grad(sq, [c] + list(mlp.parameters()))
             k2_extra["ms_k{}".format(n_samples)] = time_ms(fresh_k2_weights(k2))
-            k2_extra["bound_ms_k{}".format(n_samples)] = k2_bound(R * n_samples, [], [])[0]
+            k2_extra["bound_ms_k{}".format(n_samples)] = route_bound(
+                R * n_samples, 1, 2, [], [])[0]
     print("kernels: K2 with noise and prob, relu, forward+backward: {:.3f} ms at "
           "[1,{}]x{} (bound {:.3f}), {:.3f} ms at [1,{}]x{} (bound {:.3f}); card: {}".format(
               k2_extra["ms_k64"], FINE_RAYS, 64, k2_extra["bound_ms_k64"], k2_extra["ms_k192"],

@@ -1,27 +1,34 @@
-// The layer GEMMs of K2 (rm_train.cu), the two routes its launch sequence
-// runs (mlp_forward / mlp_backward of nerf_field.cuh): the backward's
-// input-gradient and weight-gradient products on the tensor cores in split
-// fp32 (TcGemm, gemm_tc_kernel), the forward's products in fp32 on the CUDA
-// cores in gemm_kernel's summation order (Fp32Gemm, gemm_fp32_kernel).
+// The layer GEMMs of the composited render kernels K2 (rm_train.cu), K3
+// (rm_fwd.cu) and K4 (rm_bwd.cu), the two routes their launch sequences run
+// (mlp_forward / mlp_backward of nerf_field.cuh): TcGemm (gemm_tc_kernel),
+// on the tensor cores in split fp32, and Fp32Gemm (gemm_fp32_kernel), fp32
+// on the CUDA cores in gemm_kernel's summation order. Which product takes
+// which route follows one rule: a forward whose ReLU decisions a backward
+// reads keeps gemm_kernel's order, because the plain version's decisions
+// follow that rounding and a moved decision changes a gradient by a finite
+// amount (rm_train.cu). So K2's forward and K3's forward under autograd
+// (`keep`) take Fp32Gemm; K2's and K4's backward products (input gradients,
+// weight gradients with the bias sums) and K3's render forward, which no
+// backward reads, take TcGemm.
 //
-// Replaces, for K2, the MLP dots of neural_invertible_warp_tpu/ops/pallas/
-// fused_pe.py::_rm_train_pe_kernel (fused_pe.py:886, call :1075). The TPU
-// kernel takes those dots at Precision.DEFAULT, bf16x3-class passes with f32
+// Replaces the MLP dots of neural_invertible_warp_tpu/ops/pallas/
+// fused_pe.py::_rm_train_pe_kernel (fused_pe.py:886, call :1075),
+// _rm_fwd_pe_kernel (:568) and _rm_bwd_pe_kernel (:597). The TPU kernels
+// take those dots at Precision.DEFAULT, bf16x3-class passes with f32
 // accumulation (fused_field.py:74-83); the split product is of that class:
 // each operand x is split into hi = tf32(x) and lo = tf32(x - hi) (to
 // nearest, ties away from zero, as cvt.rna rounds), and hi*hi + hi*lo +
 // lo*hi is summed in fp32, which keeps about 21 significand bits.
-// Single-pass TF32 (10 bits) is not used anywhere. The forward stays fp32 in
-// gemm_kernel's order because the plain version's ReLU decisions follow that
-// rounding (rm_train.cu).
+// Single-pass TF32 (10 bits) is not used anywhere.
 //
-// What bounds them on Hopper: K2's products are ~0.41 T multiply-adds per
-// flagship step (528,000 per sample forward, three times that with the
-// backward, 260,352 samples). All on the CUDA cores at 67 TFLOP/s: 12.3 ms.
-// On these routes: the forward's third in fp32 (4.1 ms), the backward's two
-// thirds as three TF32 passes at 495 TFLOP/s (3.3 ms): 7.4 ms. Every operand
-// tile is reused 128 times from shared memory, so device memory does not
-// bound them.
+// What bounds them on Hopper: 528,000 multiply-adds per sample for each of
+// the forward, the input gradients and the weight gradients. At K2's
+// flagship step (260,352 samples) that is ~0.41 T multiply-adds: 12.3 ms all
+// on the CUDA cores at 67 TFLOP/s; on these routes the forward's third in
+// fp32 (4.1 ms) and the backward's two thirds as three TF32 passes at 495
+// TFLOP/s (3.3 ms): 7.4 ms. At K3's and K4's render chunk (262,144 samples)
+// one third is 4.13 ms in fp32 and 1.68 ms split. Every operand tile is
+// reused 128 times from shared memory, so device memory does not bound them.
 //
 // Design of gemm_tc_kernel: one CTA computes a 128x128 output tile with 8
 // warps (64x32 each, 4x4 mma.sync.m16n8k8 tiles), k-tiles of 16 in a
@@ -31,8 +38,8 @@
 // (k-contiguous rows padded to 20 floats, read with ldmatrix, or 128-wide
 // rows padded to 136), so that every fragment read is free of bank
 // conflicts. A layer weight arrives already split: the pack kernel writes
-// hi and lo planes once per optimizer step (rm_train.cu, leading dimensions
-// rounded up to 4 floats) and the kernel reads both planes. An activation
+// hi and lo planes once per parameter version (rm_train.cu, leading
+// dimensions rounded up to 4 floats) and the kernel reads both planes. An activation
 // operand is split in registers as its fragment is read (two integer
 // operations each way, faster than the cvt). Each k-tile's products (two
 // k-steps of 8, three products each) chain from zero inside the tensor core
@@ -389,15 +396,15 @@ struct TcGemm {
   }
 };
 
-// --------------------------------------------------- K2's forward products
-// The forward's layer products stay fp32 FMAs on the CUDA cores, in
+// ------------------------------------------------ the fp32 forward route
+// K2's forward and K3's kept forward: fp32 FMAs on the CUDA cores, in
 // gemm_kernel's summation order: each output is fmaf over k = 0, 1, ... from
 // 0.f, then gemm_epilogue, the same thread mapping (8x8 outputs per thread
 // of a 128x128 tile), so its bits are gemm_kernel's (rm_train.cu says why
-// the forward needs them). What changes is the staging: the 4-stage cp.async
-// ring of the tensor-core route (the same tiles, with zero fill at the
-// edges) instead of gemm_kernel's loads through registers, and A read as it
-// lies in device memory, k-contiguous, as float4s of 4 k per row.
+// such a forward needs them). What changes is the staging: the 4-stage
+// cp.async ring of the tensor-core route (the same tiles, with zero fill at
+// the edges) instead of gemm_kernel's loads through registers, and A read as
+// it lies in device memory, k-contiguous, as float4s of 4 k per row.
 constexpr int FP_STAGES = 4;
 
 static __global__ void __launch_bounds__(256, 2) gemm_fp32_kernel(GemmArgs p) {
@@ -482,7 +489,7 @@ static __global__ void __launch_bounds__(256, 2) gemm_fp32_kernel(GemmArgs p) {
   }
 }
 
-// K2's forward route (mlp_forward): gemm_fp32_kernel on a layer weight
+// The fp32 forward route (mlp_forward): gemm_fp32_kernel on a layer weight
 // padded to a leading dimension of a multiple of 4 floats. It takes the
 // forward products only (A and B as they lie, no split mode).
 struct Fp32Gemm {

@@ -8,17 +8,18 @@
 // _bwd_kernel) with the MLP math they share (_forward_block, _mlp_backward).
 //
 // What bounds this on Hopper: the 8x256 trunk is ~1.06 MFLOP per sample
-// forward and ~2.1 MFLOP backward, all fp32 (the PE must stay true fp32, and
-// the MLP dots are fp32 until a quality A/B allows TF32). At the flagship
-// train shape (2034 rays x 128 samples) that is ~0.83 TFLOP per step, so the
-// CUDA-core fp32 FMA rate bounds it, not memory.
+// forward and ~2.1 MFLOP backward, fp32-class (the PE must stay true fp32;
+// the MLP dots are fp32 here, and split fp32 on the tensor cores on the
+// routes of gemm_tc.cuh; single-pass TF32 nowhere). At the flagship train
+// shape (2034 rays x 128 samples) that is ~0.83 TFLOP per step, so the
+// arithmetic rate bounds it, not memory.
 //
 // Design (first, simple and correct): one launch sequence per call. Samples
 // are rows of dense [N, C] fp32 buffers in a workspace the wrapper allocates;
 // each MLP layer is one register-blocked SGEMM (128x128 tile, 8x8 outputs per
 // thread, k-tiles of 16 double-buffered in shared memory, fp32 FMA, no
-// tensor cores) with a fused bias/ReLU/ReLU'-mask epilogue; K2 runs the
-// same launch sequences on its own GEMM routes (gemm_tc.cuh; SimtGemm
+// tensor cores) with a fused bias/ReLU/ReLU'-mask epilogue; K2, K3 and K4
+// run the same launch sequences on the GEMM routes of gemm_tc.cuh (SimtGemm
 // below). The activation cache that the TPU kept in VMEM lives in the
 // workspace (~9 KB per sample forward, ~14 KB with the backward buffers).
 // Per-ray work (PE, compositing with a sequential exclusive scan, the MSE
@@ -223,8 +224,8 @@ static int launch_gemm(const GemmArgs& p, int splits, cudaStream_t s) {
 }
 
 // The GEMM route of a launch sequence, a template parameter of mlp_forward
-// and mlp_backward: this CUDA-core SGEMM (K1, K3, K4, K5) or K2's routes in
-// gemm_tc.cuh. launch<TA, TB, B_WEIGHT>: B_WEIGHT says that B is a layer
+// and mlp_backward: this CUDA-core SGEMM (K1, K5) or the routes of
+// gemm_tc.cuh (K2, K3, K4). launch<TA, TB, B_WEIGHT>: B_WEIGHT says that B is a layer
 // weight (the forward and input-gradient products), which a route may read
 // in its own packing; ld(natural) is a weight's leading dimension in that
 // packing. A route with COL_SUMS also writes, in split mode, each split's

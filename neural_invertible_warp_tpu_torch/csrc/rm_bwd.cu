@@ -4,9 +4,9 @@
 // Replaces neural_invertible_warp_tpu/ops/pallas/fused_pe.py::
 // _rm_bwd_pe_kernel (the VJP of fused_mlp_pe_rm). Given g8 [R,8] =
 // d(loss)/d(rgb, depth, opacity) per ray, it returns d(loss)/d(center, ray)
-// [R,3] each and, on demand, the 20 packed weight gradients: the compositing
-// backward with its depth and opacity terms, the |ray| quadrature chain, the
-// MLP backward and the PE backward.
+// [R,3] each and, on demand, the 20 weight gradients in K2's packed layout:
+// the compositing backward with its depth and opacity terms, the |ray|
+// quadrature chain, the MLP backward and the PE backward.
 //
 // Keep, not recompute: the TPU kernel recomputes the forward per block
 // because its fast memory is small. Here K3, when called under autograd,
@@ -20,8 +20,20 @@
 // differentiates with respect to the pose only) the ten weight-gradient
 // GEMMs and bias sums are skipped, half of what is left. A background
 // colour is composited outside this kernel by the wrapper, so its term
-// arrives inside g_opacity. Bound and design of the parts: nerf_field.cuh.
-#include "nerf_field.cuh"
+// arrives inside g_opacity.
+//
+// Layer products: K2's backward route (gemm_tc.cuh), on the tensor cores in
+// split fp32 on K2's weight planes: the input-gradient products, and with
+// want_dw the split-K weight-gradient products with the bias sums inside and
+// the fixed-order reduce_splits_kernel (two launches give the same bits).
+// This kernel makes no ReLU decision: the masks it applies are those K3's
+// kept fp32 forward took. Bound on that route: 528,000 multiply-adds per
+// sample (twice that with want_dw) as three TF32 passes at 495 TFLOP/s,
+// 1.68 ms (3.36 ms) at 2048 rays x 128 samples; all fp32 at 67 TFLOP/s 4.13
+// ms (8.26 ms). The 16-byte copies of that route need 16-byte aligned
+// operands: every buffer of K3's cache (cache_at) and of this workspace
+// (grads_at) starts at a multiple of 4 floats.
+#include "gemm_tc.cuh"
 
 using namespace niw;
 
@@ -29,26 +41,27 @@ extern "C" long long niw_rm_bwd_workspace_floats(long long N, int R) {
   return grad_floats(N) + plan_splits((int)N).n * PART_PER_SPLIT + 3LL * R;
 }
 
-// center, ray [R,3]; depth [R,K]; g8 [R,8]; w3 [10], wv [4]; W: the 20
-// packed weights; cache: the workspace of niw_rm_fwd(..., keep = 1) on the
-// same inputs; dW: 20 gradient buffers (read only when want_dw);
-// ws: niw_rm_bwd_workspace_floats(R*K, R) floats.
+// center, ray [R,3]; depth [R,K]; g8 [R,8]; w3 [10], wv [4]; W_split, w_lo:
+// K2's split weight operands (niw_rm_train's); cache: the workspace of
+// niw_rm_fwd(..., keep = 1) on the same inputs; dW: the 20 gradients in the
+// packed layout (read only when want_dw); ws: niw_rm_bwd_workspace_floats(R*K,
+// R) floats.
 extern "C" int niw_rm_bwd(const float* center, const float* ray, const float* depth,
                           const float* g8, int R, int K, const float* w3,
-                          const float* wv, const float* const* W, int activ,
-                          float* cache, int want_dw, float* dcenter, float* dray,
-                          float* const* dW, float* ws, void* stream) {
+                          const float* wv, const float* const* W_split, long long w_lo,
+                          int activ, float* cache, int want_dw, float* dcenter,
+                          float* dray, float* const* dW, float* ws, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long N = (long long)R * K;
   const Cache c = cache_at(cache, N);
   const GradBufs g = grads_at(ws, N);
   CompositeArgs a = {};
   a.ray = ray; a.depth = depth; a.R0 = c.R0; a.V = c.V;
-  a.Wr1 = W[WR1]; a.br1 = W[BR1]; a.g8 = g8;
+  a.Wr1 = W_split[WR1]; a.br1 = W_split[BR1]; a.g8 = g8;
   a.R = R; a.K = K; a.activ = activ; a.train = COMPOSITE_COTANGENT;
   a.GR0 = g.GR0; a.GRP = g.GRP; a.GDENS = g.GDENS; a.dray_quad = g.DRQ;
   int err = launch_composite(a, s);
   if (err) return err;
-  if ((err = mlp_backward(SimtGemm(), W, c, g, (int)N, want_dw, dW, s))) return err;
+  if ((err = mlp_backward(TcGemm{w_lo}, W_split, c, g, (int)N, want_dw, dW, s))) return err;
   return launch_input_backward(center, ray, depth, R, K, w3, wv, g, true, dcenter, dray, s);
 }

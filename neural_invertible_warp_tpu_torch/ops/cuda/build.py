@@ -28,13 +28,14 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "niw_rm_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                     ctypes.c_longlong),
-    "niw_rm_fwd": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                    ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "niw_rm_fwd": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+                   ctypes.c_int),
     "niw_rm_bwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                     ctypes.c_longlong),
     "niw_rm_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                    ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _P, _P],
-                   ctypes.c_int),
+                    ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
+                    _P, _P], ctypes.c_int),
     "niw_rm_train_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                       ctypes.c_longlong),
     "niw_rm_train_plane_offset": ([ctypes.c_int], ctypes.c_longlong),

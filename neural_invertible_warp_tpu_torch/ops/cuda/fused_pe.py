@@ -20,11 +20,12 @@ weights).
 The wrappers take the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
 ``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/field_pe.cu``,
-``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, K2's layer products: its
-backward's on the tensor cores in split fp32, its forward's in fp32 on the
-CUDA cores. K2 reads its layer weights padded and as TF32 hi and lo planes
-(``split_tf32``), packed by one kernel launch once per optimizer step
-(``k2_weights``).
+``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, the layer products of
+K2-K4: on the tensor cores in split fp32 for every backward and for K3's
+render (a forward that no backward reads), in fp32 on the CUDA cores for
+K2's forward and K3's forward under autograd. K2-K4 read the layer weights
+padded and as TF32 hi and lo planes (``split_tf32``), packed by one kernel
+launch once per parameter version (``k2_weights``).
 """
 
 from __future__ import annotations
@@ -165,12 +166,13 @@ def k2_planes(mlp):
 
 
 class K2Weights:
-    """K2's weight operands: ``planes`` (k2_planes); ``ptrs``, the 20 weight
-    pointers K2 reads in the forward (W0..Wr0p into the weight row, Wr1 and
-    b7p into the tail, the other biases the module's own), and
-    ``split_ptrs``, the same with the hi row in the slots of W0..Wr0p;
+    """The weight operands of K2, K3 and K4: ``planes`` (k2_planes);
+    ``ptrs``, the 20 weight pointers of the fp32 products (W0..Wr0p into the
+    weight row, Wr1 and b7p into the tail, the other biases the module's
+    own), and ``split_ptrs``, the same with the hi row in the slots of
+    W0..Wr0p, for the split products;
     ``lo``, the lo row's offset from the hi row in floats; ``grad_shapes``,
-    the shapes of the 20 gradients K2 writes (unpack_grads' layout)."""
+    the shapes of the 20 gradients K2 and K4 write (unpack_grads' layout)."""
 
     def __init__(self, mlp, planes):
         params = [p.detach() for p in mlp.parameters()]
@@ -191,10 +193,11 @@ _K2_WEIGHTS = weakref.WeakKeyDictionary()   # mlp -> (parameter versions, K2Weig
 
 
 def k2_weights(mlp):
-    """K2's packed and split weights, made anew only when a parameter of
-    ``mlp`` changed (its storage or its version counter, which an optimizer
-    step, an in-place update or ``load_state_dict`` advances): once per
-    optimizer step in training, not once per launch."""
+    """The packed and split weights of K2, K3 and K4, made anew only when a
+    parameter of ``mlp`` changed (its storage or its version counter, which
+    an optimizer step, an in-place update or ``load_state_dict`` advances):
+    once per optimizer step in training, at most once per render or
+    refinement with frozen weights, not once per launch."""
     key = tuple((p.data_ptr(), p._version) for p in mlp.parameters())
     hit = _K2_WEIGHTS.get(mlp)
     if hit is None or hit[0] != key:
@@ -281,23 +284,32 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _grad_buffers(packed, device):
+    """The 20 weight gradients in K2's packed layout (``grad_shapes``), as
+    views of one allocation."""
+    sizes = [math.prod(shape) for shape in packed.grad_shapes]
+    return [t.view(shape) for t, shape in zip(
+        torch.empty(sum(sizes), dtype=torch.float32, device=device).split(sizes),
+        packed.grad_shapes)]
+
+
 def _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep):
-    """One K3 launch. Returns (out [R,8], workspace, packed weights); with
+    """One K3 launch. Returns (out [R,8], workspace, K2Weights); with
     ``keep`` the workspace holds every layer's activations, for K4."""
     R, K = depth.shape
     _check_inputs(mlp, [center, ray, depth, w3, wv], K)
     lib = build.load_library().lib
-    weights = pack_weights(mlp)
+    packed = k2_weights(mlp)
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     ws = torch.empty(lib.niw_rm_fwd_workspace_floats(R * K, int(keep)),
                      dtype=torch.float32, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(), R, K,
-                         w3.data_ptr(), wv.data_ptr(), _ptrs(weights),
-                         _ACTIV[density_activ], int(keep), out.data_ptr(),
+                         w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
+                         packed.lo, _ACTIV[density_activ], int(keep), out.data_ptr(),
                          ws.data_ptr(), stream)
     build.check(err, "niw_rm_fwd")
-    return out, ws, weights
+    return out, ws, packed
 
 
 def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus"):
@@ -305,19 +317,19 @@ def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus"):
     return _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep=False)[0]
 
 
-def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, weights,
+def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, packed,
                   want_dw=True, density_activ="softplus"):
     """K4 on CUDA tensors: the cotangent g8 [R,8] of K3's output, with the
-    activation ``cache`` and packed ``weights`` of the K3 launch that kept
-    them, -> (dcenter, dray [R,3], grads of ``mlp.parameters()`` or None
-    without ``want_dw``)."""
+    activation ``cache`` and the weights ``packed`` (K2Weights) of the K3
+    launch that kept them, -> (dcenter, dray [R,3], grads of
+    ``mlp.parameters()`` or None without ``want_dw``)."""
     R, K = depth.shape
-    _check_inputs(mlp, [center, ray, depth, g8, w3, wv, cache] + list(weights), K)
+    _check_inputs(mlp, [center, ray, depth, g8, w3, wv, cache, packed.planes], K)
     lib = build.load_library().lib
     if g8.shape != (R, 8) or cache.numel() != lib.niw_rm_fwd_workspace_floats(R * K, 1):
         raise ValueError("cotangent must be [R,8] and the cache that of a "
                          "kept K3 launch on the same rays")
-    dws = [torch.empty_like(w) for w in weights] if want_dw else []
+    dws = _grad_buffers(packed, depth.device) if want_dw else []
     dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
     dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
     ws = torch.empty(lib.niw_rm_bwd_workspace_floats(R * K, R),
@@ -325,9 +337,10 @@ def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, weights,
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
                          g8.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
-                         _ptrs(weights), _ACTIV[density_activ], cache.data_ptr(),
-                         int(want_dw), dcenter.data_ptr(), dray.data_ptr(),
-                         _ptrs(dws) if want_dw else None, ws.data_ptr(), stream)
+                         packed.split_ptrs, packed.lo, _ACTIV[density_activ],
+                         cache.data_ptr(), int(want_dw), dcenter.data_ptr(),
+                         dray.data_ptr(), _ptrs(dws) if want_dw else None, ws.data_ptr(),
+                         stream)
     build.check(err, "niw_rm_bwd")
     return dcenter, dray, unpack_grads(dws) if want_dw else None
 
@@ -344,10 +357,7 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
         raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
     lib = build.load_library().lib
     packed = k2_weights(mlp)
-    sizes = [math.prod(shape) for shape in packed.grad_shapes]
-    dws = [t.view(shape) for t, shape in zip(
-        torch.empty(sum(sizes), dtype=torch.float32, device=depth.device).split(sizes),
-        packed.grad_shapes)]
+    dws = _grad_buffers(packed, depth.device)
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
     dray = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
@@ -399,28 +409,28 @@ class _RmTrain(torch.autograd.Function):
 
 class _RmFwd(torch.autograd.Function):
     """out [R,8] from one K3 launch that keeps its activations; the backward
-    is one K4 launch, without the weight-gradient part when no weight needs
-    a gradient."""
+    is one K4 launch on the same K2Weights, without the weight-gradient part
+    when no weight needs a gradient."""
 
     N_LEADING = 7   # arguments before *params
 
     @staticmethod
     def forward(ctx, center, ray, depth, w3, wv, mlp, density_activ, *params):
         c, r = center.detach().contiguous(), ray.detach().contiguous()
-        out, cache, weights = _rm_fwd(mlp, c, r, depth, w3, wv, density_activ,
-                                      keep=True)
+        out, cache, packed = _rm_fwd(mlp, c, r, depth, w3, wv, density_activ,
+                                     keep=True)
         fused_render_rays_pe.launches += 1
-        ctx.save_for_backward(c, r, depth, w3, wv, cache, *weights)
-        ctx.mlp, ctx.density_activ = mlp, density_activ
+        ctx.save_for_backward(c, r, depth, w3, wv, cache)
+        ctx.mlp, ctx.packed, ctx.density_activ = mlp, packed, density_activ
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        c, r, depth, w3, wv, cache, *weights = ctx.saved_tensors
+        c, r, depth, w3, wv, cache = ctx.saved_tensors
         want_dw = any(ctx.needs_input_grad[_RmFwd.N_LEADING:])
         dcenter, dray, grads = launch_rm_bwd(
-            ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, weights,
+            ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, ctx.packed,
             want_dw, ctx.density_activ)
         fused_render_rays_pe.backward_launches += 1
         n_params = len(ctx.needs_input_grad) - _RmFwd.N_LEADING
@@ -512,7 +522,7 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
 
 
 fused_render_rays_pe_train.launches = 0
-fused_render_rays_pe_train.packs = 0   # K2Weights made (once per optimizer step)
+fused_render_rays_pe_train.packs = 0   # K2Weights made (once per parameter version)
 
 
 # ------------------------------------------------ K5: the field per sample

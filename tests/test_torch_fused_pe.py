@@ -18,6 +18,9 @@ The CUDA kernels themselves need the card: chip_smoke.py holds them
 against these plain versions there.
 """
 
+import ctypes
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -309,7 +312,7 @@ def test_kernel_launchers_reject_cpu_tensors(setup, launch):
             fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
         elif launch == "bwd":
             fp.launch_rm_bwd(mlp, c, r, d, torch.zeros(2, 8), w3, wv, torch.zeros(4),
-                             fp.pack_weights(mlp))
+                             fp.k2_weights(mlp))
         else:
             fp.launch_rm_train(mlp, c, r, d, torch.zeros(2, 8), w3, wv)
 
@@ -324,4 +327,87 @@ def test_kernel_launchers_reject_unsupported_shapes(setup, R, K, match):
     with pytest.raises(ValueError, match=match):
         fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
     with pytest.raises(ValueError, match=match):
+        fp.launch_rm_bwd(mlp, c, r, d, torch.zeros(R, 8), w3, wv, torch.zeros(4),
+                         fp.k2_weights(mlp))
+    with pytest.raises(ValueError, match=match):
         fp.launch_rm_train(mlp, c, r, d, torch.zeros(R, 8), w3, wv)
+
+
+class _FakeLibrary:
+    """The kernel library's K3/K4 entry points on the CPU: each launch
+    records the weight operands it receives; the outputs are zeros, and K4's
+    weight gradients are the packed weights themselves, so that unpacking
+    them must give back the parameters."""
+
+    def __init__(self, mlp):
+        self.packed = fp.pack_weights(mlp)
+        self.calls = []
+
+    def niw_rm_fwd_workspace_floats(self, n, keep):
+        return 4
+
+    def niw_rm_bwd_workspace_floats(self, n, r):
+        return 4
+
+    def niw_rm_fwd(self, center, ray, depth, R, K, w3, wv, W, W_split, w_lo, activ, keep,
+                   out, ws, stream):
+        self.calls.append(("fwd", W, W_split, w_lo, keep))
+        ctypes.memset(out, 0, R * 8 * 4)
+        return 0
+
+    def niw_rm_bwd(self, center, ray, depth, g8, R, K, w3, wv, W_split, w_lo, activ, cache,
+                   want_dw, dcenter, dray, dW, ws, stream):
+        self.calls.append(("bwd", None, W_split, w_lo, want_dw))
+        ctypes.memset(dcenter, 0, R * 3 * 4)
+        ctypes.memset(dray, 0, R * 3 * 4)
+        for i, w in enumerate(self.packed if want_dw else []):
+            ctypes.memmove(dW[i], w.data_ptr(), w.numel() * 4)
+        return 0
+
+
+def test_k3_k4_take_the_k2_weights_cache_entry(monkeypatch):
+    """K3 and K4 launch on ``k2_weights(mlp)``: K3 with its fp32 pointers
+    and its split pointers, K4 with the split pointers of the same entry,
+    which ``_RmFwd`` keeps for its backward; the entry stays while no
+    parameter changes (a render or a refinement with frozen weights packs
+    once), and an optimizer step makes a new one. K4's weight gradients are
+    allocated in the packed layout and unpacked onto ``mlp.parameters()``.
+    The library is a fake here, so only the operands are checked."""
+    mlp = NerfMLP(ARCH)
+    lib = _FakeLibrary(mlp)
+    monkeypatch.setattr(fp.build, "load_library", lambda: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(fp, "_check_inputs", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    R = 3
+    c, r = torch.zeros(R, 3), torch.ones(R, 3)
+    d = torch.linspace(1.0, 2.0, 128).expand(R, 128).contiguous()
+    w3, wv = fp.band_weights(None, None, "cpu")
+    packs = fp.fused_render_rays_pe_train.packs
+    for _ in range(3):   # render chunks
+        fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
+    first = fp.k2_weights(mlp)
+    for p in mlp.parameters():
+        p.requires_grad_(False)
+    for _ in range(2):   # refinement iterations: K3 kept, K4 frozen
+        c_t = c.clone().requires_grad_(True)
+        fp._RmFwd.apply(c_t, r, d, w3, wv, mlp, "softplus", *mlp.parameters()).sum().backward()
+        assert torch.equal(c_t.grad, torch.zeros(R, 3))
+    assert fp.fused_render_rays_pe_train.packs == packs + 1
+    assert [call[0] for call in lib.calls] == ["fwd"] * 3 + ["fwd", "bwd"] * 2
+    for kind, W, W_split, w_lo, flag in lib.calls:
+        assert W_split is first.split_ptrs and w_lo == first.lo == fp.PLANE_FLOATS
+        assert W is (first.ptrs if kind == "fwd" else None)
+    assert [call[4] for call in lib.calls] == [0, 0, 0, 1, 0, 1, 0]
+    for p in mlp.parameters():
+        p.requires_grad_(True)
+    opt = torch.optim.SGD(mlp.parameters(), lr=1e-3)
+    fp._RmFwd.apply(c, r, d, w3, wv, mlp, "softplus", *mlp.parameters()).sum().backward()
+    assert lib.calls[-1][4] == 1
+    for p, w in zip(mlp.parameters(), fp.unpack_grads(lib.packed)):
+        assert torch.equal(p.grad, w)
+    opt.step()
+    fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
+    second = fp.k2_weights(mlp)
+    assert second is not first and lib.calls[-1][2] is second.split_ptrs
+    assert fp.fused_render_rays_pe_train.packs == packs + 2

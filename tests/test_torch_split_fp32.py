@@ -1,4 +1,4 @@
-"""The split-fp32 (3xTF32) product of K2's tensor-core GEMM
+"""The split-fp32 (3xTF32) product of the tensor-core GEMM of K2, K3 and K4
 (neural_invertible_warp_tpu_torch/csrc/gemm_tc.cuh), emulated on the CPU.
 
 ``split_tf32`` is the plain version of the kernel's operand split. The
@@ -23,9 +23,16 @@ held, the scheme meets every gate there too, and single-pass TF32 misses
 the value gate. Each evaluation's distance from a float64 one (the points
 and the PE's sin/cos in fp32, as chip_smoke.py's k2_f64 takes them) is
 printed.
-"""
 
-import copy
+K3's render (no backward reads it) takes the split product in every forward
+product, signs free: rgb, depth and opacity must meet chip_smoke.py's value
+gate, and single-pass TF32 there must miss it. K4 takes K2's scheme (an
+fp32 forward, split input-gradient and weight-gradient products) under
+chip_smoke.py's K4 test loss, signed per-ray coefficients on rgb, depth and
+opacity: dcenter/dray must meet their gates and the weight gradients
+TOL_K4_WEIGHT_GRAD, with the weights frozen and with weight gradients, and
+single-pass TF32 must miss them.
+"""
 
 import numpy as np
 import pytest
@@ -44,6 +51,8 @@ B, R, K = 2, 16, 128
 C2F = (0.1, 0.5)
 TOL = 1e-5                 # chip_smoke.py: TOL["value"], TOL["grad"]
 TOL_ALL_BANDS = 5e-4       # chip_smoke.py: TOL_INPUT_GRAD_ALL_BANDS
+TOL_K4_WEIGHT_GRAD = 5e-5  # chip_smoke.py: TOL_K4_WEIGHT_GRAD
+K4_DEPTH_COEFF = 0.01      # chip_smoke.py: K4_DEPTH_COEFF
 
 
 def _low_bits(x):
@@ -101,8 +110,9 @@ class _EmulatedLinear(torch.autograd.Function):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
         x2 = x.reshape(-1, x.shape[-1])
-        return (ctx.bwd(g2, w).reshape(x.shape), ctx.bwd(x2.t(), g2).t(), g2.sum(0), None,
-                None)
+        dw = ctx.bwd(x2.t(), g2).t() if ctx.needs_input_grad[1] else None
+        db = g2.sum(0) if ctx.needs_input_grad[2] else None
+        return ctx.bwd(g2, w).reshape(x.shape), dw, db, None, None
 
 
 class _HoldSigns(torch.autograd.Function):
@@ -135,18 +145,45 @@ def _rays(seed):
     return [torch.tensor(a, dtype=torch.float32) for a in (center, ray, depth, t8)]
 
 
-def _k2_plain(mlp, center, ray, depth, t8, progress, mm=None, f64=False, signs=None,
-              fwd=None):
+def _k4_coefficients(seed):
+    """Per-ray coefficients [R,8] of chip_smoke.py's K4 test loss
+    sum(a rgb + b depth + c opacity): a ~ N(0, 1), b ~ 0.01 N(0, 1), c ~ N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    coeffs = np.concatenate([rng.randn(B * R, 3), rng.randn(B * R, 1) * K4_DEPTH_COEFF,
+                             rng.randn(B * R, 1), np.zeros((B * R, 3))], -1)
+    return torch.tensor(coeffs, dtype=torch.float32)
+
+
+def _k2_plain(mlp, center, ray, depth, t8, progress, **kw):
     """sq_sum, the [R,8] render and the gradients of sq_sum in (center, ray,
-    weights) through K2's plain chain; with ``mm`` every layer product but
-    the rgb output layer's through it, in the forward as well unless
-    ``fwd`` names the forward's product; with ``f64`` everything after the
-    points and the PE in float64. ``signs``: a list that receives whether
-    each layer output (but the rgb output layer's) is > 0, or, where it
-    already holds them, to which each such output is held: a value on the
-    other side of 0 becomes 0 or 1e-30, with the gradient passed through."""
+    weights) through K2's plain chain (_chain's options)."""
+    return _chain(mlp, center, ray, depth, progress,
+                  lambda out: fp.sq_sum_from_out(out, t8.to(out.dtype)), **kw)
+
+
+def _chain(mlp, center, ray, depth, progress, loss=None, mm=None, f64=False, signs=None,
+           fwd=None, frozen=False):
+    """[loss, the render's first 5 columns] and the gradients of ``loss(out)``
+    in (center, ray, weights, or without the weights when ``frozen``) through
+    the plain chain; without ``loss`` only the render's rgb, depth and
+    opacity. With ``mm`` every layer product but the rgb output layer's
+    through it, in the forward as well unless ``fwd`` names the forward's
+    product; with ``f64`` everything after the points and the PE in float64.
+    ``signs``: a list that receives whether each layer output (but the rgb
+    output layer's) is > 0, or, where it already holds them, to which each
+    such output is held: a value on the other side of 0 becomes 0 or 1e-30,
+    with the gradient passed through."""
+    if f64 or frozen:
+        # a new module, not a deepcopy: copying would add __slotnames__ to the
+        # port's DotDict class (its arch), which test_torch_package.py compares
+        # with the JAX package's
+        copied = NerfMLP(mlp.arch, mlp.view_dep)
+        copied.load_state_dict(mlp.state_dict())
+        mlp = copied
     if f64:
-        mlp = copy.deepcopy(mlp).double()
+        mlp = mlp.double()
+    if frozen:
+        mlp.requires_grad_(False)
     last = mlp.mlp_rgb[-1].weight
     linear, pe = F.linear, nerf_mlp.positional_encoding_c2f
     record = signs is not None and not signs
@@ -178,14 +215,17 @@ def _k2_plain(mlp, center, ray, depth, t8, progress, mm=None, f64=False, signs=N
             rgb, d, op, _ = render.composite(r.double(), rgb_s, dens,
                                              depth.double()[..., None])
             out = torch.cat([rgb, d, op, torch.zeros_like(rgb)], dim=-1)
-            sq = fp.sq_sum_from_out(out, t8.double())
         else:
-            sq, out = fp.render_rays_train_plain(mlp, c, r, depth, t8, progress, C2F)
-        grads = torch.autograd.grad(sq, [c, r] + list(mlp.parameters()))
+            out = fp.render_rays_plain(mlp, c, r, depth, progress, C2F)
+        if loss is None:
+            return [out.detach()[:, :3], out.detach()[:, 3], out.detach()[:, 4]]
+        value = loss(out)
+        grads = torch.autograd.grad(value, [c, r] + [p for p in mlp.parameters()
+                                                     if p.requires_grad])
     finally:
         F.linear = linear
         nerf_mlp.positional_encoding_c2f = pe
-    return [sq.detach(), out.detach()[:, :5]] + [g.detach() for g in grads]
+    return [value.detach(), out.detach()[:, :5]] + [g.detach() for g in grads]
 
 
 def _rel(got, ref):
@@ -239,6 +279,51 @@ def test_3xtf32_holds_k2_gates_and_tf32_does_not(progress, tol_in):
         "TF32": _k2_plain(mlp, *inputs, progress, mm=_mm_tf32, signs=signs)})
     assert not held["3xTF32"], held
     assert {"sq_sum", "out"} <= set(held["TF32"]), held
+
+
+@pytest.mark.parametrize("progress", [0.3, 1.0])
+def test_3xtf32_holds_k3_render_gate_and_tf32_does_not(progress):
+    """K3 without ``keep``: every forward product split, signs free."""
+    mlp = _flagship_mlp()
+    names = ["rgb", "depth", "opacity"]
+    gates = [TOL] * 3
+    inputs = _rays(seed=20 + int(progress * 10))[:3]
+    ref = _chain(mlp, *inputs, progress)
+    f64 = _chain(mlp, *inputs, progress, f64=True)
+    print("\nprogress {}: K3's render (every forward product split, signs free) and "
+          "single-pass TF32 in its place".format(progress))
+    misses = _report(names, gates, ref, f64, {
+        "K3 3xTF32": _chain(mlp, *inputs, progress, mm=_mm_3xtf32),
+        "TF32": _chain(mlp, *inputs, progress, mm=_mm_tf32)})
+    assert not misses["K3 3xTF32"], misses
+    assert misses["TF32"], "single-pass TF32 in the forward meets the value gate"
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "with_dw"])
+@pytest.mark.parametrize("progress,tol_in", [(0.3, TOL), (1.0, TOL_ALL_BANDS)])
+def test_3xtf32_holds_k4_gates_and_tf32_does_not(progress, tol_in, frozen):
+    """K4 after K3's kept forward: fp32 forward, split input-gradient and
+    weight-gradient products, under K4's test loss."""
+    mlp = _flagship_mlp()
+    names = ["loss", "out", "dcenter", "dray"] + (
+        [] if frozen else ["d" + n for n, _ in mlp.named_parameters()])
+    gates = [TOL, TOL, tol_in, tol_in] + [TOL_K4_WEIGHT_GRAD] * (len(names) - 4)
+    inputs = _rays(seed=30 + int(progress * 10))[:3]
+    coeffs = _k4_coefficients(seed=40 + int(progress * 10))
+
+    def loss(out):
+        return torch.sum(coeffs.to(out.dtype) * out)
+
+    def run(**kw):
+        return _chain(mlp, *inputs, progress, loss, frozen=frozen, **kw)
+    ref, f64 = run(), run(f64=True)
+    print("\nprogress {}, weights {}: K4's scheme (fp32 forward, split backward) and "
+          "single-pass TF32 in its place".format(progress, "frozen" if frozen else "free"))
+    misses = _report(names, gates, ref, f64, {
+        "K4 3xTF32": run(mm=_mm_3xtf32, fwd=_mm_fp32),
+        "TF32": run(mm=_mm_tf32, fwd=_mm_fp32)})
+    assert not misses["K4 3xTF32"], misses
+    assert misses["TF32"], "single-pass TF32 in the backward meets every gate"
 
 
 def test_k2_weights_packed_once_per_step():
