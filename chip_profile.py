@@ -19,7 +19,12 @@ samples, 1024 rays, two fields), two windows:
   fine train   10 train steps after 20 (K2 at 64 samples returning the
                compositing weights, the resample, K2 at 192 samples);
   fine render  one full-image render (300 chunks, K5 at 64 and at 192
-               samples each, compositing and the resample in PyTorch).
+               samples each, compositing and the resample in PyTorch);
+  fine K5 backward, fine K1 backward   10 backward calls with weight
+               gradients of the coarse field at [1,1024] rays x 64 samples
+               (relu, density noise) after 3, as the fallback (K5) and
+               MLP-only (K1) tiers call it, under the loss sum(rgb) +
+               sum(density).
 Then PDC-Net (random weights from a seed) through PdcNetMatcher, one window:
   matcher      5 pairs of 480x640 views after 3 (24 K7 and 9 adjoint
                launches per pair), with K7's share of the device time.
@@ -47,6 +52,7 @@ N_WARM_STEPS, N_TRAIN_STEPS = 30, 10
 N_WARM_FUSED = 5
 N_WARM_REFINE, N_REFINE = 5, 20
 N_WARM_FINE = 20
+N_WARM_FIELD, N_FIELD = 3, 10
 N_WARM_MATCH, N_MATCH = 3, 5
 TOP = 12
 
@@ -180,6 +186,23 @@ def main():
     pose, intr = system.test_data["pose"][:1], system.test_data["intr"][:1]
     n_chunks = -(-H * W // opt.nerf.rand_rays)
     window("fine render", "chunk", n_chunks, lambda: system.render_image(pose, intr))
+    # the per-sample field kernels' backward with weight gradients alone, as
+    # the fallback (K5) and MLP-only (K1) tiers call it at 64 samples
+    (center, ray, depth, _, noise), _ = cs.fine_batch(cs.FINE_RAYS, cs.FINE_K[0], 80, device)
+    for which in ("k5", "k1"):
+        c = center.clone().requires_grad_(True)
+        rgb_s, dens = cs.field_fn(which)(system.graph.nerf, c, ray, depth,
+                                         density_activ="relu", noise=noise)
+        loss = rgb_s.sum() + dens.sum()
+        wrt = [c] + list(system.graph.nerf.parameters())
+
+        def backward(n):
+            for _ in range(n):
+                torch.autograd.grad(loss, wrt, retain_graph=True)
+        backward(N_WARM_FIELD)
+        window("fine {} backward".format(which.upper()), "call", N_FIELD,
+               lambda: backward(N_FIELD))
+        del loss, rgb_s, dens
 
     del trainer, system
     torch.cuda.empty_cache()

@@ -41,16 +41,24 @@ Phases, one or more lines each:
      fine-sampling tiers call, with the compositing in PyTorch under
      autograd, against the plain chain at [1,1024] rays x 64 and x 192
      samples (softplus and relu density, with and without density noise, a
-     ragged ray count); K1's dxp and dview directly; K2 with its noise
-     operand and its compositing-weights output at both sample counts (and
-     two launches of each giving the same bits);
+     ragged ray count); K1's render, dxp and dview directly, also at a
+     sample count that is not a multiple of 4; two launches of K5 and of K1
+     as a render (products split on the tensor cores), kept (products in
+     fp32, activations kept) and backward with weight gradients must give
+     the same bits; each mode timed beside its route's bound; K2 with its
+     noise operand and its compositing-weights output at both sample counts
+     (and two launches of each giving the same bits);
   7. fine slice: vanilla NeRF with fine sampling (nerf_llff_repr at full
      width: two 8x256 fields, 64 + 128 samples, 1024 rays, relu density,
      density noise) trains through the Trainer (two K2 calls per step),
      renders the validation view (two K5 calls per chunk) and holds it
-     against the plain render of the same chunks and samples, takes a few
-     steps each in the fallback tier (K5 forward + backward, K2) and the
-     MLP-only tier (K1 forward + backward), and evaluates one view;
+     against the plain render of the same chunks and samples (and reports
+     how far the fine samples resampled from the kernel's coarse weights
+     lie from those of the plain chain's), takes a few steps each in the
+     fallback tier (K5 forward + backward, K2) and the MLP-only tier (K1
+     forward + backward), and evaluates one view; the weights are packed
+     once per field per optimizer step and at most once per field for a
+     render or an evaluation;
   8. inn kernel: the fused INN warp K6, forward and backward through the
      wrapper under autograd, against its plain version and against the plain
      chain (DeformNetwork.forward) on the card, every leaf perturbed, at the
@@ -147,9 +155,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # A layer product on the tensor cores in split fp32 is three TF32 products
-# (lo*hi, hi*lo, hi*hi) for each fp32 one (csrc/gemm_tc.cuh). K2's and K4's
-# backward products and K3's render forward take that route; K2's forward
-# and K3's forward under autograd stay fp32 FMAs on the CUDA cores
+# (lo*hi, hi*lo, hi*hi) for each fp32 one (csrc/gemm_tc.cuh). Every
+# backward product (K2, K4, K5, K1) and the render forwards of K3, K5 and K1
+# take that route; K2's forward and the forwards under autograd of K3, K5
+# and K1 stay fp32 FMAs on the CUDA cores
 TF32_PASSES = 3
 # test-time refinement of training view 0 turned by this rotation (rad, about
 # an axis in the image plane): against the field's own render the rotation
@@ -187,6 +196,8 @@ FINE_RAYS = 1024
 TOL_RELU_REL_L2 = 1e-2
 TOL_FIELD_INPUT_GRAD = 5e-5
 NOISE_REG = 1.0
+# K1 on encoded inputs also at a sample count that is not a multiple of 4
+K1_RAGGED_N = 4093
 # (name, rays, samples, density activation, density noise)
 K5_CASES = [("{} {}{}".format(K_, activ, ", noise" if noise else ""), FINE_RAYS, K_,
              activ, noise)
@@ -1144,15 +1155,20 @@ def compare_leaves(label, names, got, ref, tol, rel_l2, failures, denoms=None):
     return worst_abs
 
 
-def timed_field(which, mlp, center, ray, depth, noise, activ, backward):
-    """Median ms of the field forward without autograd, or of the backward
-    alone (with weight gradients) under a fixed per-sample cotangent."""
+def timed_field(which, mlp, center, ray, depth, noise, activ, mode):
+    """Median ms of the field forward without autograd (mode "render"),
+    under autograd (mode "kept": the kernels keep their activations), or of
+    the backward alone (mode "backward", with weight gradients) under a
+    fixed per-sample cotangent."""
     fn = field_fn(which)
-    if not backward:
+    if mode == "render":
         def fwd():
             with torch.no_grad():
                 fn(mlp, center, ray, depth, density_activ=activ, noise=noise)
         return time_ms(fwd)
+    if mode == "kept":
+        c = center.clone().requires_grad_(True)
+        return time_ms(lambda: fn(mlp, c, ray, depth, density_activ=activ, noise=noise))
     c = center.clone().requires_grad_(True)
     r = ray.clone().requires_grad_(True)
     rgb_s, dens = fn(mlp, c, r, depth, density_activ=activ, noise=noise)
@@ -1164,10 +1180,55 @@ def timed_field(which, mlp, center, ray, depth, noise, activ, backward):
     return time_ms(lambda: torch.autograd.grad(loss, wrt, retain_graph=True))
 
 
+def field_same_bits(which, mlp, center, ray, depth, noise, activ):
+    """Two launches each of K5 or K1 as a render, kept (its activations
+    too) and backward with weight gradients, on the same inputs (not counted
+    as launches of a path): the names of the outputs whose bits differ."""
+    from neural_invertible_warp_tpu_torch.ops import nerf_mlp
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    R, n_samples = depth.shape[1:3]
+    c, r = center.reshape(R, 3).contiguous(), ray.reshape(R, 3).contiguous()
+    d = depth.reshape(R, n_samples).contiguous()
+    g = torch.randn(R * n_samples, 4, generator=torch.Generator().manual_seed(7)).to(c.device)
+    if which == "k5":
+        w3, wv = fp.band_weights(None, None, c.device)
+        nz = noise.reshape(R, n_samples).contiguous()
+
+        def fwd(keep):
+            return fp.launch_field_pe_fwd(mlp, c, r, d, w3, wv, activ, nz, keep)
+
+        def bwd(cache, packed):
+            return fp.launch_field_pe_bwd(mlp, c, r, d, g, w3, wv, cache, packed, True, activ)
+        inputs = ["dcenter", "dray"]
+    else:
+        with torch.no_grad():
+            xp, view = mlp.encode(*nerf_mlp.sample_points(center, ray, depth))
+        xp, view = xp.reshape(-1, 63).contiguous(), view.reshape(-1, 27).contiguous()
+        nz = noise.reshape(-1).contiguous()
+
+        def fwd(keep):
+            return ff.launch_field_fwd(mlp, xp, view, activ, nz, keep)
+
+        def bwd(cache, packed):
+            return ff.launch_field_bwd(mlp, g, cache, packed, True, activ)
+        inputs = ["dxp", "dview"]
+    names = ["render out", "kept out", "kept activations"] + inputs + [
+        "d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    runs = []
+    for _ in range(2):
+        out = fwd(False)[0]
+        out_kept, cache, packed = fwd(True)
+        d_a, d_b, grads = bwd(cache, packed)
+        runs.append([out, out_kept, cache, d_a, d_b] + grads)
+    return [n for n, x, y in zip(names, *runs) if not torch.equal(x, y)]
+
+
 def phase_kernels_field(mlp, device):
     """K5 and K1 through the wrappers the fine-sampling tiers call, and K2
-    with its noise and prob operands, against their plain versions.
-    Returns the JSON records of K5 fwd/bwd and K1 fwd/bwd."""
+    with its noise and prob operands, against their plain versions; K5's
+    and K1's modes timed and their bits checked run to run. Returns the
+    JSON records of K5 fwd/bwd and K1 fwd/bwd."""
     from neural_invertible_warp_tpu_torch.ops.cuda import build
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
@@ -1189,6 +1250,12 @@ def phase_kernels_field(mlp, device):
             err = compare("rgb", rgb_k, rgb_p, TOL["value"], failures)
             compare("density", dens_k, dens_p, TOL["value"], failures)
             compare("loss", loss_k, loss_p, TOL["value"], failures)
+            # the same forward without autograd: the render's route
+            with torch.no_grad():
+                rgb_r, dens_r = field_fn(which)(mlp, center, ray, depth, density_activ=activ,
+                                                noise=noise)
+            err = max(err, compare("render rgb", rgb_r, rgb_p, TOL["value"], failures))
+            compare("render dens", dens_r, dens_p, TOL["value"], failures)
             rel_l2 = activ == "relu"
             compare_leaves("dcenter, dray", names[:2], grads_k[:2], grads_p[:2],
                            TOL_RELU_REL_L2 if rel_l2 else TOL_FIELD_INPUT_GRAD, rel_l2,
@@ -1201,7 +1268,8 @@ def phase_kernels_field(mlp, device):
                     records[which + "_fwd"]["max_abs_err"], err)
                 records[which + "_bwd"]["max_abs_err"] = max(
                     records[which + "_bwd"]["max_abs_err"], err_g)
-    # K1's own input cotangents, at the encoded inputs of a K = 64 batch
+    # K1's own input cotangents, at the encoded inputs of a K = 64 batch and
+    # at a sample count that is not a multiple of 4 (K1 takes any N)
     (center, ray, depth, _, noise), _ = fine_batch(FINE_RAYS, 64, 70, device)
     noise = noise.reshape(-1) * NOISE_REG
     from neural_invertible_warp_tpu_torch.ops import nerf_mlp
@@ -1209,14 +1277,20 @@ def phase_kernels_field(mlp, device):
         xp, view = mlp.encode(*nerf_mlp.sample_points(center, ray, depth))
     xp, view = xp.reshape(-1, 63), view.reshape(-1, 27).contiguous()
     g_out = torch.randn(xp.shape[0], 4, generator=torch.Generator().manual_seed(6)).to(device)
-    print("kernels: K1 on encoded inputs [{},63], [{},27], softplus, noise: dxp, "
-          "dview".format(xp.shape[0], xp.shape[0]))
-    grads = []
-    for fn in (ff.fused_mlp, ff.mlp_plain):
-        x, v = xp.clone().requires_grad_(True), view.clone().requires_grad_(True)
-        grads.append(torch.autograd.grad(fn(mlp, x, v, noise=noise), [x, v], g_out))
-    for name, gk, gp in zip(("dxp", "dview"), *grads):
-        compare(name, gk, gp, TOL["grad"], failures)
+    for n in (xp.shape[0], K1_RAGGED_N):
+        print("kernels: K1 on encoded inputs [{},63], [{},27], softplus, noise: render, "
+              "dxp, dview".format(n, n))
+        x_n, v_n = xp[:n].contiguous(), view[:n].contiguous()
+        with torch.no_grad():
+            compare("render out", ff.fused_mlp(mlp, x_n, v_n, noise=noise[:n]),
+                    ff.mlp_plain(mlp, x_n, v_n, noise=noise[:n]), TOL["value"], failures)
+        grads = []
+        for fn in (ff.fused_mlp, ff.mlp_plain):
+            x, v = x_n.clone().requires_grad_(True), v_n.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(mlp, x, v, noise=noise[:n]), [x, v],
+                                             g_out[:n]))
+        for name, gk, gp in zip(("dxp", "dview"), *grads):
+            compare(name, gk, gp, TOL["grad"], failures)
 
     # times and bounds at the main path's shapes: relu density with noise
     lib = build.load_library().lib
@@ -1237,27 +1311,39 @@ def phase_kernels_field(mlp, device):
             workspace_floats = (lib.niw_field_pe_fwd_workspace_floats if which == "k5"
                                 else lib.niw_field_fwd_workspace_floats)
             cache = torch.empty(workspace_floats(N, 1), device="meta")
-            for rec, backward in ((records[which + "_fwd"], False),
-                                  (records[which + "_bwd"], True)):
-                rec["ms" + sfx] = timed_field(which, mlp, center, ray, depth, noise, "relu",
-                                              backward)
-                rec["plain_ms" + sfx] = timed_field("plain", mlp, center, ray, depth, noise,
-                                                    "relu", backward)
-                if backward:   # input- and weight-gradient products
-                    b = bound(2 * 2 * MACS_PER_SAMPLE * N, [out, cache] + weights,
-                              douts + weights)
-                else:
-                    b = bound(2 * MACS_PER_SAMPLE * N, ins + weights, [out])
-                rec["bound_ms" + sfx] = b[0]
-                if not sfx:
-                    rec["bound_by"] = b[1]
             f, b = records[which + "_fwd"], records[which + "_bwd"]
-            print("kernels: {} at [1,{}]x{}, relu, noise: forward {:.3f} ms (plain {:.3f}, bound "
-                  "{:.3f}); backward alone with weight gradients {:.3f} ms (plain {:.3f}, "
-                  "bound {:.3f}); card: {}".format(
-                      which.upper(), FINE_RAYS, n_samples,
-                      f["ms" + sfx], f["plain_ms" + sfx], f["bound_ms" + sfx], b["ms" + sfx],
-                      b["plain_ms" + sfx], b["bound_ms" + sfx], card_line()))
+            for rec, mode in ((f, "render"), (f, "kept"), (b, "backward")):
+                key = "_kept" if mode == "kept" else ""
+                rec["ms" + key + sfx] = timed_field(which, mlp, center, ray, depth, noise,
+                                                    "relu", mode)
+                rec["plain_ms" + key + sfx] = timed_field("plain", mlp, center, ray, depth,
+                                                          noise, "relu", mode)
+            # the render forward's products split on the tensor cores (its
+            # route), the kept forward's in fp32 (also the all-fp32 bound);
+            # the backward's input- and weight-gradient products split, and
+            # both all in fp32
+            io_f = (ins + weights, [out])
+            io_b = ([out, cache] + weights, douts + weights)
+            f["bound_ms" + sfx], by_f = route_bound(N, 0, 1, *io_f)
+            f["bound_ms_kept" + sfx], _ = route_bound(N, 1, 0, *io_f)
+            b["bound_ms" + sfx], by_b = route_bound(N, 0, 2, *io_b)
+            b["bound_ms_fp32" + sfx], _ = route_bound(N, 2, 0, *io_b)
+            if not sfx:
+                f["bound_by"], b["bound_by"] = by_f, by_b
+            differ = field_same_bits(which, mlp, center, ray, depth, noise, "relu")
+            print("kernels: {} at [1,{}]x{}, relu, noise: render forward {:.3f} ms (plain "
+                  "{:.3f}, bound {:.3f} split); kept forward {:.3f} ms (plain {:.3f}, bound "
+                  "{:.3f} fp32); backward alone with weight gradients {:.3f} ms (plain {:.3f}, "
+                  "bound {:.3f} split, {:.3f} all fp32); two launches of each on the same "
+                  "inputs: {}; card: {}".format(
+                      which.upper(), FINE_RAYS, n_samples, f["ms" + sfx], f["plain_ms" + sfx],
+                      f["bound_ms" + sfx], f["ms_kept" + sfx], f["plain_ms_kept" + sfx],
+                      f["bound_ms_kept" + sfx], b["ms" + sfx], b["plain_ms" + sfx],
+                      b["bound_ms" + sfx], b["bound_ms_fp32" + sfx],
+                      "the same bits in every output" if not differ
+                      else "bits differ in " + str(differ), card_line()))
+            if differ:
+                failures.append("{} determinism at {} samples".format(which.upper(), n_samples))
 
     # K2 with the noise operand and the compositing weights
     k2_extra = {}
@@ -1354,12 +1440,14 @@ def reset_counts():
     ff.fused_mlp.backward_launches = 0
 
 
-def plain_image_fine(system, pose, intr):
+def plain_image_fine(system, pose, intr, depth_errs=None):
     """(rgb, rgb_fine) [1,H*W,3] of one view through the plain chain, chunk
     by chunk as render_image renders it. The fine samples are resampled
     from the compositing weights of the system's own coarse field call, as
     render_image resamples them: the plain chain's weights differ from the
-    kernel's in the last bits, and so would the samples."""
+    kernel's in the last bits, and so do the samples. ``depth_errs``, a
+    list, receives per chunk the largest difference of those fine depths
+    from the ones resampled from the plain chain's coarse weights."""
     from neural_invertible_warp_tpu_torch.ops import nerf_mlp, rays, render, sampling
     opt = system.opt
     check(not opt.nerf.get("setbg_opaque"), "plain_image_fine has no background")
@@ -1377,12 +1465,18 @@ def plain_image_fine(system, pose, intr):
             system.graph.nerf, center, ray, depth, density_activ=activ), depth)[3]
         depth_fine = sampling.sample_depth_from_pdf(
             prob[..., 0], K, opt.nerf.sample_intvs_fine, depth_range)
+        rgb_s, dens = nerf_mlp.apply_nerf_samples(system.graph.nerf, center, ray, depth,
+                                                  density_activ=activ)
+        rgb, _, _, prob_plain = render.composite(ray, rgb_s, dens, depth)
+        rgbs.append(rgb)
+        if depth_errs is not None:
+            depth_errs.append(float((sampling.sample_depth_from_pdf(
+                prob_plain[..., 0], K, opt.nerf.sample_intvs_fine, depth_range)
+                - depth_fine).abs().max()))
         depth_all = torch.sort(torch.cat([depth, depth_fine], dim=2), dim=2).values
-        for mlp, d, acc in ((system.graph.nerf, depth, rgbs),
-                            (system.graph.nerf_fine, depth_all, rgbs_fine)):
-            rgb_s, dens = nerf_mlp.apply_nerf_samples(mlp, center, ray, d,
-                                                      density_activ=activ)
-            acc.append(render.composite(ray, rgb_s, dens, d)[0])
+        rgb_s, dens = nerf_mlp.apply_nerf_samples(system.graph.nerf_fine, center, ray,
+                                                  depth_all, density_activ=activ)
+        rgbs_fine.append(render.composite(ray, rgb_s, dens, depth_all)[0])
     return torch.cat(rgbs, dim=1), torch.cat(rgbs_fine, dim=1)
 
 
@@ -1392,6 +1486,7 @@ def phase_slice_fine(device):
     from neural_invertible_warp_tpu_torch.config import process_options
     from neural_invertible_warp_tpu_torch.models.engine import Trainer
     from neural_invertible_warp_tpu_torch.nerf_llff_repr import nerf_llff_repr_options
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
     opt = nerf_llff_repr_options()
     opt.data.image_size = list(IMAGE_HW)
     opt.freq.early_termination = FINE_STEPS
@@ -1409,20 +1504,25 @@ def phase_slice_fine(device):
     system = trainer.system
     check(sorted(n for n, _ in system.graph.named_children()) == ["nerf", "nerf_fine"],
           "the fine-sampling graph holds two fields")
-    total = {}
+    total, packs = {}, {}
 
-    def window(expected):
+    def window(label, expected, n_packs):
+        # n_packs: (least, most) weight packs, K2Weights made for either field
         counts = field_counts()
         check(counts == dict(dict.fromkeys(counts, 0), **expected),
               "launches {} but expected {}".format(counts, expected))
+        packs[label] = fp.fused_render_rays_pe_train.packs
+        check(n_packs[0] <= packs[label] <= n_packs[1],
+              "{}: {} weight packs, expected {} to {}".format(label, packs[label], *n_packs))
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         reset_counts()
 
-    # default tier: both fields through the one-call train kernel
+    # default tier: both fields through the one-call train kernel, each
+    # field's weights packed once per optimizer step
     reset_counts()
     trainer.train()
-    window({"k2": 2 * FINE_STEPS})
+    window("train", {"k2": 2 * FINE_STEPS}, (2 * FINE_STEPS,) * 2)
     hist = trainer.history
     losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in hist])
     check(bool(torch.isfinite(losses).all()), "non-finite loss")
@@ -1437,13 +1537,16 @@ def phase_slice_fine(device):
     res = trainer.run_validation(system.step)
     torch.cuda.synchronize()
     val_seconds = time.time() - t0
-    window({"k5_fwd": 2 * n_chunks * N_VAL})
+    # (frozen weights: at most one pack per field)
+    window("val", {"k5_fwd": 2 * n_chunks * N_VAL}, (0, 2))
     check(math.isfinite(res["psnr_val"]), res["psnr_val"])
-    failures = []
+    failures, depth_errs = [], []
     with torch.no_grad():
         rgb_plain, rgb_fine_plain = plain_image_fine(
-            system, system.test_data["pose"][:1], system.test_data["intr"][:1])
+            system, system.test_data["pose"][:1], system.test_data["intr"][:1], depth_errs)
     reset_counts()    # the plain image re-ran the coarse field call per chunk
+    print("  fine samples resampled from the coarse field's weights, kernel against "
+          "plain: max |depth difference| {:.3e} (depth range [0, 1])".format(max(depth_errs)))
     compare("val rgb", torch.as_tensor(res["vis"]["rgb"], device=device), rgb_plain,
             TOL["value"], failures)
     compare("val rgb_fine", torch.as_tensor(res["vis"]["rgb_fine"], device=device),
@@ -1455,7 +1558,7 @@ def phase_slice_fine(device):
     results = system.evaluate_full(dump_images=False)
     torch.cuda.synchronize()
     eval_seconds = time.time() - t0
-    window({"k5_fwd": 2 * n_chunks * N_VAL})
+    window("eval", {"k5_fwd": 2 * n_chunks * N_VAL}, (0, 2))
     for key in ("PSNR", "SSIM"):
         check(math.isfinite(results[key]), "{} = {}".format(key, results[key]))
     check(abs(results["PSNR"] - res["psnr_val"]) < 1e-3,
@@ -1465,12 +1568,17 @@ def phase_slice_fine(device):
     # fallback tier: K5 forward + backward for the coarse field, K2 for the fine
     tier_ms = {}
     opt.tpu.fused_raymarch_full = False
+    # (one pack per field per optimizer step; the first step's weights were
+    # packed by the validation render when no step came between)
+    tier_packs = (2 * (FINE_TIER_STEPS - 1), 2 * FINE_TIER_STEPS)
     tier_ms["fallback"] = _tier_steps(system, first)
-    window({"k2": FINE_TIER_STEPS, "k5_fwd": FINE_TIER_STEPS, "k5_bwd": FINE_TIER_STEPS})
+    window("fallback", {"k2": FINE_TIER_STEPS, "k5_fwd": FINE_TIER_STEPS,
+                        "k5_bwd": FINE_TIER_STEPS}, tier_packs)
     # MLP-only tier: K1 forward + backward per field
     opt.tpu.fused_pe = False
     tier_ms["mlp"] = _tier_steps(system, first)
-    window({"k1_fwd": 2 * FINE_TIER_STEPS, "k1_bwd": 2 * FINE_TIER_STEPS})
+    window("mlp", {"k1_fwd": 2 * FINE_TIER_STEPS, "k1_bwd": 2 * FINE_TIER_STEPS},
+           tier_packs)
     opt.tpu.fused_pe, opt.tpu.fused_raymarch_full = True, True
 
     print("fine: loss_render {:.5f} -> {:.5f}, loss_render_fine {:.5f} -> {:.5f} in {} "
@@ -1478,10 +1586,10 @@ def phase_slice_fine(device):
           "{:.4f}".format(first["loss_render"], last["loss_render"], first["loss_render_fine"],
                           last["loss_render_fine"], FINE_STEPS, res["psnr_val"],
                           results["PSNR"], results["SSIM"]))
-    print("fine: launches {}; default tier {:.2f} ms/step (median of steps 10-{}), {:.0f} "
-          "rays/s; fallback tier {:.2f} ms/step, MLP-only tier {:.2f} ms/step (median of "
-          "{}); val render {:.2f} s, evaluation {:.2f} s per view; card: {}".format(
-              total, ms_step, FINE_STEPS, opt.nerf.rand_rays / (ms_step / 1e3),
+    print("fine: launches {}; weight packs {}; default tier {:.2f} ms/step (median of steps "
+          "10-{}), {:.0f} rays/s; fallback tier {:.2f} ms/step, MLP-only tier {:.2f} ms/step "
+          "(median of {}); val render {:.2f} s, evaluation {:.2f} s per view; card: {}".format(
+              total, packs, ms_step, FINE_STEPS, opt.nerf.rand_rays / (ms_step / 1e3),
               tier_ms["fallback"], tier_ms["mlp"], FINE_TIER_STEPS, val_seconds,
               eval_seconds, card_line()))
     return total

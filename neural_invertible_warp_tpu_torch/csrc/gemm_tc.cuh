@@ -1,24 +1,28 @@
-// The layer GEMMs of the composited render kernels K2 (rm_train.cu), K3
-// (rm_fwd.cu) and K4 (rm_bwd.cu), the two routes their launch sequences run
-// (mlp_forward / mlp_backward of nerf_field.cuh): TcGemm (gemm_tc_kernel),
-// on the tensor cores in split fp32, and Fp32Gemm (gemm_fp32_kernel), fp32
-// on the CUDA cores in gemm_kernel's summation order. Which product takes
-// which route follows one rule: a forward whose ReLU decisions a backward
-// reads keeps gemm_kernel's order, because the plain version's decisions
-// follow that rounding and a moved decision changes a gradient by a finite
-// amount (rm_train.cu). So K2's forward and K3's forward under autograd
-// (`keep`) take Fp32Gemm; K2's and K4's backward products (input gradients,
-// weight gradients with the bias sums) and K3's render forward, which no
-// backward reads, take TcGemm.
+// The layer GEMMs of the NeRF field kernels K1 (field.cu), K2 (rm_train.cu),
+// K3 (rm_fwd.cu), K4 (rm_bwd.cu) and K5 (field_pe.cu), the two routes their
+// launch sequences run (mlp_forward / mlp_backward of nerf_field.cuh):
+// TcGemm (gemm_tc_kernel), on the tensor cores in split fp32, and Fp32Gemm
+// (gemm_fp32_kernel), fp32 on the CUDA cores in gemm_kernel's summation
+// order. Which product takes which route follows one rule: a forward whose
+// ReLU decisions a backward reads keeps gemm_kernel's order, because the
+// plain version's decisions follow that rounding and a moved decision
+// changes a gradient by a finite amount (rm_train.cu). So K2's forward and
+// the forwards under autograd (`keep`) of K3, K5 and K1 take Fp32Gemm; every
+// backward product (input gradients, weight gradients with the bias sums:
+// K2, K4, K5, K1) and every forward that no backward reads (the render
+// forwards of K3, K5 and K1) take TcGemm. No kernel of the port launches
+// gemm_kernel (SimtGemm) any more: it stays as chip_k2_gemm.py's baseline.
 //
 // Replaces the MLP dots of neural_invertible_warp_tpu/ops/pallas/
 // fused_pe.py::_rm_train_pe_kernel (fused_pe.py:886, call :1075),
-// _rm_fwd_pe_kernel (:568) and _rm_bwd_pe_kernel (:597). The TPU kernels
-// take those dots at Precision.DEFAULT, bf16x3-class passes with f32
-// accumulation (fused_field.py:74-83); the split product is of that class:
-// each operand x is split into hi = tf32(x) and lo = tf32(x - hi) (to
-// nearest, ties away from zero, as cvt.rna rounds), and hi*hi + hi*lo +
-// lo*hi is summed in fp32, which keeps about 21 significand bits.
+// _rm_fwd_pe_kernel (:568), _rm_bwd_pe_kernel (:597), _fwd_pe_kernel (:151)
+// and _bwd_pe_kernel (:171), and of fused_field.py::_fwd_kernel (:166) and
+// _bwd_kernel (:245). The TPU kernels take those dots at Precision.DEFAULT,
+// bf16x3-class passes with f32 accumulation (fused_field.py:74-83); the
+// split product is of that class: each operand x is split into hi =
+// tf32(x) and lo = tf32(x - hi) (to nearest, ties away from zero, as cvt.rna
+// rounds), and hi*hi + hi*lo + lo*hi is summed in fp32, which keeps about 21
+// significand bits.
 // Single-pass TF32 (10 bits) is not used anywhere.
 //
 // What bounds them on Hopper: 528,000 multiply-adds per sample for each of
@@ -27,8 +31,10 @@
 // on the CUDA cores at 67 TFLOP/s; on these routes the forward's third in
 // fp32 (4.1 ms) and the backward's two thirds as three TF32 passes at 495
 // TFLOP/s (3.3 ms): 7.4 ms. At K3's and K4's render chunk (262,144 samples)
-// one third is 4.13 ms in fp32 and 1.68 ms split. Every operand tile is
-// reused 128 times from shared memory, so device memory does not bound them.
+// one third is 4.13 ms in fp32 and 1.68 ms split; at K5's and K1's fine
+// render chunks (65,536 and 196,608 samples) 1.033 / 3.099 ms in fp32 and
+// 0.419 / 1.258 ms split. Every operand tile is reused 128 times from shared
+// memory, so device memory does not bound them.
 //
 // Design of gemm_tc_kernel: one CTA computes a 128x128 output tile with 8
 // warps (64x32 each, 4x4 mma.sync.m16n8k8 tiles), k-tiles of 16 in a
@@ -365,14 +371,12 @@ static __global__ void __launch_bounds__(256, 2) gemm_tc_kernel(GemmArgs p, long
     }
 }
 
-// The tensor-core route (see SimtGemm in nerf_field.cuh): a layer weight is
-// read from its hi plane (leading dimension rounded up to 4 floats) with the
-// lo plane b_lo floats after it.
+// The tensor-core route (the interface of SimtGemm in nerf_field.cuh): a
+// layer weight is read from its hi plane (leading dimension rounded up to 4
+// floats) with the lo plane b_lo floats after it.
 struct TcGemm {
   long long b_lo;
   static int ld(int natural) { return (natural + 3) & ~3; }
-
-  static constexpr bool COL_SUMS = true;
 
   template <bool TA, bool TB, bool B_WEIGHT>
   int launch(const GemmArgs& p, int splits, cudaStream_t s, float* col_sums = nullptr) const {
@@ -397,11 +401,11 @@ struct TcGemm {
 };
 
 // ------------------------------------------------ the fp32 forward route
-// K2's forward and K3's kept forward: fp32 FMAs on the CUDA cores, in
-// gemm_kernel's summation order: each output is fmaf over k = 0, 1, ... from
-// 0.f, then gemm_epilogue, the same thread mapping (8x8 outputs per thread
-// of a 128x128 tile), so its bits are gemm_kernel's (rm_train.cu says why
-// such a forward needs them). What changes is the staging: the 4-stage
+// K2's forward and the kept forwards of K3, K5 and K1: fp32 FMAs on the CUDA
+// cores, in gemm_kernel's summation order: each output is fmaf over k = 0,
+// 1, ... from 0.f, then gemm_epilogue, the same thread mapping (8x8 outputs
+// per thread of a 128x128 tile), so its bits are gemm_kernel's (rm_train.cu
+// says why such a forward needs them). What changes is the staging: the 4-stage
 // cp.async ring of the tensor-core route (the same tiles, with zero fill at
 // the edges) instead of gemm_kernel's loads through registers, and A read as
 // it lies in device memory, k-contiguous, as float4s of 4 k per row.

@@ -9,26 +9,28 @@
 //
 // What bounds this on Hopper: the 8x256 trunk is ~1.06 MFLOP per sample
 // forward and ~2.1 MFLOP backward, fp32-class (the PE must stay true fp32;
-// the MLP dots are fp32 here, and split fp32 on the tensor cores on the
-// routes of gemm_tc.cuh; single-pass TF32 nowhere). At the flagship train
+// the MLP dots are fp32 on the CUDA cores or split fp32 on the tensor cores,
+// on the routes of gemm_tc.cuh; single-pass TF32 nowhere). At the flagship train
 // shape (2034 rays x 128 samples) that is ~0.83 TFLOP per step, so the
 // arithmetic rate bounds it, not memory.
 //
-// Design (first, simple and correct): one launch sequence per call. Samples
-// are rows of dense [N, C] fp32 buffers in a workspace the wrapper allocates;
-// each MLP layer is one register-blocked SGEMM (128x128 tile, 8x8 outputs per
-// thread, k-tiles of 16 double-buffered in shared memory, fp32 FMA, no
-// tensor cores) with a fused bias/ReLU/ReLU'-mask epilogue; K2, K3 and K4
-// run the same launch sequences on the GEMM routes of gemm_tc.cuh (SimtGemm
-// below). The activation cache that the TPU kept in VMEM lives in the
-// workspace (~9 KB per sample forward, ~14 KB with the backward buffers).
+// Design: one launch sequence per call. Samples are rows of dense [N, C]
+// fp32 buffers in a workspace the wrapper allocates; each MLP layer is one
+// GEMM with a fused bias/ReLU/ReLU'-mask epilogue, on one of the two routes
+// of gemm_tc.cuh (split fp32 on the tensor cores, or fp32 in gemm_kernel's
+// summation order), which every field kernel (K1-K5) runs; gemm_kernel
+// below, the first route (a register-blocked CUDA-core SGEMM), is left as
+// the baseline that chip_k2_gemm.py times the routes against. The
+// activation cache that the TPU kept in VMEM lives in the workspace (~9 KB
+// per sample forward, ~14 KB with the backward buffers).
 // Per-ray work (PE, compositing with a sequential exclusive scan, the MSE
 // cotangent, the PE/view/quadrature backward) runs one CTA per ray.
 // Weight gradients reduce over samples in two passes: each CTA of a split
 // writes its partial sum, then a second kernel adds the splits in a fixed
 // order, so results are deterministic run to run.
 //
-// Column layouts (the wrapper packs the module's weights to match):
+// Column layouts (the wrappers pack the module's weights to match, once per
+// parameter version: fused_pe.py's k2_weights, rm_train.cu's pack kernel):
 //   C4 [N, 320]: cols 0..255 = h3, cols 256..318 = xp (63-wide PE), 319 = 0
 //   V  [N, 288]: cols 0..255 = relu feature, 256 = density pre-activation,
 //                cols 257..283 = view PE (27 wide), 284..287 = 0
@@ -224,15 +226,15 @@ static int launch_gemm(const GemmArgs& p, int splits, cudaStream_t s) {
 }
 
 // The GEMM route of a launch sequence, a template parameter of mlp_forward
-// and mlp_backward: this CUDA-core SGEMM (K1, K5) or the routes of
-// gemm_tc.cuh (K2, K3, K4). launch<TA, TB, B_WEIGHT>: B_WEIGHT says that B is a layer
+// and mlp_backward: the routes of gemm_tc.cuh (every field kernel, K1-K5) or
+// this CUDA-core SGEMM, which no kernel launches any more (chip_k2_gemm.py's
+// baseline). launch<TA, TB, B_WEIGHT>: B_WEIGHT says that B is a layer
 // weight (the forward and input-gradient products), which a route may read
 // in its own packing; ld(natural) is a weight's leading dimension in that
-// packing. A route with COL_SUMS also writes, in split mode, each split's
+// packing. With col_sums, a route also writes, in split mode, each split's
 // column sums of op(B) to col_sums[z * N + n] (the bias gradient of a
-// weight-gradient product), in place of colsum_partial_kernel's pass.
+// weight-gradient product, which weight_grad asks for); this one refuses.
 struct SimtGemm {
-  static constexpr bool COL_SUMS = false;
   static int ld(int natural) { return natural; }
 
   template <bool TA, bool TB, bool B_WEIGHT>
@@ -251,43 +253,25 @@ static __global__ void reduce_splits_kernel(const float* part, long long stride,
   out[i] = s;
 }
 
-// part[z * N + n] = sum over rows m of split z of G[m * ldg + n]. A block
-// (32, 8) takes 32 columns; its 8 row lanes stride the split's rows and are
-// added in a fixed order, so the sum is deterministic.
-static __global__ void colsum_partial_kernel(const float* G, int ldg, int M, int N,
-                                             int rows_per_split, float* part) {
-  __shared__ float red[8][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  const int mb = blockIdx.y * rows_per_split;
-  const int me = min(M, mb + rows_per_split);
-  float s = 0.f;
-  if (n < N) {
-#pragma unroll 8
-    for (int m = mb + threadIdx.y; m < me; m += 8) s += G[(size_t)m * ldg + n];
-  }
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && n < N) {
-    float t = 0.f;
-    for (int y = 0; y < 8; y++) t += red[y][threadIdx.x];
-    part[(size_t)blockIdx.y * N + n] = t;
-  }
-}
-
-// Split plan for reductions over the N sample rows.
+// Split plan for reductions over the N sample rows: splits of at least
+// 1,024 rows, at most 64. A 256 x 256 weight gradient then has 4 tiles x 64
+// splits = 256 CTAs, about one wave of the card's 132 SMs x 2, from 65,536
+// samples (K5 and K1 at [1,1024] x 64) up; 2,048-row splits left it at 128
+// CTAs there, and its products 1.3x slower (PERF.md, section 5).
 struct Splits {
   int n, rows;
 };
 static Splits plan_splits(int M) {
   Splits sp;
-  sp.n = min(64, max(1, (M + 2047) / 2048));
+  sp.n = min(64, max(1, (M + 1023) / 1024));
   sp.rows = (((M + sp.n - 1) / sp.n) + 7) / 8 * 8;
   sp.n = (M + sp.rows - 1) / sp.rows;
   return sp;
 }
 
-// dW[Kin, Nout] = A[M, Kin]^T @ G[M, Nout] and db[Nout] = colsum(G), with
-// deterministic two-pass split reductions through `part`.
+// dW[Kin, Nout] = A[M, Kin]^T @ G[M, Nout] and db[Nout] = colsum(G), the
+// column sums taken inside the product, with deterministic two-pass split
+// reductions through `part`.
 template <class Gemm>
 static int weight_grad(const Gemm& gemm, const float* A, int lda, int Kin, const float* G,
                        int ldg, int Nout, int M, float* dW, float* db, float* part,
@@ -298,16 +282,11 @@ static int weight_grad(const Gemm& gemm, const float* A, int lda, int Kin, const
   p.c_split_stride = (long long)Kin * Nout;
   const int cnt = Kin * Nout;
   // the bias gradient's partials: after the product's (cnt + Nout <= PART_PER_SPLIT)
-  float* col_part = Gemm::COL_SUMS ? part + (long long)sp.n * cnt : part;
-  int err = gemm.template launch<true, false, false>(p, sp.n, s,
-                                                     Gemm::COL_SUMS ? col_part : nullptr);
+  float* col_part = part + (long long)sp.n * cnt;
+  int err = gemm.template launch<true, false, false>(p, sp.n, s, col_part);
   if (err) return err;
   NIW_LAUNCH(reduce_splits_kernel<<<(cnt + 255) / 256, 256, 0, s>>>(
       part, (long long)cnt, sp.n, cnt, dW));
-  if (!Gemm::COL_SUMS) {
-    dim3 g2((Nout + 31) / 32, sp.n);
-    NIW_LAUNCH(colsum_partial_kernel<<<g2, dim3(32, 8), 0, s>>>(G, ldg, M, Nout, sp.rows, part));
-  }
   NIW_LAUNCH(reduce_splits_kernel<<<(Nout + 255) / 256, 256, 0, s>>>(
       col_part, (long long)Nout, sp.n, Nout, db));
   return 0;
@@ -581,34 +560,78 @@ static int launch_composite(const CompositeArgs& a, cudaStream_t s) {
 }
 
 // ------------------------------------------------- per-sample head
-// The output layer without compositing (K5, K1), one thread per sample:
-// rgb = sigmoid(R0 @ Wr1 + br1), density = activ(V[:, 256] + noise) ->
-// out [N,4]. With noise, the noised pre-activation is written back into
-// V[:, 256] so that a backward on the kept cache needs no noise operand (the
-// head reads that column through a zero row of Wr0p, and its weight-gradient
-// row is dropped when the gradients are unpacked).
+// The output layer without compositing (K5, K1): rgb = sigmoid(R0 @ Wr1 +
+// br1), density = activ(V[:, 256] + noise) -> out [N,4]. One warp per
+// sample at a time, each warp striding over the samples: lane l reads
+// columns l, l + 32, l + 64, l + 96 of the sample's R0 row (coalesced 128-byte
+// rows; a thread per sample would read 512 bytes apart) and keeps its 12
+// weights of Wr1 in registers; the three dot products are summed per lane
+// in column order, then across the warp in a fixed butterfly, so forward
+// and backward compute the same bits. Memory bounds both: R0 is 512 bytes
+// per sample, the backward writes as much again (GR0). `out` and GRP take
+// 16-byte stores (the wrapper's [N,4] output and grads_at's buffer are
+// 16-byte aligned).
+constexpr int HEAD_WARPS = 8;             // warps per block
+constexpr int HEAD_SAMPLES_PER_WARP = 8;  // samples per warp, on average
+
+struct HeadWeights {
+  float w[D_HEAD / 32][3];
+};
+
+__device__ __forceinline__ HeadWeights head_weights(const float* Wr1, int lane) {
+  HeadWeights hw;
+#pragma unroll
+  for (int i = 0; i < D_HEAD / 32; i++)
+#pragma unroll
+    for (int c = 0; c < 3; c++) hw.w[i][c] = Wr1[(lane + 32 * i) * 3 + c];
+  return hw;
+}
+
+// rgb of one sample from its R0 row (h: the lane's four columns), on every lane.
+__device__ __forceinline__ void head_rgb(const float (&h)[D_HEAD / 32], const HeadWeights& hw,
+                                         const float* br1, float (&rgb)[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; c++) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < D_HEAD / 32; i++) acc = fmaf(h[i], hw.w[i][c], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    rgb[c] = sigmoid_f(acc + br1[c]);
+  }
+}
+
+static unsigned head_blocks(long long N) {
+  const long long per_block = (long long)HEAD_WARPS * HEAD_SAMPLES_PER_WARP;
+  return (unsigned)((N + per_block - 1) / per_block);
+}
+
+// With noise, the noised pre-activation is written back into V[:, 256] so
+// that a backward on the kept cache needs no noise operand (the head reads
+// that column through a zero row of Wr0p, and its weight-gradient row is
+// dropped when the gradients are unpacked).
 static __global__ void head_forward_kernel(const float* R0, float* V, const float* Wr1,
                                            const float* br1, const float* noise,
                                            long long N, int activ, float* out) {
-  __shared__ float wr1[D_HEAD * 3];
-  for (int i = threadIdx.x; i < D_HEAD * 3; i += blockDim.x) wr1[i] = Wr1[i];
-  __syncthreads();
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= N) return;
-  const float* r0 = R0 + s * D_HEAD;
-  float acc[3] = {br1[0], br1[1], br1[2]};
-  for (int j = 0; j < D_HEAD; j++) {
-    const float h = r0[j];
-    for (int c = 0; c < 3; c++) acc[c] = fmaf(h, wr1[j * 3 + c], acc[c]);
+  const int lane = threadIdx.x & 31;
+  const HeadWeights hw = head_weights(Wr1, lane);
+  const long long stride = (long long)gridDim.x * HEAD_WARPS;
+  for (long long s = (long long)blockIdx.x * HEAD_WARPS + (threadIdx.x >> 5); s < N;
+       s += stride) {
+    float h[D_HEAD / 32], rgb[3];
+#pragma unroll
+    for (int i = 0; i < D_HEAD / 32; i++) h[i] = R0[s * D_HEAD + lane + 32 * i];
+    head_rgb(h, hw, br1, rgb);
+    if (lane == 0) {
+      float pre = V[s * LD_V + COL_DENS];
+      if (noise) {
+        pre += noise[s];
+        V[s * LD_V + COL_DENS] = pre;
+      }
+      *reinterpret_cast<float4*>(out + s * 4) =
+          make_float4(rgb[0], rgb[1], rgb[2], density_f(activ, pre));
+    }
   }
-  float pre = V[s * LD_V + COL_DENS];
-  if (noise) {
-    pre += noise[s];
-    V[s * LD_V + COL_DENS] = pre;
-  }
-  float* o = out + s * 4;
-  for (int c = 0; c < 3; c++) o[c] = sigmoid_f(acc[c]);
-  o[3] = density_f(activ, pre);
 }
 
 // Backward of the head for a per-sample cotangent g [N,4] of (rgb, density):
@@ -619,29 +642,26 @@ static __global__ void head_backward_kernel(const float* R0, const float* V,
                                             const float* Wr1, const float* br1,
                                             const float* g, long long N, int activ,
                                             float* GR0, float* GRP, float* GDENS) {
-  __shared__ float wr1[D_HEAD * 3];
-  for (int i = threadIdx.x; i < D_HEAD * 3; i += blockDim.x) wr1[i] = Wr1[i];
-  __syncthreads();
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= N) return;
-  const float* r0 = R0 + s * D_HEAD;
-  float acc[3] = {br1[0], br1[1], br1[2]};
-  for (int j = 0; j < D_HEAD; j++) {
-    const float h = r0[j];
-    for (int c = 0; c < 3; c++) acc[c] = fmaf(h, wr1[j * 3 + c], acc[c]);
-  }
-  float grp[3];
-  for (int c = 0; c < 3; c++) {
-    const float rgb = sigmoid_f(acc[c]);
-    grp[c] = g[s * 4 + c] * rgb * (1.f - rgb);
-    GRP[s * 4 + c] = grp[c];
-  }
-  GRP[s * 4 + 3] = 0.f;
-  GDENS[s] = g[s * 4 + 3] * density_grad_f(activ, V[s * LD_V + COL_DENS]);
-  float* gr0 = GR0 + s * D_HEAD;
-  for (int j = 0; j < D_HEAD; j++) {
-    const float v = grp[0] * wr1[j * 3] + grp[1] * wr1[j * 3 + 1] + grp[2] * wr1[j * 3 + 2];
-    gr0[j] = r0[j] > 0.f ? v : 0.f;
+  const int lane = threadIdx.x & 31;
+  const HeadWeights hw = head_weights(Wr1, lane);
+  const long long stride = (long long)gridDim.x * HEAD_WARPS;
+  for (long long s = (long long)blockIdx.x * HEAD_WARPS + (threadIdx.x >> 5); s < N;
+       s += stride) {
+    float h[D_HEAD / 32], rgb[3], grp[3];
+#pragma unroll
+    for (int i = 0; i < D_HEAD / 32; i++) h[i] = R0[s * D_HEAD + lane + 32 * i];
+    head_rgb(h, hw, br1, rgb);
+#pragma unroll
+    for (int c = 0; c < 3; c++) grp[c] = g[s * 4 + c] * rgb[c] * (1.f - rgb[c]);
+    if (lane == 0) {
+      *reinterpret_cast<float4*>(GRP + s * 4) = make_float4(grp[0], grp[1], grp[2], 0.f);
+      GDENS[s] = g[s * 4 + 3] * density_grad_f(activ, V[s * LD_V + COL_DENS]);
+    }
+#pragma unroll
+    for (int i = 0; i < D_HEAD / 32; i++) {
+      const float v = grp[0] * hw.w[i][0] + grp[1] * hw.w[i][1] + grp[2] * hw.w[i][2];
+      GR0[s * D_HEAD + lane + 32 * i] = h[i] > 0.f ? v : 0.f;
+    }
   }
 }
 

@@ -46,18 +46,19 @@ _SIGNATURES = {
     "niw_field_pe_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                           ctypes.c_longlong),
     "niw_field_pe_bwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),
-    "niw_field_pe_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                          ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
-    "niw_field_pe_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                          ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, _P, _P],
+    "niw_field_pe_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P],
                          ctypes.c_int),
+    "niw_field_pe_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                          ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
+                          _P, _P], ctypes.c_int),
     "niw_field_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                        ctypes.c_longlong),
     "niw_field_bwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),
-    "niw_field_fwd": ([_P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P,
-                       _P, _P], ctypes.c_int),
-    "niw_field_bwd": ([_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P,
-                       _P, _P, _P], ctypes.c_int),
+    "niw_field_fwd": ([_P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "niw_field_bwd": ([_P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
+                       ctypes.c_int, _P, _P, _P, _P, _P], ctypes.c_int),
     "niw_inn_prep_floats": ([ctypes.c_int], ctypes.c_longlong),
     "niw_inn_bwd_workspace_floats": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
     "niw_inn_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P,

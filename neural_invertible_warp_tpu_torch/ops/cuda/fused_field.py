@@ -13,7 +13,8 @@ stays on its kernel when noise is active.
 
 The wrapper takes the plain version only for CPU tensors. For CUDA tensors
 it launches the kernel or raises. Sources: ``csrc/field.cu``,
-``csrc/nerf_field.cuh``.
+``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh`` (K5's routes and K2's
+weight planes: ``fused_pe.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _check_encoded(xp, view):
 
 def launch_field_fwd(mlp, xp, view, density_activ="softplus", noise=None, keep=False):
     """One K1 forward launch on CUDA tensors: xp [N,63], view [N,27], noise
-    [N] or None. Returns (out [N,4], workspace, packed weights)."""
+    [N] or None. Returns (out [N,4], workspace, K2Weights)."""
     _check_encoded(xp, view)
     N = xp.shape[0]
     tensors = [xp, view] + _check_noise(noise, (N,))
@@ -52,11 +53,12 @@ def launch_field_fwd(mlp, xp, view, density_activ="softplus", noise=None, keep=F
     return field_launch_fwd("niw_field", mlp, head, tensors, N, 1, density_activ, keep)
 
 
-def launch_field_bwd(mlp, g, cache, weights, want_dw=True, density_activ="softplus"):
-    """One K1 backward launch: g [N,4] -> (dxp [N,63], dview [N,27], grads of
-    ``mlp.parameters()`` or None without ``want_dw``)."""
+def launch_field_bwd(mlp, g, cache, packed, want_dw=True, density_activ="softplus"):
+    """One K1 backward launch: g [N,4], with the ``cache`` and the K2Weights
+    ``packed`` of the kept forward launch -> (dxp [N,63], dview [N,27], grads
+    of ``mlp.parameters()`` or None without ``want_dw``)."""
     N = g.shape[0]
-    return field_launch_bwd("niw_field", mlp, (g.data_ptr(), N), [], g, cache, weights, N,
+    return field_launch_bwd("niw_field", mlp, (g.data_ptr(), N), [], g, cache, packed, N,
                             1, [(N, D_XP), (N, D_VIEW)], want_dw, density_activ)
 
 
@@ -71,8 +73,8 @@ def fused_mlp(mlp, xp, view, density_activ="softplus", noise=None):
     return run_field_kernel(
         fused_mlp, mlp, xp, view,
         lambda xp, view, keep: launch_field_fwd(mlp, xp, view, density_activ, noise, keep),
-        lambda xp, view, g, cache, weights, want_dw: launch_field_bwd(
-            mlp, g, cache, weights, want_dw, density_activ))
+        lambda xp, view, g, cache, packed, want_dw: launch_field_bwd(
+            mlp, g, cache, packed, want_dw, density_activ))
 
 
 fused_mlp.launches = 0             # K1 forward launches

@@ -21,11 +21,12 @@ The wrappers take the plain version only for CPU tensors. For CUDA tensors
 they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
 ``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/field_pe.cu``,
 ``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, the layer products of
-K2-K4: on the tensor cores in split fp32 for every backward and for K3's
-render (a forward that no backward reads), in fp32 on the CUDA cores for
-K2's forward and K3's forward under autograd. K2-K4 read the layer weights
-padded and as TF32 hi and lo planes (``split_tf32``), packed by one kernel
-launch once per parameter version (``k2_weights``).
+K1-K5: on the tensor cores in split fp32 for every backward and for the
+renders of K3, K5 and K1 (forwards that no backward reads), in fp32 on the
+CUDA cores for K2's forward and the forwards under autograd of K3, K5 and
+K1. They read the layer weights padded and as TF32 hi and lo planes
+(``split_tf32``), packed by one kernel launch once per parameter version
+(``k2_weights``).
 """
 
 from __future__ import annotations
@@ -166,13 +167,14 @@ def k2_planes(mlp):
 
 
 class K2Weights:
-    """The weight operands of K2, K3 and K4: ``planes`` (k2_planes);
+    """The weight operands of K1-K5: ``planes`` (k2_planes);
     ``ptrs``, the 20 weight pointers of the fp32 products (W0..Wr0p into the
     weight row, Wr1 and b7p into the tail, the other biases the module's
     own), and ``split_ptrs``, the same with the hi row in the slots of
     W0..Wr0p, for the split products;
     ``lo``, the lo row's offset from the hi row in floats; ``grad_shapes``,
-    the shapes of the 20 gradients K2 and K4 write (unpack_grads' layout)."""
+    the shapes of the 20 gradients K2, K4, K5 and K1 write (unpack_grads'
+    layout)."""
 
     def __init__(self, mlp, planes):
         params = [p.detach() for p in mlp.parameters()]
@@ -193,7 +195,7 @@ _K2_WEIGHTS = weakref.WeakKeyDictionary()   # mlp -> (parameter versions, K2Weig
 
 
 def k2_weights(mlp):
-    """The packed and split weights of K2, K3 and K4, made anew only when a
+    """The packed and split weights of K1-K5, made anew only when a
     parameter of ``mlp`` changed (its storage or its version counter, which
     an optimizer step, an in-place update or ``load_state_dict`` advances):
     once per optimizer step in training, at most once per render or
@@ -540,44 +542,47 @@ def field_samples_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
 def field_launch_fwd(symbol, mlp, head, tensors, N, K, density_activ, keep):
     """One forward launch of a per-sample field kernel: ``symbol`` is
     ``niw_field_pe`` (K5) or ``niw_field`` (K1), ``head`` its arguments ahead
-    of the weights, ``tensors`` the operands to check. Returns (out [N,4],
-    workspace, packed weights); with ``keep`` the workspace holds every
-    layer's activations, for the backward launch."""
+    of the weights, ``tensors`` the operands to check. The weights are K2's
+    (``k2_weights``): the split pointers for a render, the fp32 ones for a
+    forward that keeps its activations. Returns (out [N,4], workspace,
+    K2Weights); with ``keep`` the workspace holds every layer's activations,
+    for the backward launch."""
     _check_inputs(mlp, tensors, K)
     lib = build.load_library().lib
-    weights = pack_weights(mlp)
+    packed = k2_weights(mlp)
     device = tensors[0].device
     out = torch.empty((N, 4), dtype=torch.float32, device=device)
     ws = torch.empty(getattr(lib, symbol + "_fwd_workspace_floats")(N, int(keep)),
                      dtype=torch.float32, device=device)
     err = getattr(lib, symbol + "_fwd")(
-        *head, _ptrs(weights), _ACTIV[density_activ], int(keep), out.data_ptr(),
-        ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        *head, packed.ptrs, packed.split_ptrs, packed.lo, _ACTIV[density_activ], int(keep),
+        out.data_ptr(), ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     build.check(err, symbol + "_fwd")
-    return out, ws, weights
+    return out, ws, packed
 
 
-def field_launch_bwd(symbol, mlp, head, tensors, g, cache, weights, N, K, grad_shapes,
+def field_launch_bwd(symbol, mlp, head, tensors, g, cache, packed, N, K, grad_shapes,
                      want_dw, density_activ):
     """One backward launch of a per-sample field kernel: the cotangent g
-    [N,4] with the activation ``cache`` and packed ``weights`` of the forward
-    launch that kept them -> (the two input gradients of ``grad_shapes``,
-    grads of ``mlp.parameters()`` or None without ``want_dw``)."""
-    _check_inputs(mlp, tensors + [g, cache] + list(weights), K)
+    [N,4] with the activation ``cache`` and the weights ``packed``
+    (K2Weights) of the forward launch that kept them -> (the two input
+    gradients of ``grad_shapes``, grads of ``mlp.parameters()`` or None
+    without ``want_dw``)."""
+    _check_inputs(mlp, tensors + [g, cache, packed.planes], K)
     lib = build.load_library().lib
     if (g.shape != (N, 4)
             or cache.numel() != getattr(lib, symbol + "_fwd_workspace_floats")(N, 1)):
         raise ValueError("cotangent must be [N,4] and the cache that of a kept "
                          "forward launch on the same samples")
-    dws = [torch.empty_like(w) for w in weights] if want_dw else []
+    dws = _grad_buffers(packed, g.device) if want_dw else []
     d_a, d_b = (torch.empty(shape, dtype=torch.float32, device=g.device)
                 for shape in grad_shapes)
     ws = torch.empty(getattr(lib, symbol + "_bwd_workspace_floats")(N),
                      dtype=torch.float32, device=g.device)
     err = getattr(lib, symbol + "_bwd")(
-        *head, _ptrs(weights), _ACTIV[density_activ], cache.data_ptr(), int(want_dw),
-        d_a.data_ptr(), d_b.data_ptr(), _ptrs(dws) if want_dw else None, ws.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream)
+        *head, packed.split_ptrs, packed.lo, _ACTIV[density_activ], cache.data_ptr(),
+        int(want_dw), d_a.data_ptr(), d_b.data_ptr(), _ptrs(dws) if want_dw else None,
+        ws.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     build.check(err, symbol + "_bwd")
     return d_a, d_b, unpack_grads(dws) if want_dw else None
 
@@ -592,7 +597,7 @@ def _check_noise(noise, shape):
 def launch_field_pe_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus",
                         noise=None, keep=False):
     """One K5 forward launch on CUDA tensors: center/ray [R,3], depth [R,K],
-    noise [R,K] or None. Returns (out [R*K,4], workspace, packed weights)."""
+    noise [R,K] or None. Returns (out [R*K,4], workspace, K2Weights)."""
     R, K = depth.shape
     tensors = [center, ray, depth, w3, wv] + _check_noise(noise, (R, K))
     head = (center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
@@ -602,44 +607,45 @@ def launch_field_pe_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus
                             keep)
 
 
-def launch_field_pe_bwd(mlp, center, ray, depth, g, w3, wv, cache, weights,
+def launch_field_pe_bwd(mlp, center, ray, depth, g, w3, wv, cache, packed,
                         want_dw=True, density_activ="softplus"):
-    """One K5 backward launch: g [R*K,4] -> (dcenter, dray [R,3], grads of
-    ``mlp.parameters()`` or None without ``want_dw``)."""
+    """One K5 backward launch: g [R*K,4], with the ``cache`` and the
+    K2Weights ``packed`` of the kept forward launch -> (dcenter, dray [R,3],
+    grads of ``mlp.parameters()`` or None without ``want_dw``)."""
     R, K = depth.shape
     head = (center.data_ptr(), ray.data_ptr(), depth.data_ptr(), g.data_ptr(), R, K,
             w3.data_ptr(), wv.data_ptr())
     return field_launch_bwd("niw_field_pe", mlp, head, [center, ray, depth, w3, wv], g,
-                            cache, weights, R * K, K, [(R, 3), (R, 3)], want_dw,
+                            cache, packed, R * K, K, [(R, 3), (R, 3)], want_dw,
                             density_activ)
 
 
 class _FieldSamples(torch.autograd.Function):
     """out [N,4] of a per-sample field kernel (K5 or K1) from one forward
     launch that keeps its activations (the noised density pre-activation
-    among them); the backward is one backward launch, without the
-    weight-gradient part when no weight needs a gradient. ``a`` and ``b``
-    are the kernel's two differentiable inputs; ``fwd(a, b, keep)`` and
-    ``bwd(a, b, g, cache, weights, want_dw)`` launch it with its other
-    operands bound; ``wrapper`` carries the launch counts."""
+    among them); the backward is one backward launch on the same K2Weights,
+    without the weight-gradient part when no weight needs a gradient. ``a``
+    and ``b`` are the kernel's two differentiable inputs; ``fwd(a, b,
+    keep)`` and ``bwd(a, b, g, cache, packed, want_dw)`` launch it with its
+    other operands bound; ``wrapper`` carries the launch counts."""
 
     N_LEADING = 5   # arguments before *params
 
     @staticmethod
     def forward(ctx, a, b, fwd, bwd, wrapper, *params):
         a, b = a.detach().contiguous(), b.detach().contiguous()
-        out, cache, weights = fwd(a, b, True)
+        out, cache, packed = fwd(a, b, True)
         wrapper.launches += 1
-        ctx.save_for_backward(a, b, cache, *weights)
-        ctx.bwd, ctx.wrapper = bwd, wrapper
+        ctx.save_for_backward(a, b, cache)
+        ctx.bwd, ctx.wrapper, ctx.packed = bwd, wrapper, packed
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out):
-        a, b, cache, *weights = ctx.saved_tensors
+        a, b, cache = ctx.saved_tensors
         want_dw = any(ctx.needs_input_grad[_FieldSamples.N_LEADING:])
-        d_a, d_b, grads = ctx.bwd(a, b, g_out.contiguous(), cache, weights, want_dw)
+        d_a, d_b, grads = ctx.bwd(a, b, g_out.contiguous(), cache, ctx.packed, want_dw)
         ctx.wrapper.backward_launches += 1
         n_params = len(ctx.needs_input_grad) - _FieldSamples.N_LEADING
         return ((d_a, d_b) + (None,) * (_FieldSamples.N_LEADING - 2)
@@ -682,8 +688,8 @@ def fused_apply_nerf_samples_pe(mlp, center, ray, depth, *, progress=None,
             fused_apply_nerf_samples_pe, mlp, c, r,
             lambda c, r, keep: launch_field_pe_fwd(mlp, c, r, d, w3, wv, density_activ,
                                                    noise, keep),
-            lambda c, r, g, cache, weights, want_dw: launch_field_pe_bwd(
-                mlp, c, r, d, g, w3, wv, cache, weights, want_dw, density_activ))
+            lambda c, r, g, cache, packed, want_dw: launch_field_pe_bwd(
+                mlp, c, r, d, g, w3, wv, cache, packed, want_dw, density_activ))
     return out[:, :3].reshape(B, R_img, K, 3), out[:, 3].reshape(B, R_img, K)
 
 

@@ -18,6 +18,9 @@ The CUDA kernels themselves need the card: chip_smoke.py holds them against
 these plain versions there.
 """
 
+import ctypes
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,7 @@ from neural_invertible_warp_tpu.ops.pallas import fused_field as jff
 from neural_invertible_warp_tpu.ops.pallas import fused_pe as jfp
 from neural_invertible_warp_tpu_torch.ops.cuda import fused_field as ff
 from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+from neural_invertible_warp_tpu_torch.ops.nerf_mlp import NerfMLP
 from neural_invertible_warp_tpu_torch.utils import weights
 
 from test_torch_fused_pe import ARCH, C2F, PROGRESS, _rel_l2, setup, small_blocks  # noqa: F401
@@ -220,12 +224,145 @@ def test_field_launchers_reject_cpu_tensors(setup, launch):
             fp.launch_field_pe_fwd(mlp, c, r, d, w3, wv, noise=torch.zeros(2, 8))
         elif launch == "k5_bwd":
             fp.launch_field_pe_bwd(mlp, c, r, d, torch.zeros(16, 4), w3, wv, torch.zeros(4),
-                                   fp.pack_weights(mlp))
+                                   fp.k2_weights(mlp))
         elif launch == "k1_fwd":
             ff.launch_field_fwd(mlp, torch.zeros(4, 63), torch.zeros(4, 27),
                                 noise=torch.zeros(4))
         elif launch == "k1_bwd":
-            ff.launch_field_bwd(mlp, torch.zeros(4, 4), torch.zeros(4), fp.pack_weights(mlp))
+            ff.launch_field_bwd(mlp, torch.zeros(4, 4), torch.zeros(4), fp.k2_weights(mlp))
         else:
             fp.launch_rm_train(mlp, c, r, d, torch.zeros(2, 8), w3, wv,
                                noise=torch.zeros(2, 8), want_prob=True)
+
+
+class _FakeFieldLibrary:
+    """The kernel library's K5 and K1 entry points on the CPU: each launch
+    records its weight operands; the outputs are zeros, and the weight
+    gradients are the packed weights themselves, so that unpacking them must
+    give back the parameters."""
+
+    def __init__(self, mlp):
+        self.packed = fp.pack_weights(mlp)
+        self.calls = []
+
+    def niw_field_pe_fwd_workspace_floats(self, n, keep):
+        return 4
+
+    niw_field_fwd_workspace_floats = niw_field_pe_fwd_workspace_floats
+
+    def niw_field_pe_bwd_workspace_floats(self, n):
+        return 4
+
+    niw_field_bwd_workspace_floats = niw_field_pe_bwd_workspace_floats
+
+    def niw_field_pe_fwd(self, center, ray, depth, noise, R, K, w3, wv, W, W_split, w_lo,
+                         activ, keep, out, ws, stream):
+        self.calls.append(("k5 fwd", W, W_split, w_lo, keep))
+        ctypes.memset(out, 0, R * K * 4 * 4)
+        return 0
+
+    def niw_field_fwd(self, xp, view, noise, N, W, W_split, w_lo, activ, keep, out, ws,
+                      stream):
+        self.calls.append(("k1 fwd", W, W_split, w_lo, keep))
+        ctypes.memset(out, 0, N * 4 * 4)
+        return 0
+
+    def _grads(self, want_dw, dW):
+        for i, w in enumerate(self.packed if want_dw else []):
+            ctypes.memmove(dW[i], w.data_ptr(), w.numel() * 4)
+
+    def niw_field_pe_bwd(self, center, ray, depth, g, R, K, w3, wv, W_split, w_lo, activ,
+                         cache, want_dw, dcenter, dray, dW, ws, stream):
+        self.calls.append(("k5 bwd", None, W_split, w_lo, want_dw))
+        ctypes.memset(dcenter, 0, R * 3 * 4)
+        ctypes.memset(dray, 0, R * 3 * 4)
+        self._grads(want_dw, dW)
+        return 0
+
+    def niw_field_bwd(self, g, N, W_split, w_lo, activ, cache, want_dw, dxp, dview, dW, ws,
+                      stream):
+        self.calls.append(("k1 bwd", None, W_split, w_lo, want_dw))
+        ctypes.memset(dxp, 0, N * 63 * 4)
+        ctypes.memset(dview, 0, N * 27 * 4)
+        self._grads(want_dw, dW)
+        return 0
+
+
+def test_k5_k1_take_the_k2_weights_cache_entry(monkeypatch):
+    """K5 and K1 launch on ``k2_weights(mlp)``: each forward with the
+    entry's fp32 and split pointers and its ``keep`` flag (the kernel reads
+    the split ones in a render, the fp32 ones when it keeps its activations),
+    each backward with the split pointers of the entry that its forward kept
+    (``_FieldSamples`` holds it, also when the cache has dropped it). Two
+    fields rendered over several chunks pack once each; an optimizer step
+    makes a new entry. The weight gradients come back in the packed layout
+    and are unpacked onto ``mlp.parameters()``. The library is a fake here,
+    so only the operands are checked."""
+    fields = [NerfMLP(ARCH, generator=torch.Generator().manual_seed(i)) for i in range(2)]
+    lib = _FakeFieldLibrary(fields[0])
+    monkeypatch.setattr(fp.build, "load_library", lambda: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(fp, "_check_inputs", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    R, n_samples = 3, 16
+    c, r = torch.zeros(R, 3), torch.ones(R, 3)
+    d = torch.linspace(0.1, 1.0, n_samples).expand(R, n_samples).contiguous()
+    w3, wv = fp.band_weights(None, None, "cpu")
+    xp, view = torch.zeros(R * n_samples, 63), torch.zeros(R * n_samples, 27)
+    packs = fp.fused_render_rays_pe_train.packs
+    for _ in range(3):   # render chunks: the coarse and the fine field, K5 and K1
+        for mlp in fields:
+            fp.launch_field_pe_fwd(mlp, c, r, d, w3, wv)
+            ff.launch_field_fwd(mlp, xp, view)
+    assert fp.fused_render_rays_pe_train.packs == packs + 2
+    entries = [fp.k2_weights(mlp) for mlp in fields]
+    assert [call[0] for call in lib.calls] == ["k5 fwd", "k1 fwd"] * 6
+    for i, (_, W, W_split, w_lo, keep) in enumerate(lib.calls):
+        entry = entries[(i // 2) % 2]
+        assert W is entry.ptrs and W_split is entry.split_ptrs
+        assert w_lo == entry.lo == fp.PLANE_FLOATS and keep == 0
+
+    def k5(mlp, c_t):
+        return fp.run_field_kernel(
+            fp.fused_apply_nerf_samples_pe, mlp, c_t, r,
+            lambda c, r, keep: fp.launch_field_pe_fwd(mlp, c, r, d, w3, wv, keep=keep),
+            lambda c, r, g, cache, packed, want_dw: fp.launch_field_pe_bwd(
+                mlp, c, r, d, g, w3, wv, cache, packed, want_dw))
+
+    def k1(mlp, x_t):
+        return fp.run_field_kernel(
+            ff.fused_mlp, mlp, x_t, view,
+            lambda x, v, keep: ff.launch_field_fwd(mlp, x, v, keep=keep),
+            lambda x, v, g, cache, packed, want_dw: ff.launch_field_bwd(
+                mlp, g, cache, packed, want_dw))
+    for frozen in (True, False):   # with the weights frozen, then with dW
+        for mlp in fields:
+            mlp.requires_grad_(not frozen)
+            for run, a in ((k5, c), (k1, xp)):
+                lib.calls.clear()
+                a_t = a.clone().requires_grad_(True)
+                out = run(mlp, a_t)
+                hit = fp._K2_WEIGHTS.pop(mlp)   # the backward reads the entry kept with it
+                out.sum().backward()
+                fp._K2_WEIGHTS[mlp] = hit
+                kept = entries[fields.index(mlp)]
+                (_, W, W_split, w_lo, keep), (_, _, W_split_b, w_lo_b, want_dw) = lib.calls
+                assert keep == 1 and W is kept.ptrs and W_split is kept.split_ptrs
+                assert W_split_b is kept.split_ptrs and w_lo == w_lo_b == fp.PLANE_FLOATS
+                assert want_dw == (0 if frozen else 1)
+                assert torch.equal(a_t.grad, torch.zeros_like(a))
+                if not frozen:
+                    for p, w in zip(mlp.parameters(), fp.unpack_grads(lib.packed)):
+                        assert torch.equal(p.grad, w)
+                    mlp.zero_grad()
+    assert fp.fused_render_rays_pe_train.packs == packs + 2
+    opt = torch.optim.SGD(fields[0].parameters(), lr=1e-3)
+    sum(p.sum() for p in fields[0].parameters()).backward()
+    opt.step()
+    lib.calls.clear()
+    for mlp in fields:
+        fp.launch_field_pe_fwd(mlp, c, r, d, w3, wv)
+    second = fp.k2_weights(fields[0])
+    assert second is not entries[0] and lib.calls[0][2] is second.split_ptrs
+    assert lib.calls[1][2] is entries[1].split_ptrs
+    assert fp.fused_render_rays_pe_train.packs == packs + 3

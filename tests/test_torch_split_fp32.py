@@ -32,6 +32,16 @@ chip_smoke.py's K4 test loss, signed per-ray coefficients on rgb, depth and
 opacity: dcenter/dray must meet their gates and the weight gradients
 TOL_K4_WEIGHT_GRAD, with the weights frozen and with weight gradients, and
 single-pass TF32 must miss them.
+
+K5 and K1, the per-sample field kernels of the fine model, take the same
+two routes, at a fine-sampling shape (32 rays x 64 samples, depths in
+[0,1], all ten PE bands open, the compositing in PyTorch): their render
+forward (no autograd) every product split, signs free, held to the value
+gate on per-sample rgb and density (single-pass TF32 must miss it); under
+autograd an fp32 forward and every backward product split, held to
+chip_smoke.py's field gates under its signed test loss, with and without
+density noise, for K5's dcenter/dray and K1's dxp/dview alike (K1's PE in
+PyTorch is the same fp32 chain as K5's in-kernel PE).
 """
 
 import numpy as np
@@ -53,6 +63,10 @@ TOL = 1e-5                 # chip_smoke.py: TOL["value"], TOL["grad"]
 TOL_ALL_BANDS = 5e-4       # chip_smoke.py: TOL_INPUT_GRAD_ALL_BANDS
 TOL_K4_WEIGHT_GRAD = 5e-5  # chip_smoke.py: TOL_K4_WEIGHT_GRAD
 K4_DEPTH_COEFF = 0.01      # chip_smoke.py: K4_DEPTH_COEFF
+FINE_R, FINE_K = 32, 64    # a fine-sampling chunk cut to 32 rays
+TOL_FIELD_INPUT_GRAD = 5e-5  # chip_smoke.py: TOL_FIELD_INPUT_GRAD
+TOL_RELU_REL_L2 = 1e-2     # chip_smoke.py: TOL_RELU_REL_L2
+NOISE_REG = 1.0            # chip_smoke.py: NOISE_REG
 
 
 def _low_bits(x):
@@ -96,12 +110,12 @@ def _mm_fp32(a, b):
 class _EmulatedLinear(torch.autograd.Function):
     """x @ w.T + b with the product ``fwd`` in the forward and ``bwd`` in
     the input gradient and the weight gradient (whose reduction runs over
-    samples)."""
+    samples), or ``bwd_w`` in the weight gradient where it is given."""
 
     @staticmethod
-    def forward(ctx, x, w, b, fwd, bwd):
+    def forward(ctx, x, w, b, fwd, bwd, bwd_w=None):
         ctx.save_for_backward(x, w)
-        ctx.bwd = bwd
+        ctx.bwd, ctx.bwd_w = bwd, bwd_w or bwd
         x2 = x.reshape(-1, x.shape[-1])
         return (fwd(x2, w.t()) + b).reshape(x.shape[:-1] + (w.shape[0],))
 
@@ -110,9 +124,9 @@ class _EmulatedLinear(torch.autograd.Function):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
         x2 = x.reshape(-1, x.shape[-1])
-        dw = ctx.bwd(x2.t(), g2).t() if ctx.needs_input_grad[1] else None
+        dw = ctx.bwd_w(x2.t(), g2).t() if ctx.needs_input_grad[1] else None
         db = g2.sum(0) if ctx.needs_input_grad[2] else None
-        return ctx.bwd(g2, w).reshape(x.shape), dw, db, None, None
+        return ctx.bwd(g2, w).reshape(x.shape), dw, db, None, None, None
 
 
 class _HoldSigns(torch.autograd.Function):
@@ -232,19 +246,27 @@ def _rel(got, ref):
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
 
 
-def _report(names, gates, ref, f64, runs):
-    """Print each run's distance from the fp32 chain (and float64's); the
-    names of the tensors where each run misses its gate."""
+def _rel_l2(got, ref):
+    return float(torch.linalg.norm(got.double() - ref.double())
+                 / torch.linalg.norm(ref.double()))
+
+
+def _report(names, gates, ref, f64, runs, rel_l2=()):
+    """Print each run's distance from the fp32 chain (and float64's), as
+    max |x - ref| / max |ref|, or for the names in ``rel_l2`` as
+    |x - ref|_2 / |ref|_2; the names of the tensors where each run misses
+    its gate."""
     print("  {:<24} {}  f64: plain {}".format(
         "max |x - fp32| / max", "  ".join("{:>14}".format(k) for k in runs),
         "  ".join("{:>9}".format(k[:9]) for k in runs)))
     misses = {k: [] for k in runs}
     for i, (name, gate) in enumerate(zip(names, gates)):
-        errs = {k: _rel(run[i], ref[i]) for k, run in runs.items()}
-        print("  {:<24} {}  (gate {:.0e})  f64: {:.2e} {}".format(
+        dist = _rel_l2 if name in rel_l2 else _rel
+        errs = {k: dist(run[i], ref[i]) for k, run in runs.items()}
+        print("  {:<24} {}  (gate {:.0e}{})  f64: {:.2e} {}".format(
             name, "  ".join("{:14.2e}".format(e) for e in errs.values()), gate,
-            _rel(ref[i], f64[i]), " ".join("{:.2e}".format(_rel(run[i], f64[i]))
-                                             for run in runs.values())))
+            ", L2" if name in rel_l2 else "", dist(ref[i], f64[i]),
+            " ".join("{:.2e}".format(dist(run[i], f64[i])) for run in runs.values())))
         for k, e in errs.items():
             if e > gate:
                 misses[k].append(name)
@@ -324,6 +346,116 @@ def test_3xtf32_holds_k4_gates_and_tf32_does_not(progress, tol_in, frozen):
         "TF32": run(mm=_mm_tf32, fwd=_mm_fp32)})
     assert not misses["K4 3xTF32"], misses
     assert misses["TF32"], "single-pass TF32 in the backward meets every gate"
+
+
+def _fine_rays(seed):
+    """Rays [R,3], stratified depths [R,K] in [0,1] (nerf_llff_repr's
+    range, as chip_smoke.py's fine_batch), a standard-normal density-noise
+    draw [R,K] (NOISE_REG 1) and per-ray coefficients [R,5] of the field test
+    loss sum(a rgb + b depth + c opacity), all N(0, 1), as there."""
+    rng = np.random.RandomState(seed)
+    center = rng.randn(FINE_R, 3) * 0.05
+    ray = np.concatenate([(rng.rand(FINE_R, 2) - 0.5) * 1.2, np.ones((FINE_R, 1))], -1)
+    depth = (rng.rand(FINE_R, FINE_K) + np.arange(FINE_K)) / FINE_K
+    noise = rng.randn(FINE_R, FINE_K)
+    coeffs = rng.randn(FINE_R, 5)
+    return [torch.tensor(a, dtype=torch.float32) for a in (center, ray, depth, noise, coeffs)]
+
+
+def _field_chain(mlp, center, ray, depth, activ, noise=None, coeffs=None, mm=None, fwd=None,
+                 f64=False):
+    """The field per sample as K5 and K1 compute it: the points, the unit
+    rays and their PE in fp32 (in K5's kernel, or in PyTorch ahead of K1's),
+    then the layers. Without ``coeffs``, [rgb [R*K,3], density [R*K]]; with
+    them, [loss, dcenter, dray, dxp, dview] + the weight gradients of the
+    field test loss, the field composited in PyTorch as the fallback and
+    MLP-only tiers composite it (dxp, dview: K1's own input cotangents). With
+    ``mm`` every layer product through it, in the forward as well unless
+    ``fwd`` names the forward's product; the rgb output layer (128 -> 3), in
+    fp32 in the kernels' per-sample head, takes ``mm`` in its weight
+    gradient only, as the kernels do. With ``f64`` the layers and the
+    compositing in float64."""
+    if f64:
+        copied = NerfMLP(mlp.arch, mlp.view_dep)   # not a deepcopy: see _chain
+        copied.load_state_dict(mlp.state_dict())
+        mlp = copied.double()
+    last = mlp.mlp_rgb[-1].weight
+    linear = F.linear
+
+    def emulated(x, w, b=None):
+        if mm is None:
+            return linear(x, w, b)
+        if w is last:
+            return _EmulatedLinear.apply(x, w, b, _mm_fp32, _mm_fp32, mm)
+        return _EmulatedLinear.apply(x, w, b, fwd or mm, mm)
+    dtype = torch.float64 if f64 else torch.float32
+    c = center.clone().requires_grad_(True)
+    r = ray.clone().requires_grad_(True)
+    xp, view = mlp.encode(*nerf_mlp.sample_points(c, r, depth[..., None]))
+    F.linear = emulated
+    try:
+        rgb_s, dens = mlp.forward_encoded(xp.to(dtype), view.to(dtype), activ,
+                                          None if noise is None else noise.to(dtype))
+    finally:
+        F.linear = linear
+    if coeffs is None:
+        return [rgb_s.detach().reshape(-1, 3), dens.detach().reshape(-1)]
+    rgb, d, op, _ = render.composite(r.to(dtype), rgb_s, dens, depth.to(dtype)[..., None])
+    coeffs = coeffs.to(dtype)
+    loss = (torch.sum(coeffs[:, :3] * rgb) + torch.sum(coeffs[:, 3:4] * d)
+            + torch.sum(coeffs[:, 4:] * op))
+    grads = torch.autograd.grad(loss, [c, r, xp, view] + list(mlp.parameters()))
+    return [loss.detach()] + [g.detach() for g in grads]
+
+
+@pytest.mark.parametrize("activ", ["softplus", "relu"])
+def test_3xtf32_holds_field_render_gate_and_tf32_does_not(activ):
+    """K5's and K1's render forward (no autograd, no noise: every validation
+    and evaluation chunk of the fine model): every layer product split,
+    signs free; per-sample rgb and density must meet the value gate, and
+    single-pass TF32 there must miss it."""
+    mlp = _flagship_mlp()
+    center, ray, depth, _, _ = _fine_rays(seed=60 + len(activ))
+    args = (mlp, center, ray, depth, activ)
+    ref, f64 = _field_chain(*args), _field_chain(*args, f64=True)
+    print("\n{}: K5's and K1's render (every forward product split, signs free) and "
+          "single-pass TF32 in its place, {} rays x {} samples in [0,1]".format(
+              activ, FINE_R, FINE_K))
+    misses = _report(["rgb", "density"], [TOL] * 2, ref, f64, {
+        "K5/K1 3xTF32": _field_chain(*args, mm=_mm_3xtf32),
+        "TF32": _field_chain(*args, mm=_mm_tf32)})
+    assert not misses["K5/K1 3xTF32"], misses
+    assert misses["TF32"], "single-pass TF32 in the forward meets the value gate"
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noise"])
+@pytest.mark.parametrize("activ", ["softplus", "relu"])
+def test_3xtf32_holds_field_gates(activ, noisy):
+    """K5 and K1 under autograd: the kept forward in fp32 (gemm_kernel's
+    order), every backward product split, under the field test loss, with
+    and without density noise. The gates are chip_smoke.py's for its field
+    cases: softplus weight gradients and K1's dxp/dview 1e-5 of max,
+    dcenter/dray TOL_FIELD_INPUT_GRAD; with relu density every gradient leaf
+    relative L2 1e-2. Single-pass TF32 in the backward must miss the
+    softplus gates."""
+    mlp = _flagship_mlp()
+    center, ray, depth, noise, coeffs = _fine_rays(seed=70 + 2 * len(activ) + noisy)
+    args = (mlp, center, ray, depth, activ, noise * NOISE_REG if noisy else None, coeffs)
+    names = ["loss", "dcenter", "dray", "dxp", "dview"] + [
+        "d" + n for n, _ in mlp.named_parameters()]
+    if activ == "relu":
+        gates, rel_l2 = [TOL] + [TOL_RELU_REL_L2] * (len(names) - 1), set(names[1:])
+    else:
+        gates, rel_l2 = [TOL] + [TOL_FIELD_INPUT_GRAD] * 2 + [TOL] * (len(names) - 3), ()
+    ref, f64 = _field_chain(*args), _field_chain(*args, f64=True)
+    print("\n{}{}: K5's and K1's scheme (fp32 forward, split backward) and single-pass "
+          "TF32 in its place".format(activ, ", noise" if noisy else ""))
+    misses = _report(names, gates, ref, f64, {
+        "K5/K1 3xTF32": _field_chain(*args, mm=_mm_3xtf32, fwd=_mm_fp32),
+        "TF32": _field_chain(*args, mm=_mm_tf32, fwd=_mm_fp32)}, rel_l2)
+    assert not misses["K5/K1 3xTF32"], misses
+    if activ == "softplus":
+        assert misses["TF32"], "single-pass TF32 in the backward meets every gate"
 
 
 def test_k2_weights_packed_once_per_step():
