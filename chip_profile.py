@@ -32,8 +32,10 @@ For each window it prints the wall time per unit (host clock,
 device-synced, taken without the profiler), the device-busy time per unit
 (the sum of the durations of all device kernels and copies in the trace),
 the idle share, the count of device operations (kernels and copies) per
-unit, the peak device memory, and the device time by kernel name (the
-twelve largest, and every kernel of the fused warp and of K7).
+unit, the device time per unit of K6's and K7's kernels (forward and
+backward, the adjoints apart), the peak device memory, and the device time
+by kernel name (the twelve largest, and every kernel of the fused warp and
+of K7).
 Every line names the card and its power limit. Needs one CUDA device.
 """
 
@@ -94,15 +96,26 @@ def window(label, unit, n_units, fn):
     by_name, n_events = device_time_by_name(prof)
     busy_ms = sum(by_name.values()) / 1e3 / n_units
     cs.check(busy_ms > 0, "the profiler saw no device time")
-    ours = sum(t for n, t in by_name.items() if "niw::" in n) / 1e3 / n_units
-    k7 = sum(t for n, t in by_name.items() if "niw::corr::" in n) / 1e3 / n_units
+    def ms(*keys):
+        return sum(t for n, t in by_name.items() if any(k in n for k in keys)) / 1e3 / n_units
+    ours, k7 = ms("niw::"), ms("niw::corr::")
+    # K6's and K7's kernels per unit (the first K6 design's reduce_ctas and dcode
+    # kernels too), so that two trees compare on this line
+    per_kernel = "K6 forward {:.4f} ms (prep {:.4f}), backward {:.4f} ms (epilogue {:.4f}); " \
+        "K7 forward {:.4f} ms, adjoint in f1 {:.4f}, adjoint in f2 {:.4f}".format(
+            ms("niw::inn::prep_kernel", "niw::inn::fwd_kernel"), ms("niw::inn::prep_kernel"),
+            ms("niw::inn::bwd_kernel", "niw::inn::reduce_ctas_kernel", "niw::inn::epilogue_kernel",
+               "niw::inn::dcode_kernel"),
+            ms("niw::inn::reduce_ctas_kernel", "niw::inn::epilogue_kernel", "niw::inn::dcode_kernel"),
+            ms("niw::corr::fwd_kernel"), ms("niw::corr::adj_kernel<false>"),
+            ms("niw::corr::adj_kernel<true>"))
     print("profile {}: {:.2f} ms wall per {} (unprofiled), device busy {:.2f} ms, idle share "
           "{:.1f}%; {:.0f} device operations per {}; hand-written kernels {:.2f} ms (K7 and its "
-          "adjoint {:.3f} ms, {:.1f}% of busy), everything else {:.2f} ms; peak device memory "
-          "{:.2f} GB; card: {}".format(
+          "adjoint {:.3f} ms, {:.1f}% of busy; {}), everything else {:.2f} ms; peak device "
+          "memory {:.2f} GB; card: {}".format(
               label, wall_ms, unit, busy_ms, 100 * max(0.0, 1 - busy_ms / wall_ms),
-              n_events / n_units, unit, ours, k7, 100 * k7 / busy_ms, busy_ms - ours, peak_gb,
-              cs.card_line()))
+              n_events / n_units, unit, ours, k7, 100 * k7 / busy_ms, per_kernel, busy_ms - ours,
+              peak_gb, cs.card_line()))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, t in ranked[:TOP] + [kv for kv in ranked[TOP:]
                                    if "niw::inn::" in kv[0] or "niw::corr::" in kv[0]]:

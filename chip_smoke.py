@@ -65,7 +65,9 @@ Phases, one or more lines each:
      flagship's warp shape [18,226,3] x 128 latent dims and at a ragged, a
      narrow-latent and a 4096-point shape, under the loss sum(sin(3 out))
      and again under sum(out); two backward runs must give the same bits;
-     kernel, plain version and chain timed side by side;
+     kernel, plain version and chain timed side by side, the launch
+     sequences alone (CUDA graph replay) also at 4096 points, and the
+     kernels of each launch sequence counted (at most 2 per direction);
   9. kernel_k7: K7 (PDC-Net's 9x9 local correlation) and its adjoints in f1
      and in f2 through the wrappers against their plain versions on the card,
      at the calls of a 480x640 pair ([1,128,120,160], [1,256,60,80],
@@ -73,7 +75,8 @@ Phases, one or more lines each:
      and at a ragged shape with B = 2; the zero-displacement channel of
      identical maps against their mean of squares; the autograd Function's
      gradients against the adjoint kernels; kernel, plain version and the
-     unfold + einsum route timed as CUDA graph replays, beside the bound;
+     unfold + einsum route timed as CUDA graph replays, beside the bound and
+     the CTAs of each launch;
  10. fused-warp slice: the flagship again with ``tpu.fused_inn: true``, 100
      steps through the Trainer: K6 forward, K6 backward and K2 once per step
      each, step-0 losses equal to the fused-off run's of phase 4, the loss
@@ -83,7 +86,8 @@ Phases, one or more lines each:
      a seed) through PdcNetMatcher over the pose-nearest pairs of 6 views at
      480x640 and one 300x400 pair: 24 K7 and 9 adjoint launches per pair;
      flow and P_R finite, P_R in [0, 1]; the whole matcher against the same
-     module with K7's plain versions; keypoint counts both ways; ms per pair.
+     module with K7's plain versions; keypoint counts both ways; ms per pair,
+     and the device time of one pair (torch.profiler) with K7's share.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -1699,6 +1703,30 @@ def inn_device_ms(net, code, pts, alpha):
                 graph_ms(lambda: fi.launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g))]
 
 
+def inn_kernels_per_call(net, code, pts, alpha):
+    """(forward, backward): the device kernels of one K6 forward and of one
+    K6 backward launch sequence, counted from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn as fi
+    counts = []
+    with torch.no_grad():
+        rw1, rw2 = fi.row_windows(pts.shape[1], alpha, pts.device)
+        codes = fi.block_codes(net, code).contiguous()
+        leaves = [l.detach().contiguous() for l in fi.leaves_of(net)]
+        g = torch.ones_like(pts)
+        _, prep = fi.launch_inn_fwd(pts, rw1, rw2, codes, leaves)
+        for fn in (lambda: fi.launch_inn_fwd(pts, rw1, rw2, codes, leaves),
+                   lambda: fi.launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts.append(sum(1 for e in prof.events()
+                              if e.device_type == DeviceType.CUDA and "niw::inn::" in e.name))
+    return counts
+
+
 def phase_kernel_inn(device):
     """K6 through the wrapper under autograd against its plain version and
     the plain chain. Returns the JSON records of K6 fwd and K6 bwd."""
@@ -1765,26 +1793,36 @@ def phase_kernel_inn(device):
         bwd[key] = inn_backward_ms(which, net, code, pts, alpha)
         bwd["fwd_bwd_" + key] = time_ms(lambda which=which: inn_grads(which, net, code, pts, alpha))
     fwd["device_ms"], bwd["device_ms"] = inn_device_ms(net, code, pts, alpha)
+    # and at the 4096-point shape: one image, 256 backward CTAs
+    _, B4, N4, d4, _ = INN_CASES[3]
+    fwd["device_ms_4096"], bwd["device_ms_4096"] = inn_device_ms(
+        *inn_setup(B4, N4, d4, 103, device), alpha)
+    fwd["kernels_per_call"], bwd["kernels_per_call"] = inn_kernels_per_call(net, code, pts, alpha)
+    check(1 <= fwd["kernels_per_call"] <= 2 and 1 <= bwd["kernels_per_call"] <= 2,
+          "K6 launches {} kernels forward and {} backward (at most 2 each)".format(
+              fwd["kernels_per_call"], bwd["kernels_per_call"]))
     leaves = fi.leaves_of(net)
     codes = torch.empty(3, B, d_feat, device="meta")
     rw = torch.empty(N, device="meta")
-    prep = torch.empty(build.load_library().lib.niw_inn_prep_floats(B), device="meta")
+    prep = torch.empty(build.load_library().lib.niw_inn_prep_floats(B, N), device="meta")
     flops = 2 * (B * N * INN_MACS_PER_POINT + B * d_feat * INN_MACS_PER_IMAGE_AND_LATENT_DIM)
-    fwd["bound_ms"], fwd["bound_by"] = bound(flops, [pts, rw, rw, codes] + leaves, [pts])
-    # the recomputed forward, the input-gradient and the weight-gradient products
+    fwd["bound_ms"], fwd["bound_by"] = bound(flops, [pts, rw, rw, codes] + leaves, [pts, prep])
+    # the recomputed pre-activations, the input-gradient and the weight-gradient products
     bwd["bound_ms"], bwd["bound_by"] = bound(
         3 * flops, [pts, pts, rw, rw, codes, prep] + leaves, [pts, codes] + leaves)
     print("kernels: K6 at [{},{},3] x {} latent dims, alpha {}, through the wrapper (host "
           "included): forward {:.4f} ms (plain version {:.4f}, chain {:.4f}); backward alone "
           "{:.4f} ms (plain version {:.4f}, chain {:.4f}); forward + backward {:.4f} ms (plain "
           "version {:.4f}, chain {:.4f}); the launch sequences alone, replayed from a CUDA "
-          "graph: forward {:.4f} ms (bound {:.5f}), backward {:.4f} ms (bound {:.5f}); "
-          "card: {}".format(
+          "graph: forward {:.4f} ms (bound {:.5f}), backward {:.4f} ms (bound {:.5f}), at "
+          "[1,4096,3] forward {:.4f} ms, backward {:.4f} ms; kernels per launch sequence: forward "
+          "{}, backward {}; card: {}".format(
               B, N, d_feat, alpha, fwd["ms"], fwd["plain_ms"], fwd["chain_ms"],
               bwd["ms"], bwd["plain_ms"], bwd["chain_ms"],
               bwd["fwd_bwd_ms"], bwd["fwd_bwd_plain_ms"], bwd["fwd_bwd_chain_ms"],
               fwd["device_ms"], fwd["bound_ms"], bwd["device_ms"], bwd["bound_ms"],
-              card_line()))
+              fwd["device_ms_4096"], bwd["device_ms_4096"], fwd["kernels_per_call"],
+              bwd["kernels_per_call"], card_line()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
     return records
 
@@ -1821,7 +1859,9 @@ def phase_kernel_k7(device):
     unfold + einsum route. Returns the JSON records of K7 and its adjoint in
     f1 (the one the matcher launches)."""
     from neural_invertible_warp_tpu_torch.ops import correlation as plain
+    from neural_invertible_warp_tpu_torch.ops.cuda import build
     from neural_invertible_warp_tpu_torch.ops.cuda import correlation as k7
+    lib = build.load_library().lib
     failures = []
     records = {k: dict(max_abs_err=0.0, by_shape={}) for k in ("k7_fwd", "k7_adj")}
     adj2 = records["k7_adj"]["f2_adjoint"] = dict(max_abs_err=0.0, by_shape={})
@@ -1866,6 +1906,8 @@ def phase_kernel_k7(device):
         t["k7_fwd"]["bound_ms"], t["k7_fwd"]["bound_by"] = bound(flops, [f1, f2], [out])
         for k in ("k7_adj", "k7_adj_f2"):
             t[k]["bound_ms"], t[k]["bound_by"] = bound(flops, [m, f1], [df1])
+        for w, k in enumerate(("k7_fwd", "k7_adj", "k7_adj_f2")):   # CTAs of one launch
+            t[k]["ctas"] = lib.niw_corr_ctas(w, B, C, H, W)
         if i == 0:      # the library route computes the same functions
             compare("unfold+einsum", k7_library(f1, f2), plain.local_correlation(f1, f2),
                     TOL_K7, failures)
@@ -1875,10 +1917,10 @@ def phase_kernel_k7(device):
                           ("k7_adj_f2", "adjoint in f2")):
             r = t[key]
             print("  {:<14} {:.4f} ms (wrapper {}), plain version {:.4f} ms, unfold + einsum "
-                  "(two calls) {}, bound {:.5f} ms ({}); graph replay".format(
+                  "(two calls) {}, bound {:.5f} ms ({}); graph replay; {} CTAs".format(
                       name, r["ms"], "{:.4f}".format(r["wrapper_ms"]) if "wrapper_ms" in r
                       else "-", r["plain_ms"], "{:.4f} ms".format(r["library_ms"])
-                      if "library_ms" in r else "-", r["bound_ms"], r["bound_by"]))
+                      if "library_ms" in r else "-", r["bound_ms"], r["bound_by"], r["ctas"]))
         records["k7_fwd"]["by_shape"][shape] = t["k7_fwd"]
         records["k7_adj"]["by_shape"][shape] = t["k7_adj"]
         adj2["by_shape"][shape] = t["k7_adj_f2"]
@@ -1894,6 +1936,14 @@ def phase_kernel_k7(device):
           "{:.4f} ms (CUDA graph replay), bound {:.5f} ms; card: {}".format(
               first, records["k7_fwd"]["ms"], records["k7_adj"]["ms"],
               adj2["by_shape"][first]["ms"], records["k7_fwd"]["bound_ms"], card_line()))
+    print("kernels: K7 per shape, forward / adjoint in f1 / adjoint in f2, ms by CUDA graph "
+          "replay (CTAs per launch; bound ms): " + "; ".join(
+              "{} {:.4f} / {:.4f} / {:.4f} ({} / {} / {}; {:.5f})".format(
+                  shape, r["ms"], records["k7_adj"]["by_shape"][shape]["ms"],
+                  adj2["by_shape"][shape]["ms"], r["ctas"],
+                  records["k7_adj"]["by_shape"][shape]["ctas"], adj2["by_shape"][shape]["ctas"],
+                  r["bound_ms"])
+              for shape, r in records["k7_fwd"]["by_shape"].items()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
     return records
 
@@ -1947,6 +1997,20 @@ def phase_pose_init_pdcnet(device):
     check(launches == {"k7_fwd": K7_FWD_PER_PAIR * len(pairs),
                        "k7_adj": K7_ADJ_PER_PAIR * len(pairs)},
           "launches {} for {} pairs".format(launches, len(pairs)))
+    # device time of one 480x640 pair: the durations of its device operations
+    # in a torch.profiler trace (once more, after the counts were read)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    s, i, j = pairs[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        matcher(i, j, s["image"][i], s["image"][j])
+        torch.cuda.synchronize()
+    busy = {"all": 0.0, "k7": 0.0}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and "#" not in evt.name:
+            busy["all"] += evt.time_range.elapsed_us() / 1e3
+            if "niw::corr::" in evt.name:
+                busy["k7"] += evt.time_range.elapsed_us() / 1e3
 
     # the kernel route against the same module with K7's plain versions, and
     # on two pairs both against a float64 evaluation of the plain route
@@ -1996,11 +2060,12 @@ def phase_pose_init_pdcnet(device):
     del net64
     ms = statistics.median(seconds[1:-1]) * 1e3
     print("pdcnet: launches {} ({} and {} per pair); {:.1f} ms per 480x640 pair (median of "
-          "pairs 2-{}, first {:.1f} ms), {:.1f} ms at {}x{}; kernel vs plain route: flow "
-          "{:.2e} of max (tol {:.0e}), P_R {:.2e} (tol {:.0e}); card: {}".format(
+          "pairs 2-{}, first {:.1f} ms), {:.1f} ms at {}x{}; device time per 480x640 pair "
+          "{:.3f} ms, K7 and its adjoint {:.3f} ms of it (torch.profiler); kernel vs plain "
+          "route: flow {:.2e} of max (tol {:.0e}), P_R {:.2e} (tol {:.0e}); card: {}".format(
               launches, K7_FWD_PER_PAIR, K7_ADJ_PER_PAIR, ms, len(pairs) - 1,
-              seconds[0] * 1e3, seconds[-1] * 1e3, *PDCNET_DTU_HW, worst["flow"],
-              TOL_PDCNET_FLOW, worst["p_r"], TOL_PDCNET_PR, card_line()))
+              seconds[0] * 1e3, seconds[-1] * 1e3, *PDCNET_DTU_HW, busy["all"], busy["k7"],
+              worst["flow"], TOL_PDCNET_FLOW, worst["p_r"], TOL_PDCNET_PR, card_line()))
     check(not failures, "kernel and plain routes of the matcher disagree: {}".format(failures))
     return launches
 

@@ -19,79 +19,116 @@
 // w1 [n_out,128], b1 [n_out]. Any B, N, d_feat >= 1.
 //
 // Bound: about 17,000 multiply-adds per point forward (3 x (26 + 13 + 4) x
-// 128) and 30 weight tensors of 0.5 MB together: microseconds on this card.
-// What the caller pays for is launches and host time, so the design is few
-// launches, not peak arithmetic:
-// - The latent part of a first layer is the same for every point of an
-//   image. A preparation kernel (one warp per hidden unit and branch) takes
-//   the row norm, the scale g / |v|, and per image the bias
-//   cb = scale (code . v[lat]) + b. The [P, d_feat] latent operands and the
-//   per-point latent matmul of the TPU kernel do not exist here; dcode is a
-//   per-image sum.
-// - Main kernels: one CTA of 128 threads per tile of 16 points of one image;
-//   thread j owns hidden unit j, holds its 26 (13) scaled embed weights in
-//   registers and walks the tile's points, whose embeddings sit in shared
-//   memory (broadcast reads). Output layers reduce over the 128 units through
-//   shared memory in a fixed order.
-// - The backward recomputes (the TPU kernel does too): keeping the six
-//   pre-activations would be 3 KB per point written and read back for 39
-//   FMAs per unit; instead the forward pass of a tile keeps only each block's
-//   input point and branch-b output in shared memory.
-// - Weight gradients without atomics: thread j accumulates its own column of
-//   dW over the tile in registers and adds it to the CTA's own partial
-//   buffer; a second kernel adds the partials per image in a fixed order, and
-//   an epilogue (one warp per unit and branch) adds the images, forms the
-//   latent rows of dW from the per-image sums, and runs the weight-norm
-//   backward. Two runs give the same bits.
+// 128), three times that backward, and 30 weight tensors of 0.5 MB together:
+// a few microseconds on this card. What sets the time is the serial chain per
+// point (embedding, a 26-long FMA chain per unit, a precise softplus, an
+// output reduction over 128 units, six times per direction) and how many
+// warps run it side by side, so the points run in parallel across warps:
+// - Preparation (one warp per hidden unit, branch and pair of images): the
+//   row norm, the scale g / |v|, per image the bias cb = scale (code . v[lat])
+//   + b, and the scaled embed rows W_eff[k][j] = v[j][k] scale[j] in
+//   unit-contiguous rows. The [P, d_feat] latent operands and the per-point
+//   latent matmul of the TPU kernel do not exist here; dcode is a per-image
+//   sum. It stays a launch of its own: folded into the main kernel, every
+//   CTA would read all six first layers (0.47 MB at d_feat 128), ~250 MB
+//   from L2 per forward.
+// - Forward: a warp per point, 4 warps per CTA; lane l owns units 4 l ..
+//   4 l + 3 and reads their W_eff as 16-byte loads (the same lines for every
+//   warp: L1 hits). The warp writes the point's embedding into its own shared
+//   row between two __syncwarp (a lane per column), and each output layer is
+//   a fixed-order butterfly of __shfl_xor_sync over the lanes' 4-unit partial
+//   sums, which leaves the result in every lane: the coupling updates and the
+//   rotation need no barrier. A forward CTA runs no CTA-wide barrier (the
+//   first design ran 26 per 16-point tile). It keeps, per point, each block's
+//   output and (theta, t0, t1) (18 floats) after the preparation rows.
+// - Backward: a warp owns 2 points of a 16-point tile (8 warps) and reads
+//   their kept state instead of recomputing the blocks. Per branch the warp
+//   recomputes the pre-activations, forms dh = (dL/dout . w1) softplus' and
+//   the cotangent of its inputs (per lane the 4 units' sum of dE W_eff over
+//   each column times the column's chain factor, then one butterfly per
+//   coordinate), and writes the embedding, h, dh and dout of its points into
+//   a double-buffered tile buffer. After one barrier per branch (6 per tile)
+//   thread t adds, for unit t % 128 and every other row, the tile's terms of
+//   dW (embed rows), the dh sum (db0, and per image dcb), dw1 and db1 in point
+//   order into the CTA's partial buffer. Three CTAs per SM (80 registers).
+// - Weight gradients without atomics: a CTA walks the tiles of one image
+//   (about three CTAs per SM over all images, one tile each at the flagship
+//   shape) and owns one partial buffer. One epilogue launch: CTAs of 8 units
+//   of a branch add each row of their units over the backward CTAs (a lane
+//   every 32nd CTA in order, two 16-byte loads per CTA, then the butterfly)
+//   and per image the dh row over the image's CTAs, form the latent rows of
+//   dW from the per-image sums (the images in order) and run the weight-norm
+//   backward (a warp per unit); CTAs of their own per (block, image) form the
+//   dcodes. Two launches per direction; two runs give the same bits.
 // - fp32 FMAs, precise sinf / cosf / expf / log1pf, no fast-math, no TF32.
 #include "nerf_field.cuh"
 
 namespace niw {
 namespace inn {
 
-constexpr int H = 128;            // hidden width = threads per CTA
-constexpr int PT = 16;            // points per tile
+constexpr int H = 128;            // hidden width
 constexpr int LB = 6;             // PE bands
 constexpr int NE_A = 2 + 4 * LB;  // embed columns of branch a (26)
 constexpr int NE_B = 1 + 2 * LB;  // ... of branch b (13)
-constexpr int HS = H + 1;         // padded shared-memory row
-constexpr int MAX_CTAS = 528;     // 4 per SM
-static_assert(PT * 8 == H, "the output reduction maps 8 lanes to each point");
+constexpr int UPL = H / 32;       // units per lane
+constexpr int FWD_WARPS = 4;      // forward CTA: 4 warps
+constexpr int FWD_NP = 1;         // points per forward warp
+constexpr int NPB = 2;            // points per backward warp
+constexpr int BWD_WARPS = 8;      // backward CTA: 8 warps, a tile of 16 points
+constexpr int PT = BWD_WARPS * NPB;
+constexpr int BWD_NT = 32 * BWD_WARPS;
+constexpr int BWD_MINB = 3;       // backward CTAs resident per SM
+constexpr int N_SM = 132;         // the H100's SMs
+constexpr int STATE = 18;         // floats kept per point: x1, x2, x3, o0, o1, o2
+static_assert(UPL == 4, "a lane's units are one 16-byte row segment");
 
-// Partial weight-gradient buffer of one CTA (and of one image after the first
-// reduction), per block: rows of H floats
+// Partial weight-gradient buffer of one backward CTA, per block: rows of H floats
 //   0..25 dW_a embed rows | 26 dh_a sum (db0_a, and the image's dcb_a) |
 //   27 dw1_a | 28..40 dW_b embed rows | 41 dh_b sum | 42..44 dw1_b
 // then 8 floats: db1_a, db1_b[3], unused.
-constexpr int ROW_A = 0, ROW_DH_A = NE_A, ROW_W1_A = NE_A + 1;
-constexpr int ROW_B = NE_A + 2, ROW_DH_B = ROW_B + NE_B, ROW_W1_B = ROW_DH_B + 1;
-constexpr int ROWS = ROW_W1_B + 3;
+constexpr int ROW_A = 0, ROW_DH_A = NE_A;
+constexpr int ROW_B = NE_A + 2, ROW_DH_B = ROW_B + NE_B;
+constexpr int ROWS = ROW_DH_B + 4;
 constexpr int PBLK = ROWS * H + 8;
 constexpr int PCTA = 3 * PBLK;
 
-// prep: per branch bi = 2 i + br, (2 + B) rows of H floats: scale, norm, cb[B]
-__host__ __device__ inline long long prep_stride(int B) { return (long long)(2 + B) * H; }
-
-__device__ __forceinline__ int focus_axis(int i) { return 2 - i; }
-__device__ __forceinline__ int other_axis0(int i) { return i == 2 ? 1 : 0; }
-__device__ __forceinline__ int other_axis1(int i) { return i == 0 ? 1 : 2; }
+// prep: per branch bi = 2 i + br, rows of H floats: scale, norm, cb[B], then
+// NE rows of W_eff[k][j] (26 rows reserved for either branch); after the six
+// branches the forward's kept state, STATE floats per point.
+__host__ __device__ inline long long prep_w(int B) { return (long long)(2 + B) * H; }
+__host__ __device__ inline long long prep_stride(int B) { return prep_w(B) + NE_A * H; }
 
 __device__ __forceinline__ float softplus100(float x) {
   return __fdiv_rn(softplus_f(100.f * x), 100.f);
 }
 
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 struct Args {
   const float *pts, *rw1, *rw2, *codes, *g, *prep;
   const float* W[30];
-  int B, N, d_feat, cpi;   // cpi: CTAs per image
-  float *out, *dpts, *part;
+  int B, N, d_feat, cpi;   // cpi: backward CTAs per image
+  float *out, *dpts, *part, *state;
 };
 
 // ------------------------------------------------------------- preparation
-// One warp per (branch, hidden unit): norm, scale, and per image the bias.
+constexpr int PREP_IMGS = 2;      // images per preparation warp
+
+// One warp per (branch, hidden unit, group of PREP_IMGS images): norm, scale,
+// the group's biases; the first group's warp writes scale, norm and W_eff.
 static __global__ void prep_kernel(Args a, float* prep) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (warp >= 6 * H) return;
+  const int groups = (a.B + PREP_IMGS - 1) / PREP_IMGS, lane = threadIdx.x & 31;
+  const long long gw = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (gw >= 6LL * H * groups) return;
+  const int warp = (int)(gw / groups), ig = (int)(gw % groups);
   const int bi = warp / H, j = warp % H, i = bi >> 1, br = bi & 1;
   const int ne = br ? NE_B : NE_A, n_in = ne + a.d_feat;
   const float* v = a.W[i * 10 + br * 5] + (size_t)j * n_in;
@@ -101,9 +138,14 @@ static __global__ void prep_kernel(Args a, float* prep) {
   const float norm = fmaxf(sqrtf(n2), 1e-12f);
   const float scale = __fdiv_rn(a.W[i * 10 + br * 5 + 1][j], norm);
   float* p = prep + bi * prep_stride(a.B);
-  if (lane == 0) { p[j] = scale; p[H + j] = norm; }
+  if (ig == 0) {
+    if (lane == 0) { p[j] = scale; p[H + j] = norm; }
+    if (lane < ne) p[prep_w(a.B) + lane * H + j] = v[lane] * scale;
+  }
   const float b0 = a.W[i * 10 + br * 5 + 2][j];
-  for (int img = 0; img < a.B; img++) {
+  const int img_end = min(a.B, (ig + 1) * PREP_IMGS);
+#pragma unroll
+  for (int img = ig * PREP_IMGS; img < img_end; img++) {
     const float* code = a.codes + ((size_t)i * a.B + img) * a.d_feat;
     float dot = 0.f;
     for (int d = lane; d < a.d_feat; d += 32) dot = fmaf(code[d], v[ne + d], dot);
@@ -112,403 +154,567 @@ static __global__ void prep_kernel(Args a, float* prep) {
   }
 }
 
-// ------------------------------------------------------------ shared state
-struct Smem {
-  float x[PT][3];        // the tile's points, updated block by block
-  float e[PT][NE_A];     // embedding of the current branch's input
-  float rw1[PT], rw2[PT];
-  float hid[PT][HS];     // hidden activations (backward: dE)
-  float w1[3][H];        // output-layer rows
-  float out[PT][3];      // output of the current branch
+// ------------------------------------------------------- one warp's points
+// A branch's operands for one image: W_eff [NE][H], cb [H], w1 [NO][H], b1 [NO].
+struct Branch {
+  const float *Wt, *cb, *w1, *b1;
 };
 
-struct SmemBwd : Smem {
-  float xs[4][PT][3];    // input points of blocks 0..2, and the final output
-  float th[3][PT][3];    // (theta, t0, t1) of each block
-  float Ws[NE_A][HS];    // effective embed rows of the current branch, [k][j]
-  float dx[PT][3];       // cotangent of the current block's output, then input
-  float de[PT][NE_A];    // cotangent of each embed column, chained to its coordinate
-  float dout[PT][3];     // cotangent of the current branch's output
-};
-
-// e[p][:] = emb_D of D coordinates of src[p]: column c < D the coordinate,
-// then per band l: sin over the coordinates, cos over the coordinates.
-template <int D>
-__device__ __forceinline__ void embed(Smem& s, float (*src)[3], int ax0, int ax1) {
-  constexpr int NE = D * (1 + 2 * LB);
-  for (int idx = threadIdx.x; idx < PT * NE; idx += H) {
-    const int p = idx / NE, c = idx % NE;
-    float val;
-    if (c < D) {
-      val = src[p][c == 0 ? ax0 : ax1];
-    } else {
-      const int cc = c - D, l = cc / (2 * D), r = cc % (2 * D), d = r % D;
-      const float ang = __fmul_rn(src[p][d == 0 ? ax0 : ax1], pe_freq(l));
-      val = (r / D) ? cosf(ang) : sinf(ang);
-    }
-    s.e[p][c] = val;
-  }
+__device__ __forceinline__ Branch branch_of(const Args& a, int i, int br, int img) {
+  const float* p = a.prep + (2 * i + br) * prep_stride(a.B);
+  return {p + prep_w(a.B), p + (2 + img) * H, a.W[i * 10 + br * 5 + 3], a.W[i * 10 + br * 5 + 4]};
 }
 
-// The chain factor of embed column c onto its coordinate: 1 for the raw
-// column, f_l cos(ang) for a sin column, -f_l sin(ang) for a cos column
-// (both read from the partner column of the same band).
+// Column c of emb_D(u0, u1): c < D the coordinate, then per band l: sin over
+// the coordinates, cos over the coordinates.
 template <int D>
-__device__ __forceinline__ float embed_chain(const Smem& s, int p, int c) {
+__device__ __forceinline__ float embed_col(int c, float u0, float u1) {
+  if (c < D) return c == 0 ? u0 : u1;
+  const int cc = c - D, l = cc / (2 * D), r = cc % (2 * D), d = r % D;
+  const float ang = __fmul_rn(d == 0 ? u0 : u1, pe_freq(l));
+  return (r / D) ? cosf(ang) : sinf(ang);
+}
+
+// The chain factor of embed column c onto its coordinate (c % D): 1 for the
+// raw column, f_l cos(ang) for a sin column, -f_l sin(ang) for a cos column
+// (both read from the partner column of the same band of the row e).
+template <int D>
+__device__ __forceinline__ float chain_col(const float* e, int c) {
   if (c < D) return 1.f;
   const int cc = c - D, l = cc / (2 * D), r = cc % (2 * D), d = r % D;
   const int band = D + l * 2 * D;
-  return (r / D) ? -pe_freq(l) * s.e[p][band + d] : pe_freq(l) * s.e[p][band + D + d];
+  return (r / D) ? -pe_freq(l) * e[band + d] : pe_freq(l) * e[band + D + d];
 }
 
-// Thread j's scaled embed weights of one branch.
-template <int NE>
-__device__ __forceinline__ void load_weights(const float* v, int n_in, float scale,
-                                             float (&w)[NE]) {
-  const float* row = v + (size_t)threadIdx.x * n_in;
+// The warp's NP points' embeddings into their rows e[p][0..NE), a lane per entry.
+template <int D, int NE, int NP>
+__device__ __forceinline__ void write_embed(float (*e)[NE_A], const float (&u)[NP][2],
+                                            int lane) {
+  for (int idx = lane; idx < NP * NE; idx += 32) {
+    const int p = idx / NE, c = idx % NE;
+    float u0 = u[0][0], u1 = u[0][1];
 #pragma unroll
-  for (int k = 0; k < NE; k++) w[k] = row[k] * scale;
+    for (int q = 1; q < NP; q++)
+      if (p == q) { u0 = u[q][0]; u1 = u[q][1]; }
+    e[p][c] = embed_col<D>(c, u0, u1);
+  }
 }
 
-template <int NE>
-__device__ __forceinline__ float pre_activation(const Smem& s, int p, const float (&w)[NE],
-                                                float rw, float cb) {
-  float acc = 0.f;
+// pre[p][u] = rw[p] (sum_k e[p][k] W_eff[k][4 lane + u]) + cb[4 lane + u]:
+// the columns in order, as fmaf from 0.
+template <int NE, int NP>
+__device__ __forceinline__ void pre_acts(float (*e)[NE_A], const Branch& br,
+                                         const float (&rw)[NP], int lane,
+                                         float (&pre)[NP][UPL]) {
+  float acc[NP][UPL];
 #pragma unroll
-  for (int k = 0; k < NE; k++) acc = fmaf(s.e[p][k], w[k], acc);
-  return fmaf(rw, acc, cb);
-}
-
-// out[p][c] = sum_j hid[p][j] w1[c][j] + b1[c]: 8 lanes per point, each over
-// 16 strided units, then a butterfly over the 8 (a fixed order).
-template <int NO>
-__device__ __forceinline__ void output_layer(Smem& s, int np, const float* b1) {
-  const int p = threadIdx.x >> 3, q = threadIdx.x & 7;
-  float part[NO];
+  for (int p = 0; p < NP; p++)
 #pragma unroll
-  for (int c = 0; c < NO; c++) part[c] = 0.f;
-  if (p < np) {
+    for (int u = 0; u < UPL; u++) acc[p][u] = 0.f;
 #pragma unroll
-    for (int i = 0; i < H / 8; i++) {
-      const int j = q + 8 * i;
-      const float h = s.hid[p][j];
+  for (int k = 0; k < NE; k++) {
+    const float4 w = ldg4(br.Wt + k * H + 4 * lane);
 #pragma unroll
-      for (int c = 0; c < NO; c++) part[c] = fmaf(h, s.w1[c][j], part[c]);
+    for (int p = 0; p < NP; p++) {
+      const float ev = e[p][k];
+      acc[p][0] = fmaf(ev, w.x, acc[p][0]);
+      acc[p][1] = fmaf(ev, w.y, acc[p][1]);
+      acc[p][2] = fmaf(ev, w.z, acc[p][2]);
+      acc[p][3] = fmaf(ev, w.w, acc[p][3]);
     }
   }
+  const float4 cb = ldg4(br.cb + 4 * lane);
 #pragma unroll
-  for (int c = 0; c < NO; c++)
-    for (int off = 4; off; off >>= 1) part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
-  if (q == 0 && p < np)
+  for (int p = 0; p < NP; p++) {
+    pre[p][0] = fmaf(rw[p], acc[p][0], cb.x);
+    pre[p][1] = fmaf(rw[p], acc[p][1], cb.y);
+    pre[p][2] = fmaf(rw[p], acc[p][2], cb.z);
+    pre[p][3] = fmaf(rw[p], acc[p][3], cb.w);
+  }
+}
+
+// out[p][c] = sum_j h[p][j] w1[c][j] + b1[c]: per lane over its 4 units in
+// order, then the butterfly over the lanes; the same bits in every lane.
+template <int NO, int NP>
+__device__ __forceinline__ void out_layer(const float (&h)[NP][UPL], const Branch& br, int lane,
+                                          float (&out)[NP][NO]) {
 #pragma unroll
-    for (int c = 0; c < NO; c++) s.out[p][c] = part[c] + b1[c];
-}
-
-// One branch forward on the embedding in s.e: fills s.out[p][0..NO).
-// Ends with a barrier.
-template <int NE, int NO>
-__device__ __forceinline__ void branch_forward(Smem& s, int np, const Args& a, int i, int br,
-                                               int img, const float* rw) {
-  const int j = threadIdx.x, n_in = NE + a.d_feat;
-  const float* const* W = a.W + i * 10 + br * 5;
-  const float* prep = a.prep + (i * 2 + br) * prep_stride(a.B);
-  float w[NE];
-  load_weights<NE>(W[0], n_in, prep[j], w);
-  const float cb = prep[(2 + img) * H + j];
-  for (int p = 0; p < np; p++) s.hid[p][j] = softplus100(pre_activation<NE>(s, p, w, rw[p], cb));
+  for (int c = 0; c < NO; c++) {
+    float w[UPL];
 #pragma unroll
-  for (int c = 0; c < NO; c++) s.w1[c][j] = W[3][c * H + j];
-  __syncthreads();
-  output_layer<NO>(s, np, W[4]);
-  __syncthreads();
+    for (int u = 0; u < UPL; u++) w[u] = __ldg(br.w1 + c * H + 4 * lane + u);
+    const float b1 = __ldg(br.b1 + c);
+#pragma unroll
+    for (int p = 0; p < NP; p++) {
+      float part = 0.f;
+#pragma unroll
+      for (int u = 0; u < UPL; u++) part = fmaf(h[p][u], w[u], part);
+      out[p][c] = warp_sum(part) + b1;
+    }
+  }
 }
 
-// The rotation of block i on s.x from s.out = (theta, t0, t1). One thread
-// per point; the caller puts a barrier after it.
-__device__ __forceinline__ void rotate(Smem& s, int np, int i) {
-  const int t = threadIdx.x;
-  if (t >= np) return;
-  const int oa = other_axis0(i), ob = other_axis1(i);
-  const float th = s.out[t][0];
-  const float cth = cosf(th), sth = sinf(th);
-  const float u0 = s.x[t][oa] - s.out[t][1], u1 = s.x[t][ob] - s.out[t][2];
-  s.x[t][oa] = cth * u0 + sth * u1;
-  s.x[t][ob] = -sth * u0 + cth * u1;
+// One branch forward on the warp's points with coordinates u: out[p][0..NO).
+template <int D, int NE, int NO, int NP>
+__device__ __forceinline__ void branch_forward(float (*e)[NE_A], const Branch& br,
+                                               const float (&u)[NP][2], const float (&rw)[NP],
+                                               int lane, float (&out)[NP][NO]) {
+  __syncwarp();   // the warp is done reading the previous embedding
+  write_embed<D, NE, NP>(e, u, lane);
+  __syncwarp();
+  float pre[NP][UPL], h[NP][UPL];
+  pre_acts<NE, NP>(e, br, rw, lane, pre);
+#pragma unroll
+  for (int p = 0; p < NP; p++)
+#pragma unroll
+    for (int v = 0; v < UPL; v++) h[p][v] = softplus100(pre[p][v]);
+  out_layer<NO, NP>(h, br, lane, out);
 }
 
-// The three blocks on the tile in s.x. With `keep`, a SmemBwd's xs and th
-// are filled for the backward.
-template <bool KEEP>
-__device__ __forceinline__ void blocks_forward(Smem& s, SmemBwd* k, int np, const Args& a,
-                                               int img) {
-  const int t = threadIdx.x;
-  for (int i = 0; i < 3; i++) {
-    if (KEEP && t < PT)
-      for (int c = 0; c < 3; c++) k->xs[i][t][c] = s.x[t][c];
-    embed<2>(s, s.x, other_axis0(i), other_axis1(i));
-    __syncthreads();
-    branch_forward<NE_A, 1>(s, np, a, i, 0, img, s.rw2);
-    if (t < np) s.x[t][focus_axis(i)] -= s.out[t][0];
-    __syncthreads();
-    embed<1>(s, s.x, focus_axis(i), 0);
-    __syncthreads();
-    branch_forward<NE_B, 3>(s, np, a, i, 1, img, s.rw1);
-    if (KEEP && t < PT)
-      for (int c = 0; c < 3; c++) k->th[i][t][c] = s.out[t][c];
-    rotate(s, np, i);
-    __syncthreads();
+template <int I>
+struct Axes {
+  static constexpr int FX = 2 - I, OA = I == 2 ? 1 : 0, OB = I == 0 ? 1 : 2;
+};
+
+// Block I on the warp's points x (in place); o: its (theta, t0, t1).
+template <int I, int NP>
+__device__ __forceinline__ void block_forward(const Args& a, int img, float (*e)[NE_A],
+                                              const float (&rw1)[NP], const float (&rw2)[NP],
+                                              int lane, float (&x)[NP][3], float (&o)[NP][3]) {
+  constexpr int FX = Axes<I>::FX, OA = Axes<I>::OA, OB = Axes<I>::OB;
+  float u[NP][2], s[NP][1];
+#pragma unroll
+  for (int p = 0; p < NP; p++) { u[p][0] = x[p][OA]; u[p][1] = x[p][OB]; }
+  branch_forward<2, NE_A, 1, NP>(e, branch_of(a, I, 0, img), u, rw2, lane, s);
+#pragma unroll
+  for (int p = 0; p < NP; p++) {
+    x[p][FX] -= s[p][0];
+    u[p][0] = x[p][FX];
+    u[p][1] = 0.f;
   }
-  if (KEEP && t < PT)
-    for (int c = 0; c < 3; c++) k->xs[3][t][c] = s.x[t][c];
+  branch_forward<1, NE_B, 3, NP>(e, branch_of(a, I, 1, img), u, rw1, lane, o);
+#pragma unroll
+  for (int p = 0; p < NP; p++) {
+    const float th = o[p][0];
+    const float cth = cosf(th), sth = sinf(th);
+    const float u0 = x[p][OA] - o[p][1], u1 = x[p][OB] - o[p][2];
+    x[p][OA] = cth * u0 + sth * u1;
+    x[p][OB] = -sth * u0 + cth * u1;
+  }
 }
 
-// The tile's points (zero beyond np) and row windows into shared memory.
-__device__ __forceinline__ void load_tile(Smem& s, const Args& a, int img, int n0, int np) {
-  const int t = threadIdx.x;
-  if (t < PT * 3) {
-    const int p = t / 3, c = t % 3;
-    s.x[p][c] = p < np ? a.pts[((size_t)img * a.N + n0 + p) * 3 + c] : 0.f;
-  }
-  if (t < PT) {
-    s.rw1[t] = t < np ? a.rw1[n0 + t] : 1.f;
-    s.rw2[t] = t < np ? a.rw2[n0 + t] : 1.f;
-  }
-  __syncthreads();
+// Three floats per point n0 + p of image img from src (row stride `stride`,
+// offset `off`); zeros past N.
+template <int NP>
+__device__ __forceinline__ void load3(const Args& a, const float* src, int stride, int off,
+                                      int img, int n0, float (&v)[NP][3]) {
+#pragma unroll
+  for (int p = 0; p < NP; p++)
+#pragma unroll
+    for (int c = 0; c < 3; c++)
+      v[p][c] = n0 + p < a.N ? src[((size_t)img * a.N + n0 + p) * stride + off + c] : 0.f;
 }
 
-static __global__ void __launch_bounds__(H) fwd_kernel(Args a) {
-  __shared__ Smem s;
-  const int img = blockIdx.x / a.cpi, t = threadIdx.x;
-  for (int tile = blockIdx.x % a.cpi; tile * PT < a.N; tile += a.cpi) {
-    const int n0 = tile * PT, np = min(PT, a.N - n0);
-    load_tile(s, a, img, n0, np);
-    blocks_forward<false>(s, nullptr, np, a, img);
-    if (t < np * 3) a.out[((size_t)img * a.N + n0) * 3 + t] = s.x[t / 3][t % 3];
-    __syncthreads();
+// dst[img][n0 + p][off + c] = v[p][c] for the points inside N, a lane per entry.
+template <int NP>
+__device__ __forceinline__ void store3(float* dst, int stride, int off, const Args& a, int img,
+                                       int n0, const float (&v)[NP][3], int lane) {
+#pragma unroll
+  for (int p = 0; p < NP; p++)
+#pragma unroll
+    for (int c = 0; c < 3; c++)
+      if (lane == p * 3 + c && n0 + p < a.N)
+        dst[((size_t)img * a.N + n0 + p) * stride + off + c] = v[p][c];
+}
+
+template <int NP>
+__device__ __forceinline__ void load_windows(const Args& a, int n0, float (&rw1)[NP],
+                                             float (&rw2)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; p++) {
+    const bool in = n0 + p < a.N;
+    rw1[p] = in ? a.rw1[n0 + p] : 1.f;
+    rw2[p] = in ? a.rw2[n0 + p] : 1.f;
   }
+}
+
+// Grid: B x ceil(N / (FWD_WARPS NP)) CTAs, NP points per warp. Besides out,
+// it keeps each block's output and (theta, t0, t1) for the backward.
+static __global__ void __launch_bounds__(32 * FWD_WARPS) fwd_kernel(Args a) {
+  constexpr int NP = FWD_NP;
+  __shared__ float es[FWD_WARPS][NP][NE_A];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (a.N + FWD_WARPS * NP - 1) / (FWD_WARPS * NP);
+  const int img = blockIdx.x / tiles, n0 = (blockIdx.x % tiles * FWD_WARPS + warp) * NP;
+  float x[NP][3], rw1[NP], rw2[NP], o[NP][3];
+  load3<NP>(a, a.pts, 3, 0, img, n0, x);
+  load_windows<NP>(a, n0, rw1, rw2);
+  block_forward<0, NP>(a, img, es[warp], rw1, rw2, lane, x, o);
+  store3<NP>(a.state, STATE, 0, a, img, n0, x, lane);
+  store3<NP>(a.state, STATE, 9, a, img, n0, o, lane);
+  block_forward<1, NP>(a, img, es[warp], rw1, rw2, lane, x, o);
+  store3<NP>(a.state, STATE, 3, a, img, n0, x, lane);
+  store3<NP>(a.state, STATE, 12, a, img, n0, o, lane);
+  block_forward<2, NP>(a, img, es[warp], rw1, rw2, lane, x, o);
+  store3<NP>(a.state, STATE, 6, a, img, n0, x, lane);
+  store3<NP>(a.state, STATE, 15, a, img, n0, o, lane);
+  store3<NP>(a.out, 3, 0, a, img, n0, x, lane);
 }
 
 // ---------------------------------------------------------------- backward
-// One branch backward. In: s.e (the branch's embedding), s.dout[p][0..NO)
-// (cotangent of its output), rw. Out: s.de[p][k], the cotangent of embed
-// column k chained onto its coordinate; the CTA's partial rows of dW (embed
-// rows), dh sum, dw1 and db1 (stored when `first`, else added). Ends with a
-// barrier.
-template <int NE, int NO, int D>
-__device__ __forceinline__ void branch_backward(SmemBwd& s, int np, const Args& a, int i,
-                                                int br, int img, const float* rw,
-                                                float* part, bool first) {
-  const int j = threadIdx.x, n_in = NE + a.d_feat;
-  const float* const* W = a.W + i * 10 + br * 5;
-  const float* prep = a.prep + (i * 2 + br) * prep_stride(a.B);
-  float w[NE], dW[NE], w1[NO], dw1[NO];
-  load_weights<NE>(W[0], n_in, prep[j], w);
+// One branch's operands of the weight-gradient sums, per point of the tile.
+struct Tile {
+  float e[PT][NE_A];     // embedding
+  float h[PT][H];        // hidden activations
+  float dh[PT][H];       // dL/dh softplus'(pre), before the window
+  float dout[PT][4];     // cotangent of the branch output
+  float rw[PT];          // the branch's window
+};
+
+// One branch backward on the warp's points (rows warp NPB.. of the tile
+// buffer): recompute the pre-activations on the embedding of u, write e, h,
+// dh, dout and rw, and return the cotangent of the D coordinates of u (the
+// same bits in every lane).
+template <int D, int NE, int NO>
+__device__ __forceinline__ void branch_backward(Tile& tb, int warp, int lane, const Branch& br,
+                                                const float (&u)[NPB][2],
+                                                const float (&rw)[NPB],
+                                                const float (&dout)[NPB][NO],
+                                                float (&dcoord)[NPB][D]) {
+  float (*e)[NE_A] = tb.e + warp * NPB;
+  write_embed<D, NE, NPB>(e, u, lane);
 #pragma unroll
-  for (int k = 0; k < NE; k++) { s.Ws[k][j] = w[k]; dW[k] = 0.f; }
+  for (int p = 0; p < NPB; p++) {
+    if (lane == p) tb.rw[warp * NPB + p] = rw[p];
 #pragma unroll
-  for (int c = 0; c < NO; c++) { w1[c] = W[3][c * H + j]; dw1[c] = 0.f; }
-  const float cb = prep[(2 + img) * H + j];
-  float dh_sum = 0.f;
-  for (int p = 0; p < np; p++) {
-    const float pre = pre_activation<NE>(s, p, w, rw[p], cb);
-    const float h = softplus100(pre);
-    float dh = 0.f;
+    for (int c = 0; c < NO; c++)
+      if (lane == NPB + p * NO + c) tb.dout[warp * NPB + p][c] = dout[p][c];
+  }
+  __syncwarp();
+  float pre[NPB][UPL];
+  pre_acts<NE, NPB>(e, br, rw, lane, pre);
+  float w1[NO][UPL];
 #pragma unroll
-    for (int c = 0; c < NO; c++) {
-      const float g = s.dout[p][c];
-      dh = fmaf(g, w1[c], dh);
-      dw1[c] = fmaf(h, g, dw1[c]);
+  for (int c = 0; c < NO; c++)
+#pragma unroll
+    for (int v = 0; v < UPL; v++) w1[c][v] = __ldg(br.w1 + c * H + 4 * lane + v);
+  float dE[NPB][UPL];
+#pragma unroll
+  for (int p = 0; p < NPB; p++) {
+    float h[UPL], dh[UPL];
+#pragma unroll
+    for (int v = 0; v < UPL; v++) {
+      h[v] = softplus100(pre[p][v]);
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < NO; c++) d = fmaf(dout[p][c], w1[c][v], d);
+      dh[v] = d * sigmoid_f(100.f * pre[p][v]);
+      dE[p][v] = rw[p] * dh[v];       // the window scales the embed part only
     }
-    dh *= sigmoid_f(100.f * pre);
-    dh_sum += dh;
-    const float dE = rw[p] * dh;      // the window scales the embed part only
-#pragma unroll
-    for (int k = 0; k < NE; k++) dW[k] = fmaf(s.e[p][k], dE, dW[k]);
-    s.hid[p][j] = dE;
+    *reinterpret_cast<float4*>(&tb.h[warp * NPB + p][4 * lane]) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(&tb.dh[warp * NPB + p][4 * lane]) =
+        make_float4(dh[0], dh[1], dh[2], dh[3]);
   }
-  float* rows = part + (br ? ROW_B : ROW_A) * H;
-  if (first) {
+  // cotangent of the inputs: per lane sum_k chain_k (sum_u dE_u W_eff[k][u]),
+  // per coordinate, then over the lanes
+  float part[NPB][D];
 #pragma unroll
-    for (int k = 0; k < NE; k++) rows[k * H + j] = dW[k];
-    rows[NE * H + j] = dh_sum;
+  for (int p = 0; p < NPB; p++)
 #pragma unroll
-    for (int c = 0; c < NO; c++) rows[(NE + 1 + c) * H + j] = dw1[c];
-  } else {
+    for (int d = 0; d < D; d++) part[p][d] = 0.f;
 #pragma unroll
-    for (int k = 0; k < NE; k++) rows[k * H + j] += dW[k];
-    rows[NE * H + j] += dh_sum;
+  for (int k = 0; k < NE; k++) {
+    const float4 w = ldg4(br.Wt + k * H + 4 * lane);
 #pragma unroll
-    for (int c = 0; c < NO; c++) rows[(NE + 1 + c) * H + j] += dw1[c];
+    for (int p = 0; p < NPB; p++) {
+      float de = 0.f;
+      de = fmaf(dE[p][0], w.x, de);
+      de = fmaf(dE[p][1], w.y, de);
+      de = fmaf(dE[p][2], w.z, de);
+      de = fmaf(dE[p][3], w.w, de);
+      part[p][k % D] = fmaf(de, chain_col<D>(e[p], k), part[p][k % D]);
+    }
   }
-  if (j < NO) {
-    float db1 = 0.f;
-    for (int p = 0; p < np; p++) db1 += s.dout[p][j];
-    float* slot = part + ROWS * H + (br ? 1 + j : 0);
-    *slot = first ? db1 : *slot + db1;
-  }
-  __syncthreads();
-  // cotangent of the embed columns: de[p][k] = sum_j dE[p][j] W[k][j]
-  for (int idx = j; idx < np * NE; idx += H) {
-    const int p = idx / NE, k = idx % NE;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int jj = 0; jj < H; jj++) acc = fmaf(s.hid[p][jj], s.Ws[k][jj], acc);
-    s.de[p][k] = acc * embed_chain<D>(s, p, k);
-  }
-  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < NPB; p++)
+#pragma unroll
+    for (int d = 0; d < D; d++) dcoord[p][d] = warp_sum(part[p][d]);
 }
 
-static __global__ void __launch_bounds__(H) bwd_kernel(Args a) {
-  __shared__ SmemBwd s;
-  const int img = blockIdx.x / a.cpi, t = threadIdx.x;
+// The tile's terms of one branch's partial rows (rows: the branch's first row
+// in the CTA's buffer; db1: its bias slots), added in point order: thread t
+// owns unit t % H and the rows t / H, t / H + BWD_NT / H, ...
+template <int NE, int NO>
+__device__ __forceinline__ void weight_grads(const Tile& tb, int np, float* rows, float* db1,
+                                             bool first) {
+  constexpr int NQ = BWD_NT / H, NR = NE + 1 + NO, RPT = (NR + NQ - 1) / NQ;
+  const int j = threadIdx.x % H, q = threadIdx.x / H;
+  float acc[RPT];
+#pragma unroll
+  for (int m = 0; m < RPT; m++) acc[m] = 0.f;
+  for (int p = 0; p < np; p++) {
+    const float dh = tb.dh[p][j], dE = tb.rw[p] * dh, h = tb.h[p][j];
+#pragma unroll
+    for (int m = 0; m < RPT; m++) {
+      const int r = q + NQ * m;
+      if (r < NE) acc[m] = fmaf(tb.e[p][r], dE, acc[m]);
+      else if (r == NE) acc[m] += dh;
+      else if (r < NR) acc[m] = fmaf(h, tb.dout[p][r - NE - 1], acc[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < RPT; m++) {
+    const int r = q + NQ * m;
+    if (r < NR) {
+      float* dst = rows + r * H + j;
+      *dst = first ? acc[m] : *dst + acc[m];
+    }
+  }
+  if (threadIdx.x < NO) {
+    float s = 0.f;
+    for (int p = 0; p < np; p++) s += tb.dout[p][threadIdx.x];
+    db1[threadIdx.x] = first ? s : db1[threadIdx.x] + s;
+  }
+}
+
+// Block I backward for the warp's points nw, nw + 1, from the forward's kept
+// state; dx: the cotangent of the block's output in, of its input out. Runs
+// two CTA-wide barriers (one per branch); nb counts the branches done, whose
+// parity picks the tile buffer.
+template <int I>
+__device__ __forceinline__ void block_backward(const Args& a, int img, int nw, Tile* tiles,
+                                               int& nb, int warp, int lane, int np, float* part,
+                                               bool first, const float (&rw1)[NPB],
+                                               const float (&rw2)[NPB], float (&dx)[NPB][3]) {
+  constexpr int FX = Axes<I>::FX, OA = Axes<I>::OA, OB = Axes<I>::OB;
+  float* blk = part + I * PBLK;
+  float xout[NPB][3], o[NPB][3];
+  load3<NPB>(a, a.state, STATE, 3 * I, img, nw, xout);
+  load3<NPB>(a, a.state, STATE, 9 + 3 * I, img, nw, o);
+  // rotation backward: (o0', o1') = R(-th) (o - t)
+  float dout_b[NPB][3], u[NPB][2];
+#pragma unroll
+  for (int p = 0; p < NPB; p++) {
+    const float th = o[p][0];
+    const float cth = cosf(th), sth = sinf(th);
+    const float on0 = xout[p][OA], on1 = xout[p][OB];
+    const float don0 = dx[p][OA], don1 = dx[p][OB];
+    const float du0 = cth * don0 - sth * don1, du1 = sth * don0 + cth * don1;
+    dout_b[p][0] = don0 * on1 - don1 * on0;
+    dout_b[p][1] = -du0;
+    dout_b[p][2] = -du1;
+    dx[p][OA] = du0;
+    dx[p][OB] = du1;
+    u[p][0] = xout[p][FX];       // focus' (the rotation leaves it)
+    u[p][1] = 0.f;
+  }
+  float dc_b[NPB][1], dout_a[NPB][1];
+  Tile& tb = tiles[nb & 1];
+  branch_backward<1, NE_B, 3>(tb, warp, lane, branch_of(a, I, 1, img), u, rw1, dout_b, dc_b);
+  // focus' = focus - s: the cotangent of focus', and of s
+  float xin[NPB][3];
+  if (I == 0)
+    load3<NPB>(a, a.pts, 3, 0, img, nw, xin);
+  else
+    load3<NPB>(a, a.state, STATE, 3 * (I - 1), img, nw, xin);
+#pragma unroll
+  for (int p = 0; p < NPB; p++) {
+    dx[p][FX] += dc_b[p][0];
+    dout_a[p][0] = -dx[p][FX];
+    u[p][0] = xin[p][OA];
+    u[p][1] = xin[p][OB];
+  }
+  __syncthreads();
+  weight_grads<NE_B, 3>(tb, np, blk + ROW_B * H, blk + ROWS * H + 1, first);
+  nb++;
+  float dc_a[NPB][2];
+  Tile& ta = tiles[nb & 1];
+  branch_backward<2, NE_A, 1>(ta, warp, lane, branch_of(a, I, 0, img), u, rw2, dout_a, dc_a);
+#pragma unroll
+  for (int p = 0; p < NPB; p++) {
+    dx[p][OA] += dc_a[p][0];
+    dx[p][OB] += dc_a[p][1];
+  }
+  __syncthreads();
+  weight_grads<NE_A, 1>(ta, np, blk + ROW_A * H, blk + ROWS * H, first);
+  nb++;
+}
+
+// Grid: B x cpi CTAs; CTA c of an image walks its tiles c, c + cpi, ...
+static __global__ void __launch_bounds__(BWD_NT, BWD_MINB) bwd_kernel(Args a) {
+  __shared__ __align__(16) Tile tiles[2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int img = blockIdx.x / a.cpi;
   float* part = a.part + (size_t)blockIdx.x * PCTA;
+  int nb = 0;
   bool first = true;
   for (int tile = blockIdx.x % a.cpi; tile * PT < a.N; tile += a.cpi) {
-    const int n0 = tile * PT, np = min(PT, a.N - n0);
-    load_tile(s, a, img, n0, np);
-    blocks_forward<true>(s, &s, np, a, img);
-    if (t < PT * 3) {
-      const int p = t / 3, c = t % 3;
-      s.dx[p][c] = p < np ? a.g[((size_t)img * a.N + n0 + p) * 3 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 2; i >= 0; i--) {
-      const int fx = focus_axis(i), oa = other_axis0(i), ob = other_axis1(i);
-      // rotation backward: (o0', o1') = R(-th) (o - t)
-      if (t < np) {
-        const float th = s.th[i][t][0];
-        const float cth = cosf(th), sth = sinf(th);
-        const float on0 = s.xs[i + 1][t][oa], on1 = s.xs[i + 1][t][ob];
-        const float don0 = s.dx[t][oa], don1 = s.dx[t][ob];
-        const float du0 = cth * don0 - sth * don1, du1 = sth * don0 + cth * don1;
-        s.dout[t][0] = don0 * on1 - don1 * on0;
-        s.dout[t][1] = -du0;
-        s.dout[t][2] = -du1;
-        s.dx[t][oa] = du0;
-        s.dx[t][ob] = du1;
-      }
-      embed<1>(s, s.xs[i + 1], fx, 0);
-      __syncthreads();
-      branch_backward<NE_B, 3, 1>(s, np, a, i, 1, img, s.rw1, part + i * PBLK, first);
-      // focus' = focus - s: the cotangent of focus', and of s
-      if (t < np) {
-        float dfn = s.dx[t][fx];
-        for (int k = 0; k < NE_B; k++) dfn += s.de[t][k];
-        s.dx[t][fx] = dfn;
-        s.dout[t][0] = -dfn;
-      }
-      embed<2>(s, s.xs[i], oa, ob);
-      __syncthreads();
-      branch_backward<NE_A, 1, 2>(s, np, a, i, 0, img, s.rw2, part + i * PBLK, first);
-      if (t < np) {
-        float d0 = s.dx[t][oa], d1 = s.dx[t][ob];
-        for (int k = 0; k < NE_A; k += 2) { d0 += s.de[t][k]; d1 += s.de[t][k + 1]; }
-        s.dx[t][oa] = d0;
-        s.dx[t][ob] = d1;
-      }
-      __syncthreads();
-    }
-    if (t < np * 3) a.dpts[((size_t)img * a.N + n0) * 3 + t] = s.dx[t / 3][t % 3];
+    const int n0 = tile * PT, np = min(PT, a.N - n0), nw = n0 + warp * NPB;
+    float rw1[NPB], rw2[NPB], dx[NPB][3];
+    load_windows<NPB>(a, nw, rw1, rw2);
+    load3<NPB>(a, a.g, 3, 0, img, nw, dx);
+    block_backward<2>(a, img, nw, tiles, nb, warp, lane, np, part, first, rw1, rw2, dx);
+    block_backward<1>(a, img, nw, tiles, nb, warp, lane, np, part, first, rw1, rw2, dx);
+    block_backward<0>(a, img, nw, tiles, nb, warp, lane, np, part, first, rw1, rw2, dx);
+    store3<NPB>(a.dpts, 3, 0, a, img, nw, dx, lane);
     first = false;
-    __syncthreads();
   }
 }
 
-// per_img[img][e] = sum over the image's CTAs of part[cta][e], in CTA order.
-static __global__ void reduce_ctas_kernel(const float* part, int cpi, float* per_img) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x, img = blockIdx.y;
-  if (e >= PCTA) return;
-  const float* p = part + (size_t)img * cpi * PCTA + e;
-  float acc = 0.f;
-  for (int c = 0; c < cpi; c++) acc += p[(size_t)c * PCTA];
-  per_img[(size_t)img * PCTA + e] = acc;
-}
-
+// ---------------------------------------------------------------- epilogue
 struct EpilogueArgs {
-  const float *per_img, *codes, *prep;
+  const float *part, *codes, *prep;
   const float* W[30];
   float* dW[30];
   float* dcodes;
-  int B, d_feat;
+  int B, d_feat, cpi;
 };
 
-// One warp per (branch, hidden unit): the images added in order, the latent
-// rows of dW = sum_img code[img] (x) dcb[img], and the weight-norm backward
+constexpr int EPI_NT = 512, EPI_WARPS = EPI_NT / 32;
+constexpr int EPI_UNITS = 8;                     // units per weight-norm CTA
+constexpr int EPI_WN_CTAS = 6 * H / EPI_UNITS;   // weight-norm CTAs
+constexpr int EPI_ROWS = NE_A + 2;               // a branch's rows at most
+constexpr int EPI_IMGS = 1024;                   // images per pass of the latent rows
+
+// The 8 consecutive floats at offset e (32-byte aligned) of the partial
+// buffers of the backward CTAs [t0, t1), each added in a fixed order: lane l
+// adds CTAs t0 + l, t0 + l + 32, ... in order, then the butterfly. Every lane
+// calls it and gets the same bits; a load fills a whole 32-byte sector.
+__device__ __forceinline__ void cta_sum8(const float* part, long long e, int t0, int t1,
+                                         int lane, float (&out)[8]) {
+  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int t = t0 + lane; t < t1; t += 32) {
+    const float4 x = ldg4(part + (long long)t * PCTA + e);
+    const float4 y = ldg4(part + (long long)t * PCTA + e + 4);
+    s[0] += x.x; s[1] += x.y; s[2] += x.z; s[3] += x.w;
+    s[4] += y.x; s[5] += y.y; s[6] += y.z; s[7] += y.w;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; u++) out[u] = warp_sum(s[u]);
+}
+
+// CTAs [0, EPI_WN_CTAS): one per (branch, 8 hidden units j0 .. j0 + 7). Its
+// warps add the rows of those units over all backward CTAs (embed rows of dW,
+// the dh row, dw1; the CTA of units 0-7 also the db1 slots) and per image the
+// dh row over the image's CTAs (dcb[img]); then warp u, for unit j0 + u, forms
+// the latent rows of dW = sum_img code[img] dcb[img] (the images in order)
+// and runs the weight-norm backward
 //   t = sum_k dW_k v_k;  dg = t / norm;  dv = dW scale - v g t / norm^3
-// for unit j's row of v; lane 0 writes dg, db0, dw1; unit 0's warp db1.
-static __global__ void epilogue_kernel(EpilogueArgs a) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (warp >= 6 * H) return;
-  const int bi = warp / H, j = warp % H, i = bi >> 1, br = bi & 1;
-  const int ne = br ? NE_B : NE_A, n_in = ne + a.d_feat, no = br ? 3 : 1;
+// for the unit's row of v; db0 = sum_img dcb[img]. CTAs after: one per (block
+// i, image): dcodes[i][img][d] = sum_j dcb_a[j] scale_a[j] v_a[j][lat d] plus
+// the same sum for branch b, with dcb added as above.
+static __global__ void __launch_bounds__(EPI_NT) epilogue_kernel(EpilogueArgs a) {
+  extern __shared__ float sh[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nct = a.B * a.cpi;
+  if (blockIdx.x >= EPI_WN_CTAS) {
+    const int blk = blockIdx.x - EPI_WN_CTAS, i = blk / a.B, img = blk % a.B;
+    for (int grp = warp; grp < 2 * H / 8; grp += EPI_WARPS) {   // sh[br H + j] = dcb scale
+      const int br = grp / (H / 8), j0 = grp % (H / 8) * 8;
+      float s[8];
+      cta_sum8(a.part, (long long)i * PBLK + (br ? ROW_DH_B : ROW_DH_A) * H + j0,
+               img * a.cpi, (img + 1) * a.cpi, lane, s);
+      if (lane < 8) {
+        float v = s[0];
+#pragma unroll
+        for (int u = 1; u < 8; u++)
+          if (lane == u) v = s[u];
+        sh[br * H + j0 + lane] = v * a.prep[(i * 2 + br) * prep_stride(a.B) + j0 + lane];
+      }
+    }
+    __syncthreads();
+    // a thread per (branch, latent column): the units in order; then a + b
+    for (int t = threadIdx.x; t < 2 * a.d_feat; t += EPI_NT) {
+      const int b = t / a.d_feat, d = t % a.d_feat, ne = b ? NE_B : NE_A, n_in = ne + a.d_feat;
+      const float* v = a.W[i * 10 + b * 5] + ne + d;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int jj = 0; jj < H; jj++) acc = fmaf(sh[b * H + jj], v[(size_t)jj * n_in], acc);
+      sh[2 * H + t] = acc;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < a.d_feat; d += EPI_NT)
+      a.dcodes[((size_t)i * a.B + img) * a.d_feat + d] = sh[2 * H + d] + sh[2 * H + a.d_feat + d];
+    return;
+  }
+  const int bi = blockIdx.x / (H / EPI_UNITS), j0 = blockIdx.x % (H / EPI_UNITS) * EPI_UNITS;
+  const int i = bi >> 1, br = bi & 1;
+  const int ne = br ? NE_B : NE_A, no = br ? 3 : 1, nr = ne + 1 + no;
+  const long long col = (long long)i * PBLK + (br ? ROW_B : ROW_A) * H + j0;
+  float (*rows)[EPI_UNITS] = reinterpret_cast<float (*)[EPI_UNITS]>(sh);   // [nr + 1][8]
+  float (*dcb)[EPI_UNITS] = rows + EPI_ROWS + 1;                          // [EPI_IMGS][8]
+  for (int r = warp; r <= nr; r += EPI_WARPS) {       // row nr: the block's db1 slots
+    float s[8];
+    cta_sum8(a.part, r < nr ? col + (long long)r * H : (long long)i * PBLK + ROWS * H, 0, nct,
+             lane, s);
+    if (lane == 0)
+#pragma unroll
+      for (int u = 0; u < 8; u++) rows[r][u] = s[u];
+  }
+  // warp u < 8: unit j0 + u
+  const int j = j0 + warp, n_in = ne + a.d_feat;
   const float* const* W = a.W + i * 10 + br * 5;
   float* const* dW = a.dW + i * 10 + br * 5;
+  const float* codes = a.codes + (size_t)i * a.B * a.d_feat;
+  float* dv = dW[0] + (size_t)j * n_in;
+  float db0 = 0.f;
+  for (int i0 = 0; i0 < a.B; i0 += EPI_IMGS) {
+    const int n_img = min(EPI_IMGS, a.B - i0);
+    __syncthreads();   // the previous pass is done with dcb
+    for (int img = warp; img < n_img; img += EPI_WARPS) {
+      float s[8];
+      cta_sum8(a.part, col + (long long)ne * H, (i0 + img) * a.cpi, (i0 + img + 1) * a.cpi,
+               lane, s);
+      if (lane == 0)
+#pragma unroll
+        for (int u = 0; u < 8; u++) dcb[img][u] = s[u];
+    }
+    __syncthreads();
+    if (warp < EPI_UNITS) {
+      // the latent rows, parked in dv's row across passes
+      for (int d = lane; d < a.d_feat; d += 32) {
+        float g = i0 ? dv[ne + d] : 0.f;
+#pragma unroll 8
+        for (int img = 0; img < n_img; img++)
+          g = fmaf(codes[(size_t)(i0 + img) * a.d_feat + d], dcb[img][warp], g);
+        dv[ne + d] = g;
+      }
+      if (lane == 0)
+        for (int img = 0; img < n_img; img++) db0 += dcb[img][warp];
+    }
+  }
+  if (warp >= EPI_UNITS) return;
   const float* v = W[0] + (size_t)j * n_in;
   const float* prep = a.prep + bi * prep_stride(a.B);
   const float scale = prep[j], norm = prep[H + j];
-  const float* rows = a.per_img + (size_t)i * PBLK + (br ? ROW_B : ROW_A) * H + j;
-  const float* codes = a.codes + (size_t)i * a.B * a.d_feat;
-  auto dw_of = [&](int k) {
-    float acc = 0.f;
-    if (k < ne) {
-      for (int img = 0; img < a.B; img++) acc += rows[(size_t)img * PCTA + k * H];
-    } else {
-      for (int img = 0; img < a.B; img++)
-        acc = fmaf(codes[(size_t)img * a.d_feat + k - ne], rows[(size_t)img * PCTA + ne * H], acc);
-    }
-    return acc;
-  };
-  // each lane parks its dW_k in dv's row and corrects them in place once t is known
-  float* dv = dW[0] + (size_t)j * n_in;
+  __syncwarp();      // another lane of the warp parked dv[k]
   float t = 0.f;
-  for (int k = lane; k < n_in; k += 32) {
-    dv[k] = dw_of(k);
-    t = fmaf(dv[k], v[k], t);
-  }
-  for (int off = 16; off; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-  const float g = W[1][j];
-  const float back = __fdiv_rn(g * t, norm * norm * norm);
-  for (int k = lane; k < n_in; k += 32) dv[k] = dv[k] * scale - v[k] * back;
+  for (int k = lane; k < n_in; k += 32) t = fmaf(k < ne ? rows[k][warp] : dv[k], v[k], t);
+  t = warp_sum(t);
+  __syncwarp();
+  const float back = __fdiv_rn(W[1][j] * t, norm * norm * norm);
+  for (int k = lane; k < n_in; k += 32)
+    dv[k] = (k < ne ? rows[k][warp] : dv[k]) * scale - v[k] * back;
   if (lane == 0) {
     dW[1][j] = __fdiv_rn(t, norm);
-    float db0 = 0.f;
-    for (int img = 0; img < a.B; img++) db0 += rows[(size_t)img * PCTA + ne * H];
     dW[2][j] = db0;
   }
   if (lane < no) {
-    float acc = 0.f;
-    for (int img = 0; img < a.B; img++) acc += rows[(size_t)img * PCTA + (ne + 1 + lane) * H];
-    dW[3][lane * H + j] = acc;
-    if (j == 0) {
-      const float* slot = a.per_img + (size_t)i * PBLK + ROWS * H + (br ? 1 + lane : 0);
-      float b1 = 0.f;
-      for (int img = 0; img < a.B; img++) b1 += slot[(size_t)img * PCTA];
-      dW[4][lane] = b1;
-    }
+    dW[3][lane * H + j] = rows[ne + 1 + lane][warp];
+    if (j == 0) dW[4][lane] = rows[nr][br ? 1 + lane : 0];
   }
 }
 
-// dcodes[i][img][d] = sum_j dcb_a[img][j] W_a[lat d][j] + dcb_b[img][j] W_b[lat d][j]
-static __global__ void dcode_kernel(EpilogueArgs a) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 3 * a.B * a.d_feat) return;
-  const int d = idx % a.d_feat, img = (idx / a.d_feat) % a.B, i = idx / (a.d_feat * a.B);
-  float acc = 0.f;
-  for (int br = 0; br < 2; br++) {
-    const int ne = br ? NE_B : NE_A, n_in = ne + a.d_feat;
-    const float* v = a.W[i * 10 + br * 5];
-    const float* scale = a.prep + (i * 2 + br) * prep_stride(a.B);
-    const float* dcb = a.per_img + (size_t)img * PCTA + (size_t)i * PBLK
-        + (br ? ROW_DH_B : ROW_DH_A) * H;
-    for (int j = 0; j < H; j++)
-      acc = fmaf(dcb[j] * scale[j], v[(size_t)j * n_in + ne + d], acc);
-  }
-  a.dcodes[idx] = acc;
-}
-
+// Backward CTAs per image: as many as tiles, up to BWD_MINB per SM over all
+// images.
 static int ctas_per_image(int B, int N) {
   const int tiles = (N + PT - 1) / PT;
-  return max(1, min(tiles, MAX_CTAS / B));
+  return max(1, min(tiles, BWD_MINB * N_SM / B));
+}
+
+static size_t epilogue_smem(int B, int d_feat) {
+  return sizeof(float) * max(2 * H + 2 * d_feat,
+                             (EPI_ROWS + 1 + min(B, EPI_IMGS)) * EPI_UNITS);
 }
 
 }  // namespace inn
@@ -516,18 +722,19 @@ static int ctas_per_image(int B, int N) {
 
 using namespace niw::inn;
 
-extern "C" long long niw_inn_prep_floats(int B) { return 6 * prep_stride(B); }
+// prep: the six branches' rows, then the forward's kept state.
+extern "C" long long niw_inn_prep_floats(int B, int N) {
+  return 6 * prep_stride(B) + (long long)B * N * STATE;
+}
 
-// The CTAs' partial buffers, and the per-image sums where an image has more
-// than one CTA.
+// The backward CTAs' partial buffers.
 extern "C" long long niw_inn_bwd_workspace_floats(int B, int N) {
-  const int cpi = ctas_per_image(B, N);
-  return (long long)B * cpi * PCTA + (cpi > 1 ? (long long)B * PCTA : 0);
+  return (long long)B * ctas_per_image(B, N) * PCTA;
 }
 
 // pts [B,N,3]; rw1, rw2 [N]; codes [3,B,d_feat]; W: the 30 weight tensors;
-// prep: niw_inn_prep_floats(B) floats (written; the backward reads them);
-// out [B,N,3].
+// prep: niw_inn_prep_floats(B, N) floats, 16-byte aligned (written; the
+// backward reads them); out [B,N,3]. Two launches.
 extern "C" int niw_inn_fwd(const float* pts, const float* rw1, const float* rw2,
                            const float* codes, int B, int N, int d_feat,
                            const float* const* W, float* prep, float* out, void* stream) {
@@ -535,39 +742,36 @@ extern "C" int niw_inn_fwd(const float* pts, const float* rw1, const float* rw2,
   Args a;
   a.pts = pts; a.rw1 = rw1; a.rw2 = rw2; a.codes = codes; a.g = nullptr; a.prep = prep;
   for (int k = 0; k < 30; k++) a.W[k] = W[k];
-  a.B = B; a.N = N; a.d_feat = d_feat; a.cpi = ctas_per_image(B, N);
-  a.out = out; a.dpts = nullptr; a.part = nullptr;
-  NIW_LAUNCH(prep_kernel<<<6 * H / 8, 256, 0, s>>>(a, prep));
-  NIW_LAUNCH(fwd_kernel<<<(unsigned)((long long)B * a.cpi), H, 0, s>>>(a));
+  a.B = B; a.N = N; a.d_feat = d_feat; a.cpi = 0;
+  a.out = out; a.dpts = nullptr; a.part = nullptr; a.state = prep + 6 * prep_stride(B);
+  const long long prep_warps = 6LL * H * ((B + PREP_IMGS - 1) / PREP_IMGS);
+  NIW_LAUNCH(prep_kernel<<<(unsigned)((prep_warps + 7) / 8), 256, 0, s>>>(a, prep));
+  const long long tiles = (N + FWD_WARPS * FWD_NP - 1) / (FWD_WARPS * FWD_NP);
+  NIW_LAUNCH(fwd_kernel<<<(unsigned)(B * tiles), 32 * FWD_WARPS, 0, s>>>(a));
   return 0;
 }
 
 // g [B,N,3]: the cotangent of out; prep: as niw_inn_fwd wrote it for the same
 // operands; dpts [B,N,3]; dcodes [3,B,d_feat]; dW: 30 gradient buffers shaped
-// as W; ws: niw_inn_bwd_workspace_floats(B, N) floats.
+// as W; ws: niw_inn_bwd_workspace_floats(B, N) floats. Two launches.
 extern "C" int niw_inn_bwd(const float* pts, const float* rw1, const float* rw2,
                            const float* codes, const float* g, int B, int N, int d_feat,
                            const float* const* W, const float* prep, float* dpts,
                            float* dcodes, float* const* dW, float* ws, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+  if (epilogue_smem(B, d_feat) > 48 * 1024) return (int)cudaErrorInvalidValue;
   Args a;
   a.pts = pts; a.rw1 = rw1; a.rw2 = rw2; a.codes = codes; a.g = g; a.prep = prep;
   for (int k = 0; k < 30; k++) a.W[k] = W[k];
   a.B = B; a.N = N; a.d_feat = d_feat; a.cpi = ctas_per_image(B, N);
   a.out = nullptr; a.dpts = dpts; a.part = ws;
-  NIW_LAUNCH(bwd_kernel<<<(unsigned)((long long)B * a.cpi), H, 0, s>>>(a));
+  a.state = const_cast<float*>(prep) + 6 * prep_stride(B);
+  cudaStream_t s = (cudaStream_t)stream;
+  NIW_LAUNCH(bwd_kernel<<<(unsigned)((long long)B * a.cpi), BWD_NT, 0, s>>>(a));
   EpilogueArgs e;
-  e.per_img = ws; e.codes = codes; e.prep = prep; e.dcodes = dcodes;
-  e.B = B; e.d_feat = d_feat;
+  e.part = ws; e.codes = codes; e.prep = prep; e.dcodes = dcodes;
+  e.B = B; e.d_feat = d_feat; e.cpi = a.cpi;
   for (int k = 0; k < 30; k++) { e.W[k] = W[k]; e.dW[k] = dW[k]; }
-  if (a.cpi > 1) {
-    float* per_img = ws + (size_t)B * a.cpi * PCTA;
-    dim3 grid((PCTA + 255) / 256, B);
-    NIW_LAUNCH(reduce_ctas_kernel<<<grid, 256, 0, s>>>(ws, a.cpi, per_img));
-    e.per_img = per_img;
-  }
-  NIW_LAUNCH(epilogue_kernel<<<6 * H / 8, 256, 0, s>>>(e));
-  const int n_codes = 3 * B * d_feat;
-  NIW_LAUNCH(dcode_kernel<<<(n_codes + 127) / 128, 128, 0, s>>>(e));
+  NIW_LAUNCH(epilogue_kernel<<<(unsigned)(EPI_WN_CTAS + 3 * B), EPI_NT,
+                               epilogue_smem(B, d_feat), s>>>(e));
   return 0;
 }

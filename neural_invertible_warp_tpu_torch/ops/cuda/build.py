@@ -59,7 +59,7 @@ _SIGNATURES = {
                        ctypes.c_int, _P, _P, _P], ctypes.c_int),
     "niw_field_bwd": ([_P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
                        ctypes.c_int, _P, _P, _P, _P, _P], ctypes.c_int),
-    "niw_inn_prep_floats": ([ctypes.c_int], ctypes.c_longlong),
+    "niw_inn_prep_floats": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
     "niw_inn_bwd_workspace_floats": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
     "niw_inn_fwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P,
                      _P], ctypes.c_int),
@@ -68,6 +68,7 @@ _SIGNATURES = {
     "niw_corr_fwd": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
     "niw_corr_adj_f1": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
     "niw_corr_adj_f2": ([_P, _P] + [ctypes.c_int] * 4 + [_P, _P], ctypes.c_int),
+    "niw_corr_ctas": ([ctypes.c_int] * 5, ctypes.c_longlong),
 }
 
 

@@ -154,8 +154,10 @@ def _ptrs(tensors):
 
 def launch_inn_fwd(pts, rw1, rw2, codes, leaves):
     """One K6 forward launch on CUDA tensors. Returns (out [B,N,3], prep):
-    ``prep`` holds the column scales g / |v|, the norms and the per-image
-    first-layer biases, which the backward launch reads."""
+    ``prep`` holds the column scales g / |v|, the norms, the per-image
+    first-layer biases, the scaled embed rows of the first layers and, per
+    point, each block's output and (theta, t0, t1), which the backward
+    launch reads."""
     B, N = pts.shape[0], pts.shape[1]
     d_feat = codes.shape[-1]
     if (pts.shape != (B, N, 3) or rw1.shape != (N,) or rw2.shape != (N,)
@@ -164,7 +166,7 @@ def launch_inn_fwd(pts, rw1, rw2, codes, leaves):
     _check([pts, rw1, rw2, codes], B, N, d_feat, leaves)
     lib = build.load_library().lib
     out = torch.empty_like(pts)
-    prep = torch.empty(lib.niw_inn_prep_floats(B), dtype=torch.float32, device=pts.device)
+    prep = torch.empty(lib.niw_inn_prep_floats(B, N), dtype=torch.float32, device=pts.device)
     err = lib.niw_inn_fwd(pts.data_ptr(), rw1.data_ptr(), rw2.data_ptr(), codes.data_ptr(),
                           B, N, d_feat, _ptrs(leaves), prep.data_ptr(), out.data_ptr(),
                           torch.cuda.current_stream(pts.device).cuda_stream)
@@ -179,7 +181,7 @@ def launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g):
     d_feat = codes.shape[-1]
     _check([pts, rw1, rw2, codes, prep, g], B, N, d_feat, leaves)
     lib = build.load_library().lib
-    if g.shape != pts.shape or prep.numel() != lib.niw_inn_prep_floats(B):
+    if g.shape != pts.shape or prep.numel() != lib.niw_inn_prep_floats(B, N):
         raise ValueError("cotangent must be [B,N,3] and prep that of the forward launch")
     dpts = torch.empty_like(pts)
     dcodes = torch.empty_like(codes)
@@ -196,7 +198,7 @@ def launch_inn_bwd(pts, rw1, rw2, codes, leaves, prep, g):
 
 class _FusedDeform(torch.autograd.Function):
     """out [B,N,3] from one K6 forward launch; the backward is one K6
-    backward launch, which recomputes the three blocks."""
+    backward launch, which reads the blocks' outputs the forward kept."""
 
     @staticmethod
     def forward(ctx, pts, rw1, rw2, codes, *leaves):
