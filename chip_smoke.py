@@ -36,6 +36,15 @@ Phases, one or more lines each:
      (unavailable without weights), quant.txt and quant_pose.txt; then a
      training view turned by a known rotation is refined back: its rotation
      error must fall and its PSNR rise;
+ 5b. dtu: the paper's Table-2 model (barf_inn_dtu at full width, from the
+     noisy_gt start) trains 100 steps on 49 in-memory 300x400 views of an
+     opaque object (K2 at [49,41] x 128 metric depths in [1.2, 5.2]),
+     validates 2 held-out views (K3) and evaluates them with test-time
+     refinement (K3 + K4), the depth errors and the masked metrics; then K2
+     on the batch of the next step against its plain version (and float64),
+     the validation image against the plain render, the pose readout a
+     rotation, the noisy_gt start unmoved; ms/step, rays/s, seconds per
+     validation and per evaluated view, depth and pose errors;
   6. field kernels: the per-sample field kernels K5 (PE inside) and K1 (PE
      in PyTorch), forward and forward + backward through the wrappers the
      fine-sampling tiers call, with the compositing in PyTorch under
@@ -280,6 +289,25 @@ PDCNET_MIN_CONFIDENCE = 0.1
 K7_FWD_PER_PAIR, K7_ADJ_PER_PAIR = 3 * 8, 3 * 3
 TOL_PDCNET_FLOW = 5e-4
 TOL_PDCNET_PR = 2e-3
+
+
+# The DTU path (barf_inn_dtu, the paper's Table-2 model, options as the yaml
+# resolves them): 49 training views at 300x400 (41 rays each per step) and
+# 2 held-out views of an in-memory scene, an opaque textured sphere seen
+# from an inward arc of cameras, as a DTU scan's robot arm sees its object;
+# metric depths in the loader's [1.2, 5.2]. barf_c2f is off, so every PE
+# band is open, but no sample lies beyond 5.2: K2's gate holds dcenter/dray
+# to TOL["grad"], as the flagship's cases with bands 5-9 closed (on an H100
+# they read 1.2e-6 and 1.4e-6 of the max against the plain version, both
+# 2.5e-4 from a float64 evaluation).
+DTU_HW = (300, 400)
+DTU_N_TRAIN, DTU_N_VAL = 49, 2
+DTU_STEPS = 100
+DTU_DEPTH_RANGE = (1.2, 5.2)
+DTU_RADIUS = 3.2
+DTU_OBJECT_RADIUS = 0.6
+DTU_ARC_DEG = 80.0
+DTU_FOCAL = 700.0     # pixels at a width of 400
 
 
 def check(ok, msg):
@@ -848,22 +876,24 @@ def make_scene(H, W, n, seed):
 
 def plain_image(system, pose, intr, progress):
     """rgb [1,H*W,3] of one view through the plain render, chunk by chunk as
-    the system's render_image sends the chunks to K3 (unjittered depths)."""
+    the system's render_image sends the chunks to K3 (unjittered depths, over
+    the scene's depth range on DTU)."""
     from neural_invertible_warp_tpu_torch.ops import rays, sampling
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
     opt = system.opt
     check(not opt.nerf.get("setbg_opaque"), "plain_image has no background")
     chunk = min(opt.nerf.rand_rays, system.HW)
+    depth_range = getattr(system, "scene_depth_range", tuple(opt.nerf.depth.range))
+    c2f = tuple(opt.barf_c2f) if opt.get("barf_c2f") else None
     rgbs = []
     for start in range(0, system.HW, chunk):
         idx = torch.arange(start, min(start + chunk, system.HW), device=system.device)
         center, ray = rays.get_center_and_ray(pose, intr, idx, system.W)
-        depth = sampling.sample_depth(1, idx.numel(), opt.nerf.sample_intvs,
-                                      tuple(opt.nerf.depth.range),
+        depth = sampling.sample_depth(1, idx.numel(), opt.nerf.sample_intvs, depth_range,
                                       param=opt.nerf.depth.param, stratified=False,
                                       device=system.device)
         out8 = fp.render_rays_plain(system.graph.nerf, center[0], ray[0],
-                                    depth[0, :, :, 0], progress, tuple(opt.barf_c2f))
+                                    depth[0, :, :, 0], progress, c2f)
         rgbs.append(out8[:, :3])
     return torch.cat(rgbs)[None]
 
@@ -872,13 +902,12 @@ def psnr(rgb, pixels):
     return -10.0 * math.log10(float(torch.mean((rgb - pixels) ** 2)))
 
 
-def pose_readout_orthonormality(system):
-    """max |R R^T - I| over the pose readout, which must be finite rotations."""
-    pose = system.aux["global_rigid"]
-    check(bool(torch.isfinite(pose).all()), "global_rigid is not finite")
+def pose_readout_orthonormality(pose):
+    """max |R R^T - I| over a pose readout, which must be finite rotations."""
+    check(bool(torch.isfinite(pose).all()), "the pose readout is not finite")
     R = pose[..., :3]
     ortho = float((R @ R.transpose(-1, -2) - torch.eye(3, device=R.device)).abs().max())
-    check(ortho < 1e-4, "global_rigid is not orthonormal: {}".format(ortho))
+    check(ortho < 1e-4, "the pose readout is not orthonormal: {}".format(ortho))
     return ortho
 
 
@@ -944,7 +973,7 @@ def phase_slice(device):
     l_first = float(trainer.history[0]["loss_render"])
     l_last = float(trainer.history[-1]["loss_render"])
     check(l_last < l_first, "photometric loss did not fall: {} -> {}".format(l_first, l_last))
-    ortho = pose_readout_orthonormality(system)
+    ortho = pose_readout_orthonormality(system.aux["global_rigid"])
     check(math.isfinite(res["psnr_val"]), res["psnr_val"])
     check(os.path.isfile(os.path.join(opt.output_path, "model.ckpt")), "no checkpoint")
 
@@ -1082,6 +1111,204 @@ def phase_eval(trainer, device):
     check(fp.fused_render_rays_pe_train.packs == packs,
           "the refinements of a turned view packed the frozen weights again")
     return launches
+
+
+# ----------------------------------------------------------- the DTU path
+
+def make_dtu_scene(H, W, n, seed):
+    """n views of DTU_SCENE's opaque textured sphere from an inward arc of
+    cameras at radius ~DTU_RADIUS (OpenCV axes: z toward the object), its
+    colours a smooth function of the surface point, black elsewhere; the GT
+    depth (z-depth, 0 where the ray misses), its validity and the foreground
+    mask come analytically. Depth range [1.2, 5.2], as the DTU loader gives
+    it. The seed moves the cameras along the arc."""
+    rng = np.random.RandomState(seed)
+    f = DTU_FOCAL * W / 400.0
+    intr = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    ys, xs = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5, indexing="ij")
+    d_cam = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3) @ np.linalg.inv(intr).T
+    freq = np.array([[2.0, 0.5, 1.0], [-1.0, 2.5, 0.3], [0.7, -0.4, 2.2]]) * 2.5
+    keys = ("image", "pose", "depth_gt", "valid_depth_gt", "fg_mask")
+    out = {k: [] for k in keys}
+    for i in range(n):
+        theta = np.deg2rad(DTU_ARC_DEG * ((i + 0.5) / n - 0.5) + 2.0 * rng.randn())
+        phi = np.deg2rad(20.0 + 3.0 * rng.randn())
+        radius = DTU_RADIUS + 0.1 * rng.randn()
+        eye = radius * np.array([np.sin(theta) * np.cos(phi), np.sin(phi),
+                                 -np.cos(theta) * np.cos(phi)])
+        z = -eye / np.linalg.norm(eye)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R_c2w = np.stack([x, np.cross(z, x), z], axis=1)
+        d = d_cam @ R_c2w.T                    # world directions, z-depth 1 each
+        a = np.sum(d * d, -1)
+        b = 2.0 * d @ eye
+        c = eye @ eye - DTU_OBJECT_RADIUS ** 2
+        disc = b * b - 4 * a * c
+        hit = disc > 0
+        depth = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a), 0.0)
+        p = eye + depth[:, None] * d
+        rgb = 0.5 + 0.45 * np.sin(p @ freq.T + np.array([0.0, 1.0, 2.0]))
+        out["image"].append(np.where(hit[:, None], rgb, 0.0).reshape(H, W, 3))
+        out["pose"].append(np.concatenate([R_c2w.T, -R_c2w.T @ eye[:, None]], 1))
+        out["depth_gt"].append(depth.reshape(H, W))
+        out["valid_depth_gt"].append(hit.reshape(H, W))
+        out["fg_mask"].append(hit.reshape(H, W))
+    arrays = {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+    arrays.update(intr=np.tile(intr, (n, 1, 1)), idx=np.arange(n, dtype=np.int32),
+                  depth_range=np.tile(np.array([[1.2, 5.2]], np.float32), (n, 1)))
+    return arrays
+
+
+def dtu_k2_batch(system):
+    """K2's inputs of the step the system would take next, drawn as its
+    train_step draws them (ray subset, then depth jitter, from the step's
+    seed): center/ray [B,R,3] out of the warp, metric depths [B,R,K,1] over
+    the scene's range, targets [B,R,3]; and the wrapper's keyword
+    arguments."""
+    from neural_invertible_warp_tpu_torch.ops import rays, sampling
+    opt, data = system.opt, system.train_data
+    n_rays = opt.nerf.rand_rays // system.n_train
+    system.seed_step()
+    ray_idx = sampling.sample_ray_subset(system.HW, n_rays, generator=system.generator,
+                                         device=system.device)
+    with torch.no_grad():
+        center_cam, grid_cam = rays.get_unwarped_center_and_ray(
+            data["intr"], ray_idx, system.W, pose_init=system._ray_frame())
+        warped = system.warp_points(torch.cat([grid_cam, center_cam], 1), system.step)
+    center, ray = warped[:, n_rays:], warped[:, :n_rays] - warped[:, n_rays:]
+    depth = sampling.sample_depth(system.n_train, n_rays, opt.nerf.sample_intvs,
+                                  system.scene_depth_range, param=opt.nerf.depth.param,
+                                  generator=system.generator, device=system.device)
+    kw = dict(progress=(torch.tensor(float(system.step)) / opt.max_iter).to(system.device),
+              barf_c2f=None, setbg_opaque=False, bgcolor=None)
+    return [center, ray, depth, data["pixels"][:, ray_idx]], kw
+
+
+def phase_slice_dtu(device):
+    """The DTU path: barf_inn_dtu at full width trains DTU_STEPS steps on
+    DTU_N_TRAIN in-memory 300x400 views from the noisy_gt start, validates,
+    and evaluates DTU_N_VAL held-out views (test-time refinement on, then
+    the depth errors and masked metrics at the backtracked poses); then K2
+    on the batch of the system's next step, and one validation image
+    against the plain render. Returns (launch counts of the path, K2's
+    times at that batch)."""
+    from neural_invertible_warp_tpu_torch.barf_inn_dtu import barf_inn_dtu_options
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.models.dtu import InnDTUSystem
+    from neural_invertible_warp_tpu_torch.models.engine import Trainer
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    opt = barf_inn_dtu_options()
+    opt.freq.early_termination = DTU_STEPS
+    opt.output_root = os.path.join(HERE, "build", "chip_smoke_run_dtu")
+    process_options(opt)
+    H, W = opt.H, opt.W
+    check((H, W) == DTU_HW, (H, W))
+    n_iter, K_ = opt.optim.test_iter, opt.nerf.sample_intvs
+    n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
+    n_rays = opt.nerf.rand_rays // DTU_N_TRAIN
+    print("dtu: barf_inn_dtu, {} train + {} held-out views at {}x{}, pose.init {} at noise "
+          "{}, loss_weight.global_alignment {}, {} steps of [{},{}] rays x {} metric depths in "
+          "{}".format(DTU_N_TRAIN, DTU_N_VAL, H, W, opt.pose.init, opt.pose.noise,
+                      opt.loss_weight.global_alignment, DTU_STEPS, DTU_N_TRAIN, n_rays, K_,
+                      DTU_DEPTH_RANGE))
+    trainer = Trainer(opt, device)
+    trainer.build_system(make_dtu_scene(H, W, DTU_N_TRAIN, seed=0),
+                         make_dtu_scene(H, W, DTU_N_VAL, seed=1))
+    system = trainer.system
+    check(type(system) is InnDTUSystem, type(system))
+    check(np.allclose(system.scene_depth_range, DTU_DEPTH_RANGE), system.scene_depth_range)
+    initial = system.aux["initial_poses_w2c"].clone()
+    reset_counts()
+    trainer.train()
+    packs = fp.fused_render_rays_pe_train.packs
+    t0 = time.time()
+    res = trainer.run_validation(system.step)
+    torch.cuda.synchronize()
+    val_seconds = time.time() - t0
+    t0 = time.time()
+    results = system.evaluate_full(dump_images=False)
+    torch.cuda.synchronize()
+    eval_seconds = time.time() - t0
+    launches = {k: v for k, v in field_counts().items() if v}
+    # per held-out view: the validation render, the refinement (K3 kept and
+    # K4 per iteration), the refined render and the render at the
+    # backtracked pose for the depth errors and masked metrics
+    check(launches == {"k2": DTU_STEPS, "k3": DTU_N_VAL * (3 * n_chunks + n_iter),
+                       "k4": DTU_N_VAL * n_iter}, launches)
+    check(packs == DTU_STEPS, "K2 packed its weights {} times in {} steps".format(
+        packs, DTU_STEPS))
+    check(torch.equal(system.aux["initial_poses_w2c"], initial), "the noisy_gt start moved")
+
+    losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in trainer.history])
+    check(bool(torch.isfinite(losses).all()), "non-finite loss or depth error")
+    first, last = trainer.history[0], trainer.history[-1]
+    check(float(last["loss_render"]) < float(first["loss_render"]),
+          "photometric loss did not fall: {} -> {}".format(
+              float(first["loss_render"]), float(last["loss_render"])))
+    ortho = pose_readout_orthonormality(system.get_all_training_poses()[0])
+    for key in ("PSNR", "SSIM", "rot_error_deg", "trans_error", "depth_abs", "depth_rms",
+                "PSNR_masked", "SSIM_masked"):
+        check(math.isfinite(results[key]), "{} = {}".format(key, results[key]))
+    check(results["LPIPS_masked"] is None, "masked LPIPS without weights")
+
+    failures = []
+    print("dtu: K2 wrapper on the batch of step {} ([{},{}] rays x {} metric depths, all PE "
+          "bands open: barf_c2f is off) against its plain version".format(
+              system.step, DTU_N_TRAIN, n_rays, K_))
+    inputs, kw = dtu_k2_batch(system)
+    depth = inputs[2]
+    lo, hi = system.scene_depth_range
+    check(float(depth.min()) >= lo and float(depth.max()) <= hi,
+          "K2's depths leave the scene's range")
+    mlp = system.graph.nerf
+    weight = 10.0 ** float(opt.loss_weight.render)
+    names = ["d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    sq, out, grads = k2_wrapper(mlp, *inputs, kw, weight)
+    sq_ref, out_ref, grads_ref = k2_plain(mlp, *inputs, kw, weight)
+    sq64, out64, grads64 = k2_f64(mlp, *inputs, kw, weight)
+    k2_err = 0.0
+    for key in ("rgb", "depth", "opacity"):
+        err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key])
+        k2_err = max(k2_err, err) if key == "rgb" else k2_err
+    compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+    for name, gk, gr, g64 in zip(["dcenter", "dray"] + names, grads, grads_ref, grads64):
+        compare(name, gk, gr, TOL["grad"], failures, g64)
+    k2 = dict(ms=time_ms(fresh_k2_weights(lambda: k2_wrapper(mlp, *inputs, kw, weight))),
+              plain_ms=time_ms(lambda: k2_plain(mlp, *inputs, kw, weight)),
+              max_abs_err=k2_err)
+    progress = (torch.tensor(float(system.step)) / opt.max_iter).to(device)
+    with torch.no_grad():
+        val_pose = system.get_eval_pose(system.test_data["pose"][:1])
+        val_plain = plain_image(system, val_pose, system.test_data["intr"][:1], progress)
+        compare("val image", torch.as_tensor(res["vis"]["rgb"], device=device), val_plain,
+                TOL["value"], failures)
+    check(not failures, "DTU path: kernel and plain version disagree: {}".format(failures))
+
+    ms = statistics.median(trainer.step_seconds[19:DTU_STEPS]) * 1e3
+    rays = DTU_N_TRAIN * n_rays
+    print("dtu: loss_render {:.5f} -> {:.5f}; train depth_abs {:.4f} -> {:.4f}, depth_rmse "
+          "{:.4f} -> {:.4f}; pose readout orthonormal to {:.1e}; card: {}".format(
+              float(first["loss_render"]), float(last["loss_render"]),
+              float(first["depth_abs"]), float(last["depth_abs"]), float(first["depth_rmse"]),
+              float(last["depth_rmse"]), ortho, card_line()))
+    print("dtu: {:.2f} ms/step (median of steps 20-{}), {:.0f} rays/s; K2 at [{},{}]x{} "
+          "{:.3f} ms (plain {:.3f}); card: {}".format(
+              ms, DTU_STEPS, rays / (ms / 1e3), DTU_N_TRAIN, n_rays, K_, k2["ms"],
+              k2["plain_ms"], card_line()))
+    print("dtu: validation of {} views in {:.2f} s ({:.2f} s per view), val PSNR {:.2f} dB; "
+          "evaluate_full of {} views in {:.2f} s ({:.2f} s per evaluated view, refinement "
+          "{:.2f} s of it); card: {}".format(
+              DTU_N_VAL, val_seconds, val_seconds / DTU_N_VAL, res["psnr_val"], DTU_N_VAL,
+              eval_seconds, eval_seconds / DTU_N_VAL,
+              sum(e["refine_seconds"] for e in system.eval_log) / DTU_N_VAL, card_line()))
+    print("dtu: depth_abs {:.4f} depth_rms {:.4f} (sim(3) scale {:.4f}), PSNR {:.2f} dB, "
+          "PSNR_masked {:.2f} dB, SSIM_masked {:.4f}, LPIPS_masked unavailable; aligned "
+          "rotation error {:.3f} deg, translation error {:.4f}; launches {}; card: {}".format(
+              results["depth_abs"], results["depth_rms"], system.depth_scaling_factor(),
+              results["PSNR"], results["PSNR_masked"], results["SSIM_masked"],
+              results["rot_error_deg"], results["trans_error"], launches, card_line()))
+    return launches, k2
 
 
 # ------------------------------------------- the per-sample field kernels
@@ -2114,7 +2341,7 @@ def phase_slice_fused_inn(device, off):
     l_last = float(trainer.history[-1]["loss_render"])
     check(l_last < step0["loss_render"], "photometric loss did not fall: {} -> {}".format(
         step0["loss_render"], l_last))
-    ortho = pose_readout_orthonormality(system)
+    ortho = pose_readout_orthonormality(system.aux["global_rigid"])
     progress = (torch.tensor(float(system.step)) / opt.max_iter).to(device)
     psnr_train0 = train_view_psnr(system, progress)
     launches["k3"] = field_counts()["k3"]
@@ -2155,6 +2382,10 @@ def main():
     launches_eval = phase_eval(trainer, device)
     del trainer
     torch.cuda.empty_cache()
+    launches_dtu, k2_dtu = phase_slice_dtu(device)
+    records["k2"].update(ms_dtu=k2_dtu["ms"], plain_ms_dtu=k2_dtu["plain_ms"],
+                         max_abs_err_dtu=k2_dtu["max_abs_err"])
+    torch.cuda.empty_cache()
     records_field, k2_extra = phase_kernels_field(mlp, device)
     launches_fine = phase_slice_fine(device)
     records["k2"].update(k2_extra)
@@ -2165,11 +2396,11 @@ def main():
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
-             "fine": launches_fine, "flagship_fused_inn": launches_fused,
-             "pose_init_pdcnet": launches_pdcnet}
+             "dtu": launches_dtu, "fine": launches_fine,
+             "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet}
 
     def kernel(key, name, source, replaces, record):
-        # launches: over the five paths, each counted from 0 by its own phase
+        # launches: over the six paths, each counted from 0 by its own phase
         by_path = {path: counts[key] for path, counts in paths.items() if counts.get(key)}
         return dict(name=name, route="cuda", source=pkg + source, replaces=pallas + replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path, **record)

@@ -8,7 +8,8 @@ the aligned pose error, and test-time photometric pose refinement of an
 evaluation view (a per-view se(3) correction under Adam, differentiated
 through K3 and K4 on the card). On LLFF the initial poses are the identity,
 on Blender the GT poses composed with a seeded se(3) noise
-(``camera.noise``), kept in ``aux["pose_noise"]``.
+(``camera.noise``), kept in ``aux["pose_noise"]``; on DTU those of
+``pose.init`` (models/dtu.py).
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ class BarfSystem(NerfSystem):
 
     def __init__(self, opt, device):
         super().__init__(opt, device)
-        if opt.data.dataset not in ("llff", "blender"):
+        if opt.data.dataset not in ("llff", "blender", "dtu"):
             raise NotImplementedError(
-                "pose refinement on {!r} data is not ported yet (ROADMAP {})".format(
-                    opt.data.dataset, "M10" if opt.data.dataset == "dtu" else "M14"))
+                "pose refinement on {!r} data is not ported yet (ROADMAP M14)".format(
+                    opt.data.dataset))
 
     def build_graph(self, generator):
         graph = super().build_graph(generator)

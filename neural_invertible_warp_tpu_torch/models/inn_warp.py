@@ -1,6 +1,7 @@
 """Invertible-neural-warp pose models, the paper's contribution (port of
 neural_invertible_warp_tpu/models/inn_warp.py): ``barf_inn_llff``,
-``nerf_inn_llff`` and ``barf_inn_blender``.
+``nerf_inn_llff`` and ``barf_inn_blender``; models/dtu.py builds the DTU
+variant on it.
 
 Each image has a conditioning code (``warp_latent.enc_type``: ``l2fbarf`` a
 learnable embedding, ``posenc`` a fixed encoding of the frame id,
@@ -64,7 +65,7 @@ class InnWarpSystem(BarfSystem):
             n_layers=1, multires=self.multires, actfn=self.actfn,
             anneal=self.anneal_mode, generator=generator)
         if self.enc_type in ("l2fbarf", "extrinsic"):   # posenc has no learnable latent
-            width = opt.warp_latent.embed_dim if self.enc_type == "l2fbarf" else 6
+            width = self.latent_dim() if self.enc_type == "l2fbarf" else 6
             graph.warp_latent = nn.Embedding(self.n_train, width)
             with torch.no_grad():   # torch.nn.Embedding default init: N(0, 1)
                 graph.warp_latent.weight.normal_(0.0, 1.0, generator=generator)
@@ -129,6 +130,11 @@ class InnWarpSystem(BarfSystem):
                     pose = pose_ops.compose([aux["pose_noise"], pose])
             return pose
         return pose_ops.identity_pose((self.n_train,), device=self.device)
+
+    def _ray_frame(self):
+        """The w2c poses the unwarped rays are cast from: none (the camera
+        frame) on LLFF, the noisy initial poses on Blender."""
+        return self._initial_pose_all() if self.opt.data.dataset == "blender" else None
 
     def _warp_feat(self):
         """The per-image conditioning code [n_train, latent_dim]."""
@@ -196,14 +202,11 @@ class InnWarpSystem(BarfSystem):
     def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         opt = self.opt
         data = self.train_data
-        pose_init = None
         depth_range = None
-        if opt.data.dataset == "blender":
-            pose_init = self._initial_pose_all()
-            if opt.camera.get("noise_type") == "l2g":
-                depth_range = self._l2g_depth_range()
+        if opt.data.dataset == "blender" and opt.camera.get("noise_type") == "l2g":
+            depth_range = self._l2g_depth_range()
         center_cam, grid_cam = rays.get_unwarped_center_and_ray(
-            data["intr"], ray_idx, self.W, pose_init=pose_init)
+            data["intr"], ray_idx, self.W, pose_init=self._ray_frame())
         center_cam, grid_cam = center_cam.detach(), grid_cam.detach()
         N = ray_idx.shape[0]
         coords = torch.cat([grid_cam, center_cam], dim=1)             # [B,2N,3]

@@ -60,6 +60,7 @@ class NerfSystem:
         self.optim = None
         self.aux = {}
         self.step = 0
+        self.seed = 0
         self.generator = None
 
     # ------------------------------------------------------------------ data
@@ -115,7 +116,10 @@ class NerfSystem:
         from ..utils.optim import MultiAdam
         gen = torch.Generator().manual_seed(int(seed))
         self.graph = self.build_graph(gen).to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        # the draws of init_aux (pose noise, DTU's noisy_gt start) come from
+        # the seed itself; train_step re-seeds the generator for every step
+        self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         groups = {}
         for name, label in self.param_labels().items():
             groups.setdefault(label, []).extend(getattr(self.graph, name).parameters())
@@ -299,13 +303,24 @@ class NerfSystem:
     def update_aux(self, extras):
         pass
 
+    def seed_step(self):
+        """Seed the generator for the draws of step ``self.step`` from
+        (seed, step), as the JAX package folds the step into its base key, so
+        that a run resumed at step N draws what an uninterrupted run would.
+        The mixing is numpy's SeedSequence: its first 32-bit word of state."""
+        word = np.random.SeedSequence([self.seed, self.step]).generate_state(1)[0]
+        self.generator.manual_seed(int(word))
+
     def train_step(self, ray_u=None, depth_rand=None, noise_rand=None):
         """One optimization step over all training images. One ray-index
         draw is shared by every image (``rand_rays // n_train`` rays each).
         ``ray_u`` / ``depth_rand`` / ``noise_rand`` optionally supply the
-        step's random draws. Returns the step's metrics as 0-d tensors (no
-        host sync)."""
+        step's random draws; the others come from ``seed_step``'s generator.
+        Returns the step's metrics as 0-d tensors (no host sync): the losses,
+        and the scalar diagnostics a model records in ``extras`` (DTU's depth
+        errors)."""
         opt = self.opt
+        self.seed_step()
         n_rays = opt.nerf.rand_rays // self.n_train
         ray_idx = sampling.sample_ray_subset(
             self.HW, n_rays, mode=(opt.get("tpu") or {}).get("ray_sample", "stratified"),
@@ -322,6 +337,8 @@ class NerfSystem:
         metrics = {"loss_" + k: v.detach() for k, v in losses.items()}
         metrics["loss_all"] = total.detach()
         metrics["psnr"] = -10.0 * torch.log10(metrics["loss_render"])
+        metrics.update({k: v.detach() for k, v in extras.items()
+                        if torch.is_tensor(v) and v.ndim == 0})
         return metrics
 
     # ----------------------------------------------------------- eval render

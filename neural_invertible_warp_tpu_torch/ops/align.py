@@ -10,7 +10,13 @@
 * ``procrustes_analysis_np`` / ``procrustes_analysis`` (host float64 / tensor
   fp32) and ``apply_sim3_to_poses``: the validation-time sim(3) between
   predicted and ground-truth camera centers.
-The DTU/ATE alignment functions are ROADMAP M10's.
+* The DTU trajectory alignment (host numpy, float64, copied from the JAX
+  package): ``align_umeyama`` (the ATE toolbox's sim(3)),
+  ``prealign_w2c_large_camera_systems`` (ATE, more than 9 cameras),
+  ``prealign_w2c_small_camera_systems`` (exhaustive pairwise search, 9 or
+  fewer), ``apply_traj_align_ssim``, ``backtrack_from_aligning_the_trajectory``
+  (GT poses into the optimized frame), ``align_translations`` and
+  ``_pose_errors_np``.
 """
 
 from __future__ import annotations
@@ -239,3 +245,189 @@ def apply_sim3_to_poses(pose, sim3, direction="pred_to_GT"):
         R_aligned = pose[..., :3] @ R
     t_aligned = (-R_aligned @ center_aligned[..., None])[..., 0]
     return pose_ops.make_pose(R=R_aligned, t=t_aligned)
+
+
+# ---------------------------------------------------------------------------
+# Trajectory alignment for the DTU path (host-side numpy, float64)
+# Parity: reference align_trajectories.py + model/barf_dtu.py:196-322
+# ---------------------------------------------------------------------------
+
+def align_umeyama(model, data, known_scale=False, yaw_only=False):
+    """Umeyama sim(3): s, R, t with model ~= s * R @ data + t (host, float64).
+
+    Port of the vendored ATE toolbox (third_party/ATE/align_trajectory.py:28-84)
+    used by the DTU alignment path.
+    """
+    model = np.asarray(model, dtype=np.float64)
+    data = np.asarray(data, dtype=np.float64)
+    mu_M = model.mean(axis=0)
+    mu_D = data.mean(axis=0)
+    model_zc = model - mu_M
+    data_zc = data - mu_D
+    n = model.shape[0]
+    C = (model_zc.T @ data_zc) / n
+    sigma2 = (data_zc ** 2).sum() / n
+    U, D_diag, Vt = np.linalg.svd(C)
+    D = np.diag(D_diag)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt.T) < 0:
+        S[2, 2] = -1
+    if yaw_only:
+        rot_C = data_zc.T @ model_zc
+        theta = _get_best_yaw(rot_C)
+        R = _rot_z(theta)
+    else:
+        R = U @ S @ Vt
+    # a collapsed point cloud (all centers equal, e.g. identity-init poses)
+    # has sigma2 ~ 0: the reference forces s=1 there instead of dividing to
+    # inf/NaN (third_party/ATE/align_trajectory.py:59-66, 80); the +1e-6 in
+    # the divisor is also the reference's
+    if known_scale or sigma2 < 1e-5:
+        s = 1.0
+    else:
+        s = float(np.trace(D @ S) / (sigma2 + 1e-6))
+    t = mu_M - s * R @ mu_D
+    return s, R, t
+
+
+def _get_best_yaw(C):
+    A = C[0, 1] - C[1, 0]
+    B = C[0, 0] + C[1, 1]
+    return np.pi / 2 - np.arctan2(B, A)
+
+
+def _rot_z(theta):
+    R = np.eye(3)
+    R[0, 0] = np.cos(theta)
+    R[0, 1] = -np.sin(theta)
+    R[1, 0] = np.sin(theta)
+    R[1, 1] = np.cos(theta)
+    return R
+
+
+def _np_invert_pose(pose):
+    R, t = pose[..., :3], pose[..., 3:]
+    R_inv = np.swapaxes(R, -1, -2)
+    t_inv = (-R_inv @ t)[..., 0]
+    return np.concatenate([R_inv, t_inv[..., None]], axis=-1)
+
+
+def align_ate_c2b_use_a2b(traj_a_c2w, traj_b_c2w):
+    """Umeyama sim(3) from trajectory a to b, applied to a. Returns
+    (traj_a_aligned_c2w [N,3,4], ssim) with ssim = dict(R [3,3], t [3,1], s,
+    type='traj_align') such that b ~= s * R @ a + t on camera positions
+    (reference align_trajectories.py:89-138)."""
+    traj_a = np.asarray(traj_a_c2w, np.float64)
+    traj_b = np.asarray(traj_b_c2w, np.float64)
+    s, R, t = align_umeyama(traj_b[:, :3, 3], traj_a[:, :3, 3])
+    R_a = traj_a[:, :3, :3]
+    t_a = traj_a[:, :3, 3:4]
+    R_aligned = R[None] @ R_a
+    t_aligned = s * (R[None] @ t_a) + t.reshape(1, 3, 1)
+    aligned = np.concatenate([R_aligned, t_aligned], axis=2).astype(np.float32)
+    ssim = dict(R=R.astype(np.float32), t=t.reshape(3, 1).astype(np.float32),
+                s=float(s), type="traj_align")
+    return aligned, ssim
+
+
+def apply_traj_align_ssim(pose_w2c, ssim):
+    """Apply a fitted 'traj_align' sim(3) to any w2c pose set, so that it can
+    be fit on a trusted subset and applied to the whole set."""
+    pose_c2w = _np_invert_pose(np.asarray(pose_w2c, np.float32))
+    R, t, s = ssim["R"], np.reshape(ssim["t"], (1, 3, 1)), ssim["s"]
+    R_aligned = R[None] @ pose_c2w[:, :3, :3]
+    t_aligned = s * (R[None] @ pose_c2w[:, :3, 3:4]) + t
+    aligned = np.concatenate([R_aligned, t_aligned], axis=2).astype(np.float32)
+    return _np_invert_pose(aligned)
+
+
+def backtrack_from_aligning_the_trajectory(pose_GT_w2c, ssim):
+    """Move GT test poses into the optimized coordinate frame
+    (reference align_trajectories.py:56-62)."""
+    pose_GT_w2c = np.asarray(pose_GT_w2c, np.float32)
+    pose_GT_c2w = _np_invert_pose(pose_GT_w2c)
+    R, t, s = ssim["R"], ssim["t"].reshape(3, 1), ssim["s"]
+    R_aligned = R.T[None] @ pose_GT_c2w[:, :3, :3]
+    t_aligned = (R.T / s)[None] @ (pose_GT_c2w[:, :3, 3:4] - t[None])
+    pose_c2w_aligned = np.concatenate([R_aligned, t_aligned], axis=2)
+    return _np_invert_pose(pose_c2w_aligned.astype(np.float32))
+
+
+def align_translations(GT_poses_w2c, initial_poses_w2c):
+    """Shift the initial c2w camera centers onto the GT centers' mean
+    (reference align_trajectories.py:65-86). Both [N,3,4] w2c."""
+    GT_c2w = _np_invert_pose(np.asarray(GT_poses_w2c, np.float32))
+    init_c2w = _np_invert_pose(np.asarray(initial_poses_w2c, np.float32))
+    trans_error = GT_c2w[:, :3, 3].mean(0) - init_c2w[:, :3, 3].mean(0)
+    init_c2w[:, :3, 3] += trans_error
+    return _np_invert_pose(init_c2w)
+
+
+def _pose_errors_np(pose_aligned_w2c, pose_GT_w2c):
+    """Rotation (rad) and camera-center translation errors, c2w convention
+    (reference model/barf_dtu.py:164-194)."""
+    a_c2w = _np_invert_pose(np.asarray(pose_aligned_w2c, np.float64))
+    g_c2w = _np_invert_pose(np.asarray(pose_GT_w2c, np.float64))
+    R_diff = a_c2w[:, :, :3] @ np.swapaxes(g_c2w[:, :, :3], -1, -2)
+    trace = np.clip((np.trace(R_diff, axis1=-2, axis2=-1) - 1) / 2,
+                    -1 + 1e-7, 1 - 1e-7)
+    R_err = np.arccos(trace)
+    t_err = np.linalg.norm(a_c2w[:, :, 3] - g_c2w[:, :, 3], axis=-1)
+    return R_err, t_err
+
+
+def prealign_w2c_large_camera_systems(pose_w2c, pose_GT_w2c):
+    """ATE/Umeyama sim(3) alignment (more than 9 cameras;
+    model/barf_dtu.py:196-226). Returns (aligned w2c, ssim)."""
+    pose_c2w = _np_invert_pose(np.asarray(pose_w2c, np.float32))
+    pose_GT_c2w = _np_invert_pose(np.asarray(pose_GT_w2c, np.float32))
+    try:
+        aligned_c2w, ssim = align_ate_c2b_use_a2b(pose_c2w, pose_GT_c2w)
+        pose_aligned_w2c = _np_invert_pose(aligned_c2w)
+    except np.linalg.LinAlgError:
+        pose_aligned_w2c = np.asarray(pose_w2c, np.float32)
+        ssim = dict(R=np.eye(3, dtype=np.float32),
+                    t=np.zeros((3, 1), np.float32), s=1.0, type="traj_align")
+    return pose_aligned_w2c, ssim
+
+
+def prealign_w2c_small_camera_systems(pose_w2c, pose_GT_w2c):
+    """Exhaustive pairwise alignment for 9 or fewer cameras
+    (reference model/barf_dtu.py:229-322): for every camera pair, rescale by
+    the pair distance ratio and align the first pose exactly; keep the
+    candidate with the smallest rotation*translation error product."""
+    pose_w2c = np.asarray(pose_w2c, np.float32)
+    pose_GT_w2c = np.asarray(pose_GT_w2c, np.float32)
+    pose_c2w = _np_invert_pose(pose_w2c)
+    pose_GT_c2w = _np_invert_pose(pose_GT_w2c)
+    B = pose_c2w.shape[0]
+
+    def pad(p):
+        out = np.tile(np.eye(4, dtype=np.float64), (p.shape[0], 1, 1))
+        out[:, :3] = p
+        return out
+
+    from_p = pad(pose_c2w)
+    to_p = pad(pose_GT_c2w)
+
+    best = None
+    for a in range(min(B, 10)):
+        for b in range(min(B, 10)):
+            if a == b:
+                continue
+            f = from_p.copy()
+            dist_from = np.linalg.norm(f[a, :3, 3] - f[b, :3, 3])
+            dist_to = np.linalg.norm(to_p[a, :3, 3] - to_p[b, :3, 3])
+            scale = dist_to / max(dist_from, 1e-12)
+            f[:, :3, 3] *= scale
+            T = to_p[a] @ np.linalg.inv(f[a])
+            aligned_c2w = (T[None] @ f)[:, :3].astype(np.float32)
+            aligned_w2c = _np_invert_pose(aligned_c2w)
+            R_err, t_err = _pose_errors_np(aligned_w2c, pose_GT_w2c)
+            score = float(t_err.mean()) * float(np.rad2deg(R_err.mean()))
+            ssim = dict(R=T[:3, :3].astype(np.float32),
+                        t=T[:3, 3].reshape(3, 1).astype(np.float32),
+                        s=float(scale), type="traj_align")
+            if best is None or score < best[0]:
+                best = (score, aligned_w2c, ssim)
+    return best[1], best[2]

@@ -20,8 +20,9 @@ def pixel_centers_from_idx(ray_idx, W):
 
 
 def _grid_cam(xy, intr):
-    """Lift pixel centers onto the z=1 camera plane: [N,2],[B,3,3] -> [B,N,3]."""
-    return pose_ops.img2cam(pose_ops.to_hom(xy)[None], intr)
+    """Lift pixel centers onto the z=1 camera plane, in the intrinsics'
+    dtype: [N,2],[B,3,3] -> [B,N,3]."""
+    return pose_ops.img2cam(pose_ops.to_hom(xy.to(intr.dtype))[None], intr)
 
 
 def get_center_and_ray(pose, intr, ray_idx, W):

@@ -26,6 +26,8 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.models",
     "neural_invertible_warp_tpu_torch.models.engine",
     "neural_invertible_warp_tpu_torch.models.inn_warp",
+    "neural_invertible_warp_tpu_torch.models.dtu",
+    "neural_invertible_warp_tpu_torch.barf_inn_dtu",
     "neural_invertible_warp_tpu_torch.ops.cuda.build",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_pe",
     "neural_invertible_warp_tpu_torch.ops.cuda.fused_field",
@@ -58,6 +60,13 @@ opt.output_root = {out!r}
 process_options(opt)
 get_system_class(opt.model)(opt, "cpu")
 chip_smoke.make_scene(8, 8, 2, seed=0)
+from neural_invertible_warp_tpu_torch.barf_inn_dtu import barf_inn_dtu_options
+opt = barf_inn_dtu_options()
+opt.output_root = {out!r}
+process_options(opt)
+system = get_system_class(opt.model)(opt, "cpu")
+system.attach_data(chip_smoke.make_dtu_scene(4, 5, 2, seed=0),
+                   chip_smoke.make_dtu_scene(4, 5, 1, seed=1))
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 """
@@ -135,7 +144,19 @@ def test_port_dotdict_behaves_as_the_jax_one():
 @pytest.mark.parametrize("name,item", [("barf_se3_field", "M9"), ("barf_dtu", "M10"),
                                        ("garf", "M11"), ("homography", "M11")])
 def test_registry_names_the_roadmap_item(name, item):
+    """A name not ported yet raises and names its ROADMAP item; the DTU
+    family (M10, ported) resolves its four names to the port's classes,
+    paired as the JAX registry pairs them."""
     from neural_invertible_warp_tpu_torch.models import get_system_class
+    if item == "M10":
+        from neural_invertible_warp_tpu.models import get_system_class as jax_system_class
+        from neural_invertible_warp_tpu_torch.models import dtu
+        for dtu_name in ("nerf_dtu", "barf_dtu", "barf_inn_dtu", "nerf_inn_dtu"):
+            cls = get_system_class(dtu_name)
+            assert cls.__module__ == dtu.__name__
+            assert cls.__name__ == jax_system_class(dtu_name).__name__
+        assert get_system_class("nerf_inn_dtu") is get_system_class("barf_inn_dtu")
+        return
     with pytest.raises(KeyError, match=item):
         get_system_class(name)
 
@@ -362,7 +383,13 @@ def test_port_llff_loader_gives_the_jax_arrays(tmp_path):
 @pytest.mark.parametrize("name,item", [("dtu", "M10"), ("iphone", "M14"),
                                        ("tandt", "M14")])
 def test_unported_data_loaders_name_the_roadmap_item(name, item):
+    """A loader not ported yet raises and names its ROADMAP item; DTU's (M10,
+    ported) resolves to the port's own copy."""
     from neural_invertible_warp_tpu_torch.data import get_dataset
+    if item == "M10":
+        from neural_invertible_warp_tpu_torch.data import dtu
+        assert get_dataset(name) is dtu and dtu.Dataset.__module__ == dtu.__name__
+        return
     with pytest.raises(NotImplementedError, match=item):
         get_dataset(name)
 
@@ -391,6 +418,61 @@ def _tiny_llff_system(tmp_path, seed=0):
     system.init_state(seed)
     assert torch.is_tensor(system.aux["global_rigid"])
     return system
+
+
+def _tiny_dtu_system(tmp_path, seed=0):
+    """barf_inn_dtu at a tiny size on chip_smoke.py's in-memory DTU scene,
+    from the noisy_gt start, with the global-alignment loss on."""
+    import chip_smoke as cs
+    from neural_invertible_warp_tpu_torch.barf_inn_dtu import barf_inn_dtu_options
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.models import get_system_class
+    opt = barf_inn_dtu_options()
+    opt.output_root = str(tmp_path)
+    opt.arch.update(layers_feat=[None, 16, 16, 16], layers_rgb=[None, 8, 3], skip=[1])
+    opt.inn.real_nvp.update(d_hidden=8, latent_dim=4)
+    opt.nerf.update(rand_rays=24, sample_intvs=4)
+    opt.data.image_size = [8, 10]
+    opt.loss_weight.global_alignment = 3
+    opt.max_iter = 20
+    process_options(opt)
+    system = get_system_class("barf_inn_dtu")(opt, "cpu")
+    system.attach_data(cs.make_dtu_scene(8, 10, 4, seed=0), cs.make_dtu_scene(8, 10, 1, seed=1))
+    system.init_state(seed)
+    return system
+
+
+@pytest.mark.parametrize("make", [_tiny_llff_system, _tiny_dtu_system],
+                         ids=["barf_inn_llff", "barf_inn_dtu"])
+def test_resume_continues_the_random_draws(tmp_path, make):
+    """2N steps in one run take the same draws, losses and parameters as N
+    steps, a checkpoint, a restore into a fresh system of the same options
+    and N more steps: every step seeds its draws from (seed, step). The
+    noisy_gt start of DTU comes back from the checkpoint."""
+    from neural_invertible_warp_tpu_torch.utils import ckpt
+    n = 2
+    whole = make(tmp_path / "whole")
+    ref = [whole.train_step() for _ in range(2 * n)]
+    first = make(tmp_path / "first")
+    for _ in range(n):
+        first.train_step()
+    out = first.opt.output_path
+    ckpt.save(out, first, first.step)
+    resumed = make(tmp_path / "resumed")
+    if "initial_poses_w2c" in resumed.aux:        # not redrawn on restore
+        resumed.aux["initial_poses_w2c"] = torch.zeros_like(resumed.aux["initial_poses_w2c"])
+    assert ckpt.restore(out, resumed) == n and resumed.step == n
+    if "initial_poses_w2c" in resumed.aux:
+        assert torch.equal(resumed.aux["initial_poses_w2c"], whole.aux["initial_poses_w2c"])
+    got = [resumed.train_step() for _ in range(n)]
+    for m_ref, m_got in zip(ref[n:], got):
+        assert sorted(m_ref) == sorted(m_got)
+        for k in m_ref:
+            assert torch.equal(m_ref[k], m_got[k]), k
+    for (name, a), b in zip(whole.graph.named_parameters(), resumed.graph.parameters()):
+        assert torch.equal(a, b), name
+    assert torch.equal(whole.aux["global_rigid"], resumed.aux["global_rigid"])
+    assert not torch.equal(ref[0]["loss_all"], ref[1]["loss_all"])
 
 
 def test_restore_latest_and_numbered_checkpoints(tmp_path):
