@@ -8,8 +8,11 @@ Same CLI surface as the JAX package's ``evaluate.py``: loads the latest (or
 the given) checkpoint, reports the pose errors and the novel-view PSNR, SSIM
 and LPIPS (with test-time pose refinement where ``optim.test_photo`` is on),
 writes ``quant.txt``, ``quant_pose.txt`` and the test-view PNGs, assembles
-the test-view videos when ffmpeg is available and renders the circular
-novel-view sequence. DTU is evaluated on ``val``, Blender on ``test``; on
+the test-view videos when ffmpeg is available, renders the circular
+novel-view sequence and, for pose-optimizing models, replays the
+checkpoints into the pose plots ``poses/<it>.png``, ``poses.html`` and,
+with ffmpeg, ``poses.mp4`` (matplotlib needed; a failure there is logged
+as a warning). DTU is evaluated on ``val``, Blender on ``test``; on
 DTU, ``--export_dtu_cameras`` also writes the training cameras as
 ``cameras_refined.npz`` in the original DTU frame. Runs on the first CUDA
 device; ``--device=cpu`` runs the plain PyTorch paths instead. Without a
@@ -129,8 +132,11 @@ def main(argv=None):
     if opt.data.dataset != "blender" and opt.get("novel_view_video", True):
         generate_novel_view(opt, trainer.system)
     if hasattr(trainer.system, "evaluate_camera_alignment"):
-        log.info("the pose video needs utils/vis.py, which is not ported yet "
-                 "(ROADMAP M15)")
+        from .utils.vis import generate_videos_pose
+        try:
+            generate_videos_pose(opt, trainer)
+        except Exception as e:
+            log.warn("pose video failed: {}".format(e))
     return results
 
 

@@ -4,8 +4,10 @@ SE(3) BARF and the INN warp with depth-error evaluation.
 * ``nerf_dtu``: the scene's depth range from the dataset (metric depth in
   [1.2, 5.2]), the depth errors of the drawn rays as train metrics, masked
   eval metrics, the rendered depth rescaled by the recovered sim(3) scale;
-* ``barf_dtu``: initial poses ``identity`` / ``noisy_gt`` / ``given`` (the
-  SfM inits ``colmap`` / ``colmap_files`` raise and name ROADMAP M15), an
+* ``barf_dtu``: initial poses ``identity`` / ``noisy_gt`` / ``given``, or
+  from SfM: ``colmap`` (matches from ``pose.sfm.matcher`` on the system's
+  device, the reconstruction on the host) or ``colmap_files`` (an existing
+  COLMAP model in ``pose.model_dir``), sim(3)-aligned onto the GT frame; an
   SE(3) refinement composed onto them, ATE alignment of more than 9 cameras
   or the exhaustive pairwise search at 9 or fewer, eval poses backtracked
   into the optimized frame;
@@ -131,7 +133,8 @@ class PoseInitMixin:
 
     def set_initial_poses(self):
         """Initial w2c poses [n_train,3,4]; the ``noisy_gt`` se(3) noise is
-        drawn once, from the generator as ``init_state`` seeds it."""
+        drawn once, from the generator as ``init_state`` seeds it. The SfM
+        modes set ``sfm_valid_idx`` and ``sfm_excluded``."""
         opt = self.opt
         gt = self.train_data["pose"]
         mode = opt.pose.init
@@ -145,13 +148,67 @@ class PoseInitMixin:
             init = pose_ops.compose([lie.se3_to_SE3(se3_noise), gt])
         elif mode == "given":
             init = gt.clone()
-        elif mode in ("colmap", "colmap_files"):
-            raise NotImplementedError(
-                "pose.init={} (the SfM pose initialisation) is not ported yet "
-                "(ROADMAP M15)".format(mode))
+        elif mode == "colmap_files":
+            # Seed from an EXISTING on-disk COLMAP reconstruction
+            # (images.bin/cameras.bin), matching the reference's
+            # get_poses_and_idx semantics (utils/colmap_initialization/
+            # sfm.py:246-284): match by image name, identity + excluded for
+            # unreconstructed images, then sim3-align onto the GT frame.
+            from ..utils import colmap_io
+            model_dir = opt.pose.get("model_dir")
+            if not model_dir:
+                raise ValueError("pose.init=colmap_files needs pose.model_dir")
+            names = getattr(self, "train_image_names", None)
+            init, valid, excluded = colmap_io.poses_from_model(model_dir, image_names=names)
+            if init.shape[0] != self.n_train:
+                raise ValueError(
+                    "COLMAP model has {} images but the split has {} (and "
+                    "no per-image names to match by)".format(init.shape[0], self.n_train))
+            self.sfm_valid_idx = valid
+            self.sfm_excluded = excluded
+            log.info("COLMAP-file pose init: {} valid, excluded {}".format(
+                len(valid), excluded))
+            init = self._align_sfm_to_gt(init, gt.cpu().numpy(), valid)
+        elif mode == "colmap":
+            # SfM initialization (reference model/barf_dtu.py:55-67 +
+            # utils/colmap_initialization/sfm.py:337-406): matcher on the
+            # system's device -> reconstruction on the host -> sim3-align
+            # the recovered trajectory onto the GT frame (fixes the
+            # arbitrary SfM gauge/scale, as the reference does via
+            # prealign_w2c_small_camera_systems).
+            import os
+            from ..utils import colmap_init
+            sfm_cfg = opt.pose.get("sfm") or {}
+            save_dir = None
+            if opt.get("output_path"):
+                save_dir = os.path.join(opt.output_path, "sfm")
+            matcher_kwargs = {}
+            if sfm_cfg.get("weights_path"):   # e.g. pdcnet checkpoint
+                matcher_kwargs["weights_path"] = sfm_cfg["weights_path"]
+            init, valid, excluded = colmap_init.compute_sfm_poses(
+                self.train_data["image"].cpu().numpy(),
+                self.train_data["intr"].cpu().numpy(),
+                matcher=sfm_cfg.get("matcher") or "zncc",
+                quant_px=sfm_cfg.get("quant_px") or 1.0,
+                save_dir=save_dir, matcher_kwargs=matcher_kwargs, device=self.device)
+            self.sfm_valid_idx = valid
+            self.sfm_excluded = excluded
+            log.info("SfM pose init: {} valid, excluded {}".format(len(valid), excluded))
+            init = self._align_sfm_to_gt(init, gt.cpu().numpy(), valid)
         else:
             raise ValueError("unknown pose.init: {}".format(mode))
-        return init.float().contiguous()
+        return torch.as_tensor(init, device=self.device).float().contiguous()
+
+    def _align_sfm_to_gt(self, init, gt, valid):
+        """Sim3-align reconstructed poses onto the GT frame, FITTING on the
+        valid subset only (identity placeholders for excluded images must
+        not bias the fit), then applying to the full set; with no valid
+        camera the fit takes them all."""
+        idx = np.asarray(valid if len(valid) else np.arange(init.shape[0]))
+        fit = align.prealign_w2c_small_camera_systems if len(idx) <= 9 \
+            else align.prealign_w2c_large_camera_systems
+        _, ssim = fit(init[idx], gt[idx])
+        return align.apply_traj_align_ssim(init, ssim)
 
 
 class DTUAlignmentMixin:

@@ -25,6 +25,7 @@ class Trainer:
         self.device = torch.device(device)
         os.makedirs(opt.output_path, exist_ok=True)
         self.system = None
+        self.train_image_names = None   # per-image file names of the training split
         self.step_seconds = []     # wall time of each step (device-synced)
         self.history = []          # per-step metrics, 0-d device tensors
 
@@ -34,6 +35,7 @@ class Trainer:
         data_mod = get_dataset(opt.data.dataset)
         log("loading training data...")
         train = data_mod.Dataset(opt, split="train", subset=opt.data.get("train_sub"))
+        self.train_image_names = train.image_names()
         log("loading test data...")
         if opt.data.get("val_on_test"):
             eval_split = "test"
@@ -41,9 +43,14 @@ class Trainer:
         return train.all_arrays(opt), test.all_arrays(opt)
 
     def build_system(self, train_arrays, test_arrays):
+        """The system on the arrays; the training images' file names (from
+        ``load_dataset``, or None for in-memory arrays) go to
+        ``system.train_image_names`` before the initial poses are set, since
+        ``pose.init: colmap_files`` matches COLMAP's images by name."""
         log("building networks...")
         self.system = get_system_class(self.opt.model)(self.opt, self.device)
         self.system.attach_data(train_arrays, test_arrays)
+        self.system.train_image_names = self.train_image_names
         self.system.init_state(self.opt.seed or 0)
 
     def restore_checkpoint(self):

@@ -498,16 +498,19 @@ def test_checkpoints_both_ways(pair, tmp_path):
 
 # --------------------------------------------------- the port on its own
 
-def _tiny_system(model="barf_inn_dtu", fine=False, init="noisy_gt", seed=0):
-    """A tiny port system on chip_smoke.py's in-memory DTU scene."""
+def _tiny_system(model="barf_inn_dtu", fine=False, init="noisy_gt", seed=0,
+                 output_path="unused", **pose):
+    """A tiny port system on chip_smoke.py's in-memory DTU scene; ``pose``
+    updates the ``pose`` options."""
     import chip_smoke as cs
     from neural_invertible_warp_tpu_torch.barf_inn_dtu import barf_inn_dtu_options
     opt = barf_inn_dtu_options()
-    opt.update(model=model, H=8, W=10, output_path="unused", max_iter=20)
+    opt.update(model=model, H=8, W=10, output_path=output_path, max_iter=20)
     opt.arch.update(layers_feat=[None, 16, 16, 16], layers_rgb=[None, 8, 3], skip=[1])
     opt.inn.real_nvp.update(d_hidden=8, latent_dim=4)
     opt.nerf.update(rand_rays=24, sample_intvs=8)
     opt.pose.init = init
+    opt.pose.update(pose)
     opt.optim.test_iter = 2
     if fine:
         opt.nerf.update(fine_sampling=True, sample_intvs_fine=8)
@@ -569,9 +572,35 @@ def test_inn_readout_starts_at_the_initial_poses():
 
 
 @pytest.mark.parametrize("init", ["colmap", "colmap_files"])
-def test_sfm_pose_inits_name_the_roadmap_item(init):
-    with pytest.raises(NotImplementedError, match="M15"):
-        _tiny_system("barf_dtu", init=init)
+def test_sfm_pose_inits_name_the_roadmap_item(init, tmp_path):
+    """The SfM pose inits (which raised and named ROADMAP M15 until they
+    were ported; tests/test_torch_colmap.py holds them against the JAX
+    package) on the tiny in-memory scene. ``colmap_files``: a COLMAP model
+    of the GT poses, read in image_id order (in-memory arrays carry no file
+    names), gives the GT poses back. ``colmap``: the ZNCC matcher, on the
+    system's device, finds no corner whose patch fits into an 8x10 view, so
+    the SfM excludes every image and the start is the identity aligned on
+    all of them: finite, and the same for every image."""
+    from neural_invertible_warp_tpu_torch.utils import colmap_io
+    if init == "colmap_files":
+        gt = _tiny_system("barf_dtu", init="given").train_data["pose"].double().numpy()
+        cameras = {1: colmap_io.Camera(1, "PINHOLE", 10, 8, np.array([17.5, 17.5, 5.0, 4.0]))}
+        images = {i + 1: colmap_io.Image(i + 1, colmap_io.rotmat2qvec(gt[i, :, :3]),
+                                         gt[i, :, 3], 1, "{}.png".format(i), np.zeros((0, 2)),
+                                         np.zeros((0,), np.int64)) for i in range(len(gt))}
+        colmap_io.write_model(cameras, images, {}, str(tmp_path), ext=".txt")
+        system = _tiny_system("barf_dtu", init=init, model_dir=str(tmp_path))
+        assert (system.sfm_valid_idx, system.sfm_excluded) == (list(range(6)), [])
+        torch.testing.assert_close(system.aux["initial_poses_w2c"], system.train_data["pose"],
+                                   rtol=0, atol=1e-5)
+    else:
+        system = _tiny_system("barf_dtu", init=init, output_path=str(tmp_path))
+        assert (system.sfm_valid_idx, system.sfm_excluded) == ([], list(range(6)))
+        assert sorted(os.listdir(tmp_path / "sfm")) == ["initial_poses.npz", "matches.npz"]
+        init_poses = system.aux["initial_poses_w2c"]
+        assert bool(torch.isfinite(init_poses).all())
+        torch.testing.assert_close(init_poses, init_poses[:1].expand(6, 3, 4), rtol=0, atol=0)
+    assert np.isfinite(float(system.train_step()["loss_all"]))
 
 
 def test_export_dtu_cameras_round_trip(dtu_root, tmp_path):

@@ -38,7 +38,15 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.ops.pdcnet.convert",
     "neural_invertible_warp_tpu_torch.utils.matchers",
     "neural_invertible_warp_tpu_torch.utils.ckpt",
+    "neural_invertible_warp_tpu_torch.utils.colmap_init",
+    "neural_invertible_warp_tpu_torch.utils.colmap_io",
+    "neural_invertible_warp_tpu_torch.utils.sfm",
+    "neural_invertible_warp_tpu_torch.utils.sfm_native",
+    "neural_invertible_warp_tpu_torch.utils.vis",
+    "neural_invertible_warp_tpu_torch.utils.pose_viewer",
+    "neural_invertible_warp_tpu_torch.ops.epipolar",
     "neural_invertible_warp_tpu_torch.train",
+    "neural_invertible_warp_tpu_torch.evaluate",
     "chip_smoke",
 ]
 
@@ -67,15 +75,16 @@ process_options(opt)
 system = get_system_class(opt.model)(opt, "cpu")
 system.attach_data(chip_smoke.make_dtu_scene(4, 5, 2, seed=0),
                    chip_smoke.make_dtu_scene(4, 5, 1, seed=1))
-banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "neural_invertible_warp_tpu")
+banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib",
+          "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 """
 
 
 def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
     """The port's slice modules and chip_smoke.py, imported and driven up to
-    building the system, load none of jax, yaml, PIL, imageio, nor the JAX
-    package (the card's machine has none of the first four)."""
+    building the system, load none of jax, yaml, PIL, imageio, matplotlib,
+    nor the JAX package (the card's machine has none of the first five)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(
@@ -307,7 +316,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert {os.path.join(pkg, *p.split("/")) for p in (
         "ops/correlation.py", "ops/cuda/correlation.py", "ops/pdcnet/layers.py",
         "ops/pdcnet/vgg.py", "ops/pdcnet/blocks.py", "ops/pdcnet/gocor.py",
-        "ops/pdcnet/pdcnet.py", "ops/pdcnet/convert.py", "utils/matchers.py")} <= set(sources)
+        "ops/pdcnet/pdcnet.py", "ops/pdcnet/convert.py", "utils/matchers.py",
+        "ops/epipolar.py", "utils/colmap_io.py", "utils/colmap_init.py", "utils/sfm.py",
+        "utils/sfm_native.py", "utils/geometry_np.py", "utils/vis.py",
+        "utils/pose_viewer.py")} <= set(sources)
     found =["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
              for path in sources for root, line in _imported_roots(path)
              if root in BANNED_IMPORTS]
@@ -583,8 +595,9 @@ CLI_FLAGS = [
 def test_train_and_evaluate_entry_points_on_cpu(tmp_path):
     """``train`` in-process and ``python -m ...evaluate --device=cpu`` as a
     subprocess on the synthetic LLFF fixture: checkpoints, then quant.txt,
-    quant_pose.txt, the test-view PNGs and the novel views. Without a CUDA
-    device and without ``--device=cpu`` both entry points refuse to start."""
+    quant_pose.txt, the test-view PNGs, the novel views and the pose video.
+    Without a CUDA device and without ``--device=cpu`` both entry points
+    refuse to start."""
     import torch
     import synth_data
     from neural_invertible_warp_tpu_torch import evaluate, train
@@ -609,7 +622,10 @@ def test_train_and_evaluate_entry_points_on_cpu(tmp_path):
         + ["--device=cpu"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr[-3000:]
     assert "restored checkpoint" in run.stdout and "(iter 4)" in run.stdout
-    assert "ROADMAP M15" in run.stdout            # the pose video is not ported
+    # the pose video: the evaluated state and the checkpoints of iterations 2 and 4
+    assert sorted(os.listdir(os.path.join(out_dir, "poses"))) == ["0.png", "2.png", "4.png"]
+    assert os.path.isfile(os.path.join(out_dir, "poses.html"))
+    assert "pose video failed" not in run.stdout
     n_val = 2                                     # 8 images at val_ratio 0.25
     rows = open(os.path.join(out_dir, "quant.txt")).read().split("\n")[:-1]
     assert len(rows) == n_val
