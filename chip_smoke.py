@@ -110,6 +110,22 @@ Phases, one or more lines each:
      pose-nearest pairs of 8 of those views into compute_sfm_poses: 24 K7
      and 9 adjoint launches per pair, [8,3,4] finite float32 poses, a
      partition. Matcher ms per pair, and the SfM's host seconds by stage.
+ 13. garf: the GARF family at garf_llff.yaml's widths (6x256 Gaussian trunk,
+     128 samples, 2048 rays) on 18 in-memory 480x640 views, TF32 off:
+     garf 100 steps through the Trainer, one view validated and evaluated
+     with 100 steps of test-time refinement, nerf_gaussian and
+     garf_se3_field 20 steps each, and garf from the GT poses with a pose
+     warmup of 5 (se3_refine exactly 0 after 3 steps, moved after 10); each
+     system's step 0 against the same step on the CPU and a float64 one on
+     18 x 14 rays; losses finite and falling, pose readouts rotations; no
+     kernel launches (the Gaussian field takes the plain chain). ms/step,
+     rays/s, seconds per validation and per evaluated view.
+ 14. planar: homography at homography.yaml's widths (360x480 image, 5
+     patches of 180x180, a 4x256 neural image with 8 PE bands) from
+     perturbations equal to the CPU's: step 0's gradients and the first 3
+     losses against the CPU (and float64), then 5,000 steps with the corner
+     error required to fall; img_relu at 512x512 (10,000 pixels a step, 3x256
+     ReLU) 1,000 steps with the PSNR required to rise; no kernel launches.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -363,6 +379,66 @@ SFM_PDCNET_VIEWS = 8
 # float64 than this factor times the plain version is; the values
 # (rgb, depth, opacity, sq_sum) keep TOL["value"].
 TOL_SFM_K2_VS_F64 = 1.5
+
+
+# Path garf: the GARF family at options/garf_llff.yaml's widths (a 6x256
+# Gaussian trunk, skip at 4, a 128-wide view branch, sigma 0.1, a sigmoid;
+# 128 samples, 2048 rays) on make_scene's views at 480x640. No kernel covers
+# the Gaussian field: every step, render and refinement takes the plain
+# chain, and no kernel may launch. Step 0 on the card is held against the
+# same step on the CPU (same weights, same draws) on a sub-batch of
+# GARF_CPU_RAYS rays per image: the loss to TOL["value"] of its max, every
+# gradient leaf to TOL["grad"], or, where it misses, no farther from a
+# float64 evaluation on the CPU than TOL_SFM_K2_VS_F64 times the step's
+# fp32 noise, the farthest any leaf of the CPU's float32 step lies from it
+# (each leaf's distances are printed, and each miss). Sigma 0.1's
+# Gaussians turn a rounding difference of a point into a 100x larger one
+# of its features: on an H100 the card and the CPU differ by 1.1e-5 to
+# 1.7e-5 of max on the trunk's first layers of garf and nerf_gaussian (each
+# as far from float64 as the other), and by 1e-4 to 7e-4 on garf_se3_field,
+# whose warps from their default init turn the views far apart. garf's
+# alpha_linear.bias, a sum over the 32,256 samples that cancels, lies
+# 1.62e-5 from float64 on the card and 2.1e-6 on the CPU: on the card in
+# float64 the Gaussians alone bring it to 5.4e-6, the softplus to 8.3e-6
+# (CUDA's expf, within 2 ulp, in place of the CPU's exp), while the CPU's
+# farthest leaf (se3_refine) lies 2.6e-5 from float64
+# (tools/plain_chain_grad_probe.py).
+GARF_STEPS = 100
+GARF_SHORT_STEPS = 20
+GARF_CPU_RAYS = 14            # per image: 18 x 14 = 252 rays x 128 samples
+GARF_WARMUP = 5
+# Path planar: homography at options/homography.yaml's widths (a 360x480
+# image, 5 patches of 180x180, a [null,256,256,256,256,3] neural image with 8
+# PE bands, fix_first) and img_relu at options/img_relu.yaml's (512x512,
+# 10,000 pixels a step, 3x256 ReLU layers), on smooth synthetic images made
+# from a seed. homography's step-0 loss and first PLANAR_CPU_STEPS losses on
+# the card are held against the CPU's to TOL["value"] of their max, and its
+# step-0 gradient leaves, as the fine slice holds a relu field's, to a
+# relative L2 error of TOL_RELU_REL_L2; then it trains PLANAR_STEPS steps
+# (the yaml's max_iter), and img_relu its 1,000. The neural image is a ReLU
+# MLP on all 8 PE bands: the 2^7 pi band turns a rounding difference of a
+# warped coordinate into a 400x larger one of its features, and a
+# pre-activation that rounds to the other side of 0 changes a point's
+# gradient by a finite amount. Even in float64 a warp moved by 1e-8 moves
+# the warp gradient by 3.1e-3 of its max (1e-10: by 4e-7), and each fp32
+# evaluation lies 1.2e-3 to 4e-3 of max from float64 there
+# (tools/plain_chain_cpu_probe.py, and the card's below), so element-wise
+# bounds mean nothing. On an H100 (tools/plain_chain_grad_probe.py) the
+# card's and the CPU's fp32 warp gradients lie 1.7e-3 and 4.2e-3 in
+# relative L2 from the card's float64, TF32 matmuls 3.9e-2 (the loss moves
+# only 8.7e-7 under TF32: this gate, not the loss's, would catch it). The
+# warps after the first steps are printed beside the CPU's and a float64
+# run's, not gated: Adam's first steps pass those differences on to them.
+PLANAR_CPU_STEPS = 3
+PLANAR_STEPS = 5000
+# the corner error after PLANAR_STEPS steps must fall below this share of
+# its value at the perturbations. homography.yaml sets no barf_c2f: with all
+# 8 PE bands open from step 0 the alignment moves little (BARF's point; on
+# the CPU at 72x96, 2,000 steps: 0.1749 -> 0.1737, against 0.1317 with c2f
+# [0, 0.6], tools/plain_chain_cpu_probe.py). On an H100 this path's 5,000
+# steps take it from 0.1738 to 0.1453, 0.836 of its start; the bound asks
+# for a fall of a tenth
+MAX_PLANAR_CORNER_SHARE = 0.9
 
 
 def check(ok, msg):
@@ -2717,6 +2793,310 @@ def phase_slice_fused_inn(device, off):
     return launches
 
 
+# ------------------------------------------------ the GARF and planar paths
+
+def no_launches(label):
+    """Every kernel counter, and K2's weight packs, still 0."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    counts = field_counts()
+    check(not any(counts.values()) and fp.fused_render_rays_pe_train.packs == 0,
+          "{}: a kernel launched: {}".format(label, counts))
+    return {k: 0 for k in counts}
+
+
+def garf_options(model, steps, out, **init):
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.garf_llff import garf_llff_options
+    opt = garf_llff_options(model)
+    opt.data.image_size = list(IMAGE_HW)
+    opt.freq.early_termination = steps
+    opt.freq.val = opt.freq.ckpt = 10 ** 6
+    opt.init.update(init)
+    opt.output_root = os.path.join(HERE, "build", out)
+    return process_options(opt)
+
+
+def garf_step_grads(system, ray_idx, depth_rand):
+    """(loss, {name: grad}) of one step's loss on the given rays and depth
+    draws, without an optimizer step."""
+    system.optim.zero_grad()
+    out, target, extras = system._forward_train(ray_idx, system.step, depth_rand)
+    loss = system.summarize_loss(system.compute_loss(out, target, extras))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in system.graph.named_parameters()}
+    system.optim.zero_grad()
+    return loss.detach(), grads
+
+
+def garf_step0_vs_cpu(system, arrays, failures):
+    """Step 0's loss and every gradient leaf on the card against the same
+    step on the CPU (a system built from the same seed: the same weights),
+    on a sub-batch of GARF_CPU_RAYS rays per image, beside a float64 copy on
+    the CPU. Returns the largest error over max of any leaf."""
+    from neural_invertible_warp_tpu_torch.models import get_system_class
+    from neural_invertible_warp_tpu_torch.ops import sampling
+    opt = system.opt
+    cpu = get_system_class(opt.model)(opt, "cpu")
+    cpu.attach_data(*arrays)
+    cpu.init_state(opt.seed or 0)
+    f64 = get_system_class(opt.model)(opt, "cpu")
+    f64.attach_data(*[{k: v.astype(np.float64) if v.dtype == np.float32 else v
+                       for k, v in a.items()} for a in arrays])
+    f64.init_state(opt.seed or 0)
+    f64.graph.double()
+    for (name, a), b in zip(system.graph.state_dict().items(), cpu.graph.state_dict().values()):
+        check(torch.equal(a.cpu(), b), "{}: the CPU system's init differs".format(name))
+    g = torch.Generator().manual_seed(11)
+    ray_u = torch.rand(GARF_CPU_RAYS, generator=g)
+    depth_rand = torch.rand(system.n_train, GARF_CPU_RAYS, opt.nerf.sample_intvs, 1,
+                            generator=g)
+    idx = sampling.sample_ray_subset(system.HW, GARF_CPU_RAYS, u=ray_u)
+    print("  step 0 on {} x {} rays: \"kernel\" is the card's float32 (the plain chain), "
+          "\"plain\" the CPU's".format(system.n_train, GARF_CPU_RAYS))
+    loss, grads = garf_step_grads(system, idx.to(system.device), depth_rand.to(system.device))
+    loss_c, grads_c = garf_step_grads(cpu, idx, depth_rand)
+    loss_64, grads_64 = garf_step_grads(f64, idx, depth_rand.double())
+    compare("step-0 loss", loss.cpu(), loss_c, TOL["value"], failures)
+    return hold_leaves(grads, grads_c, grads_64, failures)
+
+
+def hold_leaves(grads, grads_c, grads_64, failures):
+    """Every leaf of ``grads`` (the card's) against the CPU's ``grads_c`` to
+    TOL["grad"] of its max or, where it misses, no farther from the float64
+    ``grads_64`` than TOL_SFM_K2_VS_F64 times the farthest any leaf of the
+    CPU's lies from it. Returns the largest error over max of any leaf."""
+    def from_f64(t, name):
+        f64 = grads_64[name]
+        return float((t.double() - f64).abs().max()) / max(float(f64.abs().max()), 1e-300)
+    noise = max(from_f64(g, name) for name, g in grads_c.items())
+    worst = 0.0
+    for name, got in grads.items():
+        missed = []
+        err = compare(name, got.cpu(), grads_c[name], TOL["grad"], missed, f64=grads_64[name])
+        worst = max(worst, err / max(float(grads_c[name].abs().max()), 1e-30))
+        if missed:
+            dist = from_f64(got.cpu(), name)
+            ok = dist <= TOL_SFM_K2_VS_F64 * noise
+            print("    missed {:.0e}: {:.3e} from float64 against the CPU step's fp32 noise "
+                  "{:.3e} (gate {} x): {}".format(TOL["grad"], dist, noise, TOL_SFM_K2_VS_F64,
+                                                  "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append(name)
+    return worst
+
+
+def phase_garf(device):
+    """Path garf: garf trained GARF_STEPS steps through the Trainer, one view
+    validated and evaluated with test-time refinement, GARF_SHORT_STEPS steps
+    each of nerf_gaussian and garf_se3_field, and garf from the GT poses
+    with a pose warmup; step 0 of the first three against the CPU; no kernel
+    launches. Returns the path's launch counts (all 0)."""
+    from neural_invertible_warp_tpu_torch.models.engine import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False    # this path bypasses train.py
+    torch.backends.cudnn.allow_tf32 = False
+    H, W = IMAGE_HW
+    arrays = (make_scene(H, W, N_TRAIN, seed=0), make_scene(H, W, N_VAL, seed=1))
+    reset_counts()
+    summary, failures = {}, []
+    for model, steps in (("garf", GARF_STEPS), ("nerf_gaussian", GARF_SHORT_STEPS),
+                         ("garf_se3_field", GARF_SHORT_STEPS)):
+        opt = garf_options(model, steps, "chip_smoke_run_" + model)
+        trainer = Trainer(opt, device)
+        trainer.build_system(*arrays)
+        system = trainer.system
+        a = opt.arch
+        print("garf: {} at {}x{} (trunk {}x{}, skip {}, sigma {}, {} samples, {} rays), {} "
+              "train views at {}x{}, {} steps{}".format(
+                  model, a.depth, a.width, a.depth, a.width, list(a.skip), a.gaussian.sigma,
+                  opt.nerf.sample_intvs, opt.nerf.rand_rays, N_TRAIN, H, W, steps,
+                  "; warp MLP {} skip {} {} sigma {}".format(
+                      list(a.layers_warp), list(a.skip_warp), a.actfn_warp, a.sigma_warp)
+                  if model == "garf_se3_field" else ""))
+        check(system._field_mode() == "off", "the Gaussian field must take the plain chain")
+        worst = garf_step0_vs_cpu(system, arrays, failures)
+        trainer.train()
+        losses = torch.stack([m["loss_render"] for m in trainer.history])
+        check(bool(torch.isfinite(torch.stack([m["loss_all"] for m in trainer.history])).all()),
+              "{}: non-finite loss".format(model))
+        first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+        check(last < first, "{}: loss did not fall: {} -> {}".format(model, first, last))
+        ms = statistics.median(trainer.step_seconds[5:]) * 1e3
+        rays = N_TRAIN * (opt.nerf.rand_rays // N_TRAIN)
+        line = "garf: {} loss_render {:.5f} -> {:.5f} (mean of the first and last 5 steps); " \
+            "step 0 on the card against the CPU: largest leaf error {:.3e} of its max; " \
+            "{:.2f} ms/step (median of steps 6-{}), {:.0f} rays/s".format(
+                model, first, last, worst, ms, steps, rays / (ms / 1e3))
+        if model != "nerf_gaussian":
+            ortho = pose_readout_orthonormality(system.get_all_training_poses()[0])
+            line += ", pose readout orthonormal to {:.1e}".format(ortho)
+        print(line + "; card: " + card_line())
+        summary[model] = dict(ms=ms, rays_per_s=rays / (ms / 1e3))
+        if model == "garf":
+            t0 = time.time()
+            res = trainer.run_validation(system.step)
+            torch.cuda.synchronize()
+            val_seconds = time.time() - t0
+            check(math.isfinite(res["psnr_val"]), res["psnr_val"])
+            t0 = time.time()
+            results = system.evaluate_full(dump_images=False)
+            torch.cuda.synchronize()
+            eval_seconds = time.time() - t0
+            log = system.eval_log[0]
+            refine = log["refine_losses"]
+            check(refine.shape == (opt.optim.test_iter,) and bool(torch.isfinite(refine).all()),
+                  "refinement losses")
+            for key in ("PSNR", "SSIM", "rot_error_deg", "trans_error"):
+                check(math.isfinite(results[key]), "{} = {}".format(key, results[key]))
+            print("garf: validation {:.2f} s per view (PSNR {:.2f} dB); evaluated view {:.2f} s: "
+                  "refinement {:.2f} s ({} iterations, {:.2f} ms each, loss {:.5f} -> {:.5f}), "
+                  "render {:.2f} s; PSNR {:.2f} dB, SSIM {:.4f}, rot err {:.3f} deg".format(
+                      val_seconds, res["psnr_val"], eval_seconds, log["refine_seconds"],
+                      opt.optim.test_iter, log["refine_seconds"] / opt.optim.test_iter * 1e3,
+                      float(refine[0]), float(refine[-1]), log["render_seconds"],
+                      results["PSNR"], results["SSIM"], results["rot_error_deg"]))
+            summary["garf"].update(val_seconds=val_seconds, eval_seconds=eval_seconds)
+        del trainer, system
+        torch.cuda.empty_cache()
+    check(not failures, "the card's step 0 disagrees with the CPU's: {}".format(failures))
+
+    # garf from the GT poses with a pose warmup: se3_refine's gradients are
+    # zeroed (not skipped) for GARF_WARMUP updates
+    opt = garf_options("garf", 3, "chip_smoke_run_garf_warmup", pose=True,
+                       pose_warmup=GARF_WARMUP)
+    trainer = Trainer(opt, device)
+    trainer.build_system(*arrays)
+    se3 = trainer.system.graph.se3_refine.weight
+    trainer.train()
+    held = float(se3.detach().abs().max())
+    check(held == 0.0, "se3_refine moved during the warmup: {}".format(held))
+    opt.freq.early_termination = 10
+    trainer.train()
+    moved = float(se3.detach().abs().max())
+    check(moved > 0.0, "se3_refine did not move after the warmup")
+    check(trainer.system.optim.count == 10, "Adam counted {} updates".format(
+        trainer.system.optim.count))
+    print("garf: init.pose with pose_warmup {}: max |se3_refine| {} after 3 steps, {:.3e} "
+          "after 10".format(GARF_WARMUP, held, moved))
+    del trainer
+    torch.cuda.empty_cache()
+    launches = no_launches("garf")
+    print("garf: no kernel launched on the path ({})".format(
+        ", ".join("{} 0".format(k) for k in sorted(launches))))
+    return launches, summary
+
+
+def make_planar_image(H, W, seed):
+    """A smooth textured image [H,W,3] in [0,1]: a few random plane waves
+    per channel."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    img = np.zeros((H, W, 3))
+    for c in range(3):
+        for _ in range(6):
+            f = rng.uniform(1.0, 8.0, 2) * rng.choice([-1, 1], 2)
+            img[..., c] += np.sin(2 * np.pi * (f[0] * xs + f[1] * ys) + rng.uniform(0, 6.3))
+    return (0.5 + 0.5 * np.tanh(img / 3)).astype(np.float32)
+
+
+def phase_planar(device):
+    """Path planar: homography's step 0 and first steps on the card against
+    the CPU's and a float64 run's, then its training, then img_relu; no
+    kernel launches. Returns the path's launch counts (all 0)."""
+    from neural_invertible_warp_tpu_torch.models import planar
+    from neural_invertible_warp_tpu_torch.ops import warp2d
+    from neural_invertible_warp_tpu_torch.planar_options import planar_options
+    torch.backends.cuda.matmul.allow_tf32 = False    # this path bypasses train.py
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    opt = planar_options("homography")
+    H, W = opt.data.image_size
+    image = make_planar_image(H, W, seed=0)
+    print("planar: homography on a {}x{} image, {} patches of {}x{}, layers {}, L_2D {}, "
+          "fix_first {}, {} steps".format(H, W, opt.batch_size, *opt.data.patch_crop,
+                                          list(opt.arch.layers), opt.arch.posenc.L_2D,
+                                          opt.warp.fix_first, PLANAR_STEPS))
+    card = planar.PlanarSystem(opt, device, image=image)
+    cpu = planar.PlanarSystem(planar_options("homography"), "cpu", image=image)
+    f64 = planar.PlanarSystem(planar_options("homography"), "cpu", image=image)
+    f64.image, f64.warp_pert, f64.xy_crop = (t.double() for t in (f64.image, f64.warp_pert,
+                                                                   f64.xy_crop))
+    f64.patches = planar.bilinear_sample(
+        f64.image, warp2d.warp_grid(f64.xy_crop, f64.warp_pert, opt.warp.type), H, W)
+    for system in (card, cpu, f64):
+        system.init_state(opt.seed or 0)
+    f64.graph.double()
+    failures = []
+    check(torch.equal(card.warp_pert.cpu(), cpu.warp_pert), "perturbations differ")
+    compare("patches", card.patches.cpu(), cpu.patches, TOL["value"], failures)
+
+    def step0_grads(system):
+        system.optim.zero_grad()
+        system.loss().backward()
+        grads = {n: p.grad.detach().clone() for n, p in system.graph.named_parameters()}
+        system.optim.zero_grad()
+        return grads
+    grads = [step0_grads(system) for system in (card, cpu, f64)]
+    names = list(grads[1])
+    for name in names:
+        g_card, g_cpu, g_64 = (g[name].cpu().double() for g in grads)
+        print("  {:<26} card - cpu: rel_l2 {:.3e}; max from float64: card {:.3e}, cpu "
+              "{:.3e} of max".format(name, float(torch.linalg.norm(g_card - g_cpu))
+                                     / float(torch.linalg.norm(g_cpu)),
+                                     *(float((g - g_64).abs().max()) / float(g_64.abs().max())
+                                       for g in (g_card, g_cpu))))
+    compare_leaves("step-0 grads", names, [grads[0][n].cpu() for n in names],
+                   [grads[1][n] for n in names], TOL_RELU_REL_L2, True, failures)
+    err0 = card.corner_error()
+    for it in range(PLANAR_CPU_STEPS):
+        m, m_c, _ = card.train_step(), cpu.train_step(), f64.train_step()
+        compare("step {} loss".format(it), m["loss_all"].cpu(), m_c["loss_all"], TOL["value"],
+                failures)
+        warps = [s_.graph.warp_param.detach().cpu().double() for s_ in (card, cpu, f64)]
+        scale = float(warps[2].abs().max())
+        print("  warps after step {}: card - cpu {:.3e}, card - float64 {:.3e}, cpu - float64 "
+              "{:.3e} of max (not gated)".format(it + 1, *(
+                  float((a - b).abs().max()) / scale
+                  for a, b in ((warps[0], warps[1]), (warps[0], warps[2]),
+                               (warps[1], warps[2])))))
+    check(not failures, "the card's steps disagree with the CPU's: {}".format(failures))
+    del cpu, f64
+    torch.cuda.synchronize()
+    t0 = time.time()
+    history = [card.train_step()["loss_all"] for _ in range(PLANAR_STEPS - PLANAR_CPU_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / len(history) * 1e3
+    losses = torch.stack(history)
+    check(bool(torch.isfinite(losses).all()), "homography: non-finite loss")
+    err1 = card.corner_error()
+    check(err1 < MAX_PLANAR_CORNER_SHARE * err0,
+          "homography: corner error {} -> {}".format(err0, err1))
+    print("planar: homography loss {:.5f} -> {:.5f}, corner error {:.5f} -> {:.5f} ({:.3f} of "
+          "it; bound {}); {:.2f} ms/step (mean of {} steps, host clock); card: {}".format(
+              float(losses[0]), float(losses[-1]), err0, err1, err1 / err0,
+              MAX_PLANAR_CORNER_SHARE, ms, len(history), card_line()))
+    del card
+
+    opt = planar_options("img_relu")
+    H, W = opt.data.image_size
+    fit = planar.ImageFitSystem(opt, device, image=make_planar_image(H, W, seed=1))
+    fit.init_state(opt.seed or 0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    psnrs = torch.stack([fit.train_step()["psnr"] for _ in range(opt.max_iter)])
+    torch.cuda.synchronize()
+    ms_fit = (time.time() - t0) / opt.max_iter * 1e3
+    check(bool(torch.isfinite(psnrs).all()), "img_relu: non-finite PSNR")
+    p0, p1 = float(psnrs[:10].mean()), float(psnrs[-10:].mean())
+    check(p1 > p0, "img_relu: PSNR did not rise: {} -> {}".format(p0, p1))
+    print("planar: img_relu {}x{}, {} pixels a step, {}x{} ReLU: PSNR {:.2f} -> {:.2f} dB "
+          "(mean of the first and last 10 steps of {}); {:.2f} ms/step".format(
+              H, W, opt.train_samples, opt.relu.hidden_layers, opt.relu.hidden_features, p0, p1,
+              opt.max_iter, ms_fit))
+    launches = no_launches("planar")
+    print("planar: no kernel launched on the path; card: {}".format(card_line()))
+    return launches, dict(ms_homography=ms, ms_img_relu=ms_fit, corner_error=(err0, err1))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2755,16 +3135,22 @@ def main():
     torch.cuda.empty_cache()
     launches_sfm, k2_sfm = phase_pose_init_sfm(device)
     records["k2"].update(k2_sfm)
+    torch.cuda.empty_cache()
+    launches_garf, _ = phase_garf(device)
+    launches_planar, _ = phase_planar(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
              "dtu": launches_dtu, "fine": launches_fine,
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
              "pose_init_sfm": launches_sfm}
+    # paths that run no kernel, listed with their zeros
+    plain_paths = {"garf": launches_garf, "planar": launches_planar}
 
     def kernel(key, name, source, replaces, record):
-        # launches: over the seven paths, each counted from 0 by its own phase
+        # launches: over the paths, each counted from 0 by its own phase
         by_path = {path: counts[key] for path, counts in paths.items() if counts.get(key)}
+        by_path.update({path: counts[key] for path, counts in plain_paths.items()})
         return dict(name=name, route="cuda", source=pkg + source, replaces=pallas + replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path, **record)
     kernels = [

@@ -47,14 +47,17 @@ def generate_videos_synthesis(opt):
 
 
 def generate_novel_view(opt, system, n_views=60):
-    """Circular novel-view render around the central training camera, as
+    """Circular novel-view render around the central training camera (the
+    pose readout, or the GT pose for a model that optimizes none), as
     ``novel_view/rgb_<i>.png`` (and a video when ffmpeg is available)."""
     import imageio.v2 as imageio
     from .ops import pose as pose_ops
     from .utils import log
-    poses = system.get_all_training_poses()[0]
+    pose_pred, pose_GT = system.get_all_training_poses()
+    poses = pose_pred if pose_pred is not None else pose_GT
     scale = 1.0
-    if opt.data.dataset in ("llff", "iphone", "tandt") and getattr(system, "sim3", None):
+    if (pose_pred is not None and opt.data.dataset in ("llff", "iphone", "tandt")
+            and getattr(system, "sim3", None)):
         scale = float(system.sim3["s1"]) / float(system.sim3["s0"])
     centers = poses[..., 3]
     idx_center = int(torch.linalg.norm(

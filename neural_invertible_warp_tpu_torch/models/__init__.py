@@ -1,15 +1,10 @@
-"""Model registry of the port. The paper's INN-warp models on LLFF, Blender
-and DTU, vanilla NeRF (with fine sampling), SE(3) BARF on LLFF and Blender and
-the DTU family are ported so far; every other name of the JAX registry raises
-``KeyError`` naming the ROADMAP item that brings it."""
+"""Model registry of the port: every name the JAX package's registry
+resolves, to the port's class of the same name. The planar experiments
+(``homography``, ``planar``, ``img_relu``) are not systems of this
+registry, as in the JAX package: ``engine.run_training`` sends them to
+``planar.run_planar_training`` before any system is looked up."""
 
 from __future__ import annotations
-
-_NOT_YET = {
-    "barf_se3_field": "M9", "nerf_gaussian": "M11", "garf": "M11",
-    "garf_se3_field": "M11", "homography": "M11", "planar": "M11",
-    "img_relu": "M11",
-}
 
 
 def get_system_class(name):
@@ -19,7 +14,7 @@ def get_system_class(name):
     if name == "nerf":
         from .system import NerfSystem
         return NerfSystem
-    if name == "barf":
+    if name in ("barf", "barf_se3_field"):
         from .barf import BarfSystem
         return BarfSystem
     if name == "nerf_dtu":
@@ -31,7 +26,13 @@ def get_system_class(name):
     if name in ("barf_inn_dtu", "nerf_inn_dtu"):
         from .dtu import InnDTUSystem
         return InnDTUSystem
-    if name in _NOT_YET:
-        raise KeyError("model {!r} is not ported yet (ROADMAP {})".format(
-            name, _NOT_YET[name]))
+    if name == "nerf_gaussian":
+        from .garf import NerfGaussianSystem
+        return NerfGaussianSystem
+    if name == "garf":
+        from .garf import GarfSystem
+        return GarfSystem
+    if name == "garf_se3_field":
+        from .garf import GarfSE3FieldSystem
+        return GarfSE3FieldSystem
     raise KeyError("unknown model: {}".format(name))

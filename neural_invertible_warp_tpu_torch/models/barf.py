@@ -9,7 +9,8 @@ evaluation view (a per-view se(3) correction under Adam, differentiated
 through K3 and K4 on the card). On LLFF the initial poses are the identity,
 on Blender the GT poses composed with a seeded se(3) noise
 (``camera.noise``), kept in ``aux["pose_noise"]``; on DTU those of
-``pose.init`` (models/dtu.py).
+``pose.init`` (models/dtu.py); on iPhone and Tanks-and-Temples, as on
+LLFF, the identity.
 """
 
 from __future__ import annotations
@@ -26,13 +27,6 @@ from .system import NerfSystem
 class BarfSystem(NerfSystem):
 
     model_name = "barf"
-
-    def __init__(self, opt, device):
-        super().__init__(opt, device)
-        if opt.data.dataset not in ("llff", "blender", "dtu"):
-            raise NotImplementedError(
-                "pose refinement on {!r} data is not ported yet (ROADMAP M14)".format(
-                    opt.data.dataset))
 
     def build_graph(self, generator):
         graph = super().build_graph(generator)
@@ -69,14 +63,15 @@ class BarfSystem(NerfSystem):
     # ----------------------------------------------------------------- poses
 
     def _initial_pose(self):
-        """The poses before refinement: identity on LLFF, the GT poses
-        (with the pose noise, where there is one) on Blender."""
+        """The poses before refinement: the GT poses (with the pose noise,
+        where there is one) on Blender, else the identity."""
         if self.opt.data.dataset == "blender":
             pose = self.train_data["pose"]
             if "pose_noise" in self.aux:
                 pose = pose_ops.compose([self.aux["pose_noise"], pose])
             return pose
-        return pose_ops.identity_pose((self.n_train,), device=self.device)
+        return pose_ops.identity_pose((self.n_train,), dtype=self.train_data["pose"].dtype,
+                                      device=self.device)
 
     def get_train_pose(self):
         pose_refine = lie.se3_to_SE3(self.graph.se3_refine.weight)

@@ -106,7 +106,12 @@ class Trainer:
 
 
 def run_training(opt, device):
-    """Load the dataset, build the system, train."""
+    """Load the dataset, build the system, train; the planar experiments
+    (``homography``, ``planar``, ``img_relu``) go to their own training loop, as
+    in the JAX package (its models/engine.py:232-234)."""
+    if opt.model in ("homography", "planar", "img_relu"):
+        from .planar import run_planar_training
+        return run_planar_training(opt, device)
     trainer = Trainer(opt, device)
     trainer.build_system(*trainer.load_dataset())
     trainer.restore_checkpoint()

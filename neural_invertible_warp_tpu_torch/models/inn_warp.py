@@ -26,9 +26,8 @@ from torch import nn
 from ..ops import align, inn, lie, posenc, rays
 from ..ops import pose as pose_ops
 from ..ops.cuda import fused_inn
-from ..ops.nerf_mlp import NerfMLP
 from .barf import BarfSystem
-from .system import Graph
+from .system import NerfSystem
 
 
 class InnWarpSystem(BarfSystem):
@@ -54,12 +53,10 @@ class InnWarpSystem(BarfSystem):
         raise NotImplementedError(self.enc_type)
 
     def build_graph(self, generator):
+        """The field(s) (no se3_refine: the warp carries the poses), the
+        warp and its latent table."""
         opt = self.opt
-        graph = Graph(nerf=NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
-                                   generator=generator))
-        if opt.nerf.fine_sampling:
-            graph.nerf_fine = NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
-                                      generator=generator)
+        graph = NerfSystem.build_graph(self, generator)
         graph.warp_mlp = inn.DeformNetwork(
             self.latent_dim(), d_hidden=opt.inn.real_nvp.d_hidden, n_blocks=3,
             n_layers=1, multires=self.multires, actfn=self.actfn,

@@ -78,14 +78,16 @@ class NerfSystem:
 
     # ---------------------------------------------------------------- state
 
+    def make_field(self, generator):
+        """One field (the GARF family swaps in the Gaussian one)."""
+        return nerf_mlp.NerfMLP(self.arch, view_dep=self.opt.nerf.view_dep,
+                                generator=generator)
+
     def build_graph(self, generator):
         """The field, and with fine sampling a second one of its own init."""
-        opt = self.opt
-        graph = Graph(nerf=nerf_mlp.NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
-                                            generator=generator))
-        if opt.nerf.fine_sampling:
-            graph.nerf_fine = nerf_mlp.NerfMLP(self.arch, view_dep=opt.nerf.view_dep,
-                                               generator=generator)
+        graph = Graph(nerf=self.make_field(generator))
+        if self.opt.nerf.fine_sampling:
+            graph.nerf_fine = self.make_field(generator)
         return graph
 
     def init_aux(self):
@@ -110,6 +112,11 @@ class NerfSystem:
         gamma = exp_decay_gamma(opt.max_iter, opt.optim.lr, opt.optim.get("lr_end"))
         return {"main": exp_schedule(opt.optim.lr, gamma)}
 
+    def make_gates(self):
+        """dict label -> number of first updates whose gradients are zeroed
+        (GARF's pose warmup); none by default."""
+        return {}
+
     def init_state(self, seed=0):
         """Parameters from a seeded CPU generator (device-independent), then
         the optimizer and aux state on the device."""
@@ -125,7 +132,7 @@ class NerfSystem:
             groups.setdefault(label, []).extend(getattr(self.graph, name).parameters())
         for p in groups.get("frozen", []):
             p.requires_grad_(False)
-        self.optim = MultiAdam(groups, self.make_schedules())
+        self.optim = MultiAdam(groups, self.make_schedules(), self.make_gates())
         self.aux = self.init_aux()
         self.step = 0
 
@@ -285,6 +292,11 @@ class NerfSystem:
     def get_train_pose(self):
         """w2c poses [n_train,3,4] the training rays are cast from."""
         return self.train_data["pose"]
+
+    def get_all_training_poses(self):
+        """(predicted poses, GT poses) of the training images; a model that
+        optimizes no pose predicts none."""
+        return None, self.train_data["pose"]
 
     def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         """One training forward over the drawn rays of every image; returns

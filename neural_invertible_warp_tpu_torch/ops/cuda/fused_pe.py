@@ -52,6 +52,17 @@ MAX_SAMPLES = 65535 * 128
 _ACTIV = {"softplus": 0, "relu": 1}
 
 
+def _activ(density_activ):
+    """The kernels' code for a density activation; they implement softplus
+    and relu only."""
+    if density_activ not in _ACTIV:
+        raise NotImplementedError(
+            "the field kernels K1-K5 implement arch.density_activ softplus and relu, "
+            "not {!r}: set tpu.fused_pe and tpu.fused_kernel to false to take the "
+            "plain chain".format(density_activ))
+    return _ACTIV[density_activ]
+
+
 def supports(mlp):
     """Whether the kernels cover this field: the reference architecture."""
     a = mlp.arch
@@ -308,7 +319,7 @@ def _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep):
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(), R, K,
                          w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
-                         packed.lo, _ACTIV[density_activ], int(keep), out.data_ptr(),
+                         packed.lo, _activ(density_activ), int(keep), out.data_ptr(),
                          ws.data_ptr(), stream)
     build.check(err, "niw_rm_fwd")
     return out, ws, packed
@@ -339,7 +350,7 @@ def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, packed,
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
                          g8.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
-                         packed.split_ptrs, packed.lo, _ACTIV[density_activ],
+                         packed.split_ptrs, packed.lo, _activ(density_activ),
                          cache.data_ptr(), int(want_dw), dcenter.data_ptr(),
                          dray.data_ptr(), _ptrs(dws) if want_dw else None, ws.data_ptr(),
                          stream)
@@ -373,7 +384,7 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
                            None if noise is None else noise.data_ptr(), R, K,
                            w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
                            packed.lo,
-                           _ACTIV[density_activ], int(bg is not None),
+                           _activ(density_activ), int(bg is not None),
                            float(bg or 0.0), out.data_ptr(), dcenter.data_ptr(),
                            dray.data_ptr(), _ptrs(dws),
                            None if prob is None else prob.data_ptr(),
@@ -555,7 +566,7 @@ def field_launch_fwd(symbol, mlp, head, tensors, N, K, density_activ, keep):
     ws = torch.empty(getattr(lib, symbol + "_fwd_workspace_floats")(N, int(keep)),
                      dtype=torch.float32, device=device)
     err = getattr(lib, symbol + "_fwd")(
-        *head, packed.ptrs, packed.split_ptrs, packed.lo, _ACTIV[density_activ], int(keep),
+        *head, packed.ptrs, packed.split_ptrs, packed.lo, _activ(density_activ), int(keep),
         out.data_ptr(), ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     build.check(err, symbol + "_fwd")
     return out, ws, packed
@@ -580,7 +591,7 @@ def field_launch_bwd(symbol, mlp, head, tensors, g, cache, packed, N, K, grad_sh
     ws = torch.empty(getattr(lib, symbol + "_bwd_workspace_floats")(N),
                      dtype=torch.float32, device=g.device)
     err = getattr(lib, symbol + "_bwd")(
-        *head, packed.split_ptrs, packed.lo, _ACTIV[density_activ], cache.data_ptr(),
+        *head, packed.split_ptrs, packed.lo, _activ(density_activ), cache.data_ptr(),
         int(want_dw), d_a.data_ptr(), d_b.data_ptr(), _ptrs(dws) if want_dw else None,
         ws.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     build.check(err, symbol + "_bwd")

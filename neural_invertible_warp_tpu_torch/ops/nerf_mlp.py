@@ -24,13 +24,19 @@ def layer_dims(layers):
     return list(zip(layers[:-1], layers[1:]))
 
 
+_DENSITY_ACTIV = {
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "relu": torch.relu,
+    "abs": torch.abs,
+    "sigmoid": torch.sigmoid,
+    "exp": torch.exp,
+}
+
+
 def density_activation(name, x):
-    if name == "softplus":
-        return torch.logaddexp(x, torch.zeros_like(x))
-    if name == "relu":
-        return torch.relu(x)
-    raise NotImplementedError(
-        "density_activ {!r} is not ported yet (ROADMAP M11)".format(name))
+    """``arch.density_activ`` applied to the density pre-activation (the
+    JAX package's ``_DENSITY_ACTIV``); an unknown name raises ``KeyError``."""
+    return _DENSITY_ACTIV[name](x)
 
 
 def _xavier_(weight, gain, generator):

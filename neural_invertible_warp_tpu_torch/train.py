@@ -5,9 +5,10 @@
         --loss_weight.global_alignment=4
 
 Same CLI surface as the JAX package's ``train.py`` (``--resume`` and
-``--load=<ckpt>`` included). Runs on the first CUDA device; ``--device=cpu``
-runs the plain PyTorch paths instead. Without a CUDA device and without that
-flag it fails.
+``--load=<ckpt>`` included); ``--model=homography|planar|img_relu`` runs the
+2D experiments of models/planar.py on ``--data.image_fname``. Runs on the
+first CUDA device; ``--device=cpu`` runs the plain PyTorch paths instead.
+Without a CUDA device and without that flag it fails.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@
 each a pickled ``dict(iter, state)`` of numpy arrays, where ``state`` is the
 JAX system's state tree: ``params`` (through the weight bridge), ``opt_state``
 per label as optax's adam state ``((count, mu, nu), (count,))`` with mu and nu
-raveled over the label's params in JAX leaf order, ``step`` and ``aux``.
+raveled over the label's params in JAX leaf order (behind a gradient gate,
+GARF's pose warmup, the chain ``((count,), adam state)``), ``step`` and
+``aux``.
 The JAX package's ``restore_checkpoint`` loads it into its own state, and
 ``restore`` here loads a file written by either package into a port system.
 """
@@ -53,6 +55,8 @@ def state_tree(system):
             opt_state[label] = ((count, ravel_like_jax({k: mu[k] for k in keys}),
                                  ravel_like_jax({k: nu[k] for k in keys})),
                                 (count,))
+            if label in optim.gates:
+                opt_state[label] = ((count,), opt_state[label])
     return dict(params=to_jax_params(system.graph), opt_state=opt_state,
                 step=np.int32(system.step),
                 aux={k: v.detach().cpu().numpy() for k, v in system.aux.items()})
@@ -124,7 +128,10 @@ def load_state_tree(system, state):
     for label, keys in system.label_keys().items():
         if label == "frozen" or label not in state.get("opt_state", {}):
             continue
-        (count, mu, nu), _ = state["opt_state"][label]
+        entry = state["opt_state"][label]
+        if len(entry[0]) == 1:      # a gate's (count,) in front of Adam
+            entry = entry[1]
+        (count, mu, nu), _ = entry
         sub = {k: template[k] for k in keys}
         mu_sd = from_jax_params(unravel_like_jax(mu, sub))
         nu_sd = from_jax_params(unravel_like_jax(nu, sub))

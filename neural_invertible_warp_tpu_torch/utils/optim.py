@@ -32,10 +32,19 @@ def exp_schedule(lr, gamma, warmup=None):
 
 class MultiAdam:
 
-    def __init__(self, groups, schedules):
+    def __init__(self, groups, schedules, gates=None):
         """groups: dict label -> list of parameters; schedules: dict label ->
-        callable(count) -> lr. The label "frozen" is not optimized."""
+        callable(count) -> lr; gates: dict label -> n, whose gradients are
+        zeroed in the first n updates. The label "frozen" is not optimized.
+
+        A gate sits in front of Adam as optax's does: a gated update still
+        counts, with zero gradients, so the moments stay zero, the
+        parameters do not move, and Adam's bias correction and the schedule
+        run on. Its gradients are written as zeros, not left as None, since
+        ``torch.optim.Adam`` skips a parameter without a gradient and would
+        not count the update."""
         self.schedules = schedules
+        self.gates = dict(gates or {})
         self.labels = [k for k in groups if k != "frozen"]
         self.opt = torch.optim.Adam(
             [dict(params=list(groups[k]), label=k) for k in self.labels],
@@ -48,6 +57,12 @@ class MultiAdam:
     def step(self):
         for group in self.opt.param_groups:
             group["lr"] = self.schedules[group["label"]](self.count)
+            if self.count < self.gates.get(group["label"], 0):
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    else:
+                        p.grad.zero_()
         self.opt.step()
         self.count += 1
 

@@ -2,12 +2,18 @@
 ``nn.Module`` state_dicts.
 
 ``from_jax_params(tree)`` maps a JAX params dict (top-level groups ``nerf``,
-``nerf_fine``, ``se3_refine``, ``warp_mlp``, ``warp_latent``) of numpy arrays
-to a state_dict keyed as the reference torch Graph (``nerf.mlp_feat.i.weight``,
-``se3_refine.weight``, ``warp_mlp.lin{b}_a_{l}.weight_v``,
-``warp_latent.weight``, ...);
+``nerf_fine``, ``se3_refine``, ``warp_mlp``, ``warp_latent``,
+``warp_embedding``) of numpy arrays to a state_dict keyed as the reference
+torch Graph (``nerf.mlp_feat.i.weight``, ``se3_refine.weight``,
+``warp_mlp.lin{b}_a_{l}.weight_v``, ``warp_latent.weight``, ...);
 ``to_jax_params(module)`` is its inverse and returns numpy arrays. JAX
 stores linear weights [in, out], torch [out, in].
+
+Two layouts live under each of two keys. ``nerf`` / ``nerf_fine`` is the
+NeRF MLP (``{"feat": [...], "rgb": [...]}``) or the GARF field (the
+reference's ``gaussian_linear_d``, ``pts_linears``, ... by name).
+``warp_mlp`` is the INN warp (``{"blocks": [...]}``) or, in
+``garf_se3_field``, a list of ``{w, b}`` layers (``warp_mlp.<i>.weight``).
 """
 
 from __future__ import annotations
@@ -28,37 +34,57 @@ def _ident(p):
     return p
 
 
+def _linear_from_jax(layer, name, sd):
+    sd[name + ".weight"] = _t(np.asarray(layer["w"]).T)
+    sd[name + ".bias"] = _t(layer["b"])
+
+
+def _linear_to_jax(lin, get):
+    return dict(w=_np(get(lin.weight)).T, b=_np(get(lin.bias)))
+
+
 def nerf_from_jax(tree, prefix=""):
     sd = {}
-    for name, layers in (("mlp_feat", tree["feat"]), ("mlp_rgb", tree["rgb"])):
-        for i, layer in enumerate(layers):
-            sd["{}{}.{}.weight".format(prefix, name, i)] = _t(np.asarray(layer["w"]).T)
-            sd["{}{}.{}.bias".format(prefix, name, i)] = _t(layer["b"])
+    if "pts_linears" in tree:       # the GARF field: its children by name
+        groups = tree.items()
+    else:
+        groups = (("mlp_feat", tree["feat"]), ("mlp_rgb", tree["rgb"]))
+    for name, value in groups:
+        if isinstance(value, (list, tuple)):
+            for i, layer in enumerate(value):
+                _linear_from_jax(layer, "{}{}.{}".format(prefix, name, i), sd)
+        else:
+            _linear_from_jax(value, prefix + name, sd)
     return sd
 
 
 def nerf_to_jax(mlp, get=_ident):
-    return dict(
-        feat=[dict(w=_np(get(l.weight)).T, b=_np(get(l.bias)))
-              for l in mlp.mlp_feat],
-        rgb=[dict(w=_np(get(l.weight)).T, b=_np(get(l.bias)))
-             for l in mlp.mlp_rgb])
+    if hasattr(mlp, "pts_linears"):
+        tree = {}
+        for name, child in mlp.named_children():
+            if isinstance(child, torch.nn.ModuleList):
+                tree[name] = [_linear_to_jax(lin, get) for lin in child]
+            else:
+                tree[name] = _linear_to_jax(child, get)
+        return tree
+    return dict(feat=[_linear_to_jax(l, get) for l in mlp.mlp_feat],
+                rgb=[_linear_to_jax(l, get) for l in mlp.mlp_rgb])
 
 
 def _layer_from_jax(layer, name, sd):
     if "v" in layer:
         sd[name + ".weight_v"] = _t(np.asarray(layer["v"]).T)
         sd[name + ".weight_g"] = _t(np.asarray(layer["g"]).reshape(-1, 1))
+        sd[name + ".bias"] = _t(layer["b"])
     else:
-        sd[name + ".weight"] = _t(np.asarray(layer["w"]).T)
-    sd[name + ".bias"] = _t(layer["b"])
+        _linear_from_jax(layer, name, sd)
 
 
 def _layer_to_jax(mod, get):
     if hasattr(mod, "weight_v"):
         return dict(v=_np(get(mod.weight_v)).T,
                     g=_np(get(mod.weight_g)).reshape(-1), b=_np(get(mod.bias)))
-    return dict(w=_np(get(mod.weight)).T, b=_np(get(mod.bias)))
+    return _linear_to_jax(mod, get)
 
 
 def deform_from_jax(tree, prefix=""):
@@ -90,9 +116,12 @@ def from_jax_params(tree):
     for name in ("nerf", "nerf_fine"):
         if name in tree:
             sd.update(nerf_from_jax(tree[name], prefix=name + "."))
-    if "warp_mlp" in tree:
+    if isinstance(tree.get("warp_mlp"), (list, tuple)):     # garf_se3_field
+        for i, layer in enumerate(tree["warp_mlp"]):
+            _linear_from_jax(layer, "warp_mlp.{}".format(i), sd)
+    elif "warp_mlp" in tree:
         sd.update(deform_from_jax(tree["warp_mlp"], prefix="warp_mlp."))
-    for name in ("se3_refine", "warp_latent"):    # per-image embedding tables
+    for name in ("se3_refine", "warp_latent", "warp_embedding"):    # per-image tables
         if name in tree:
             sd[name + ".weight"] = _t(tree[name])
     return sd
@@ -100,7 +129,7 @@ def from_jax_params(tree):
 
 def to_jax_params(module, get=_ident):
     """The port's Graph module (children nerf, nerf_fine, se3_refine,
-    warp_mlp, warp_latent) ->
+    warp_mlp, warp_latent, warp_embedding) ->
     JAX params dict of numpy arrays. ``get`` maps each parameter to the
     tensor to export (the parameter itself by default; the checkpoint uses
     it to export Adam moments in the same layout)."""
@@ -108,9 +137,11 @@ def to_jax_params(module, get=_ident):
     for name in ("nerf", "nerf_fine"):
         if hasattr(module, name):
             tree[name] = nerf_to_jax(getattr(module, name), get)
-    if hasattr(module, "warp_mlp"):
+    if isinstance(getattr(module, "warp_mlp", None), torch.nn.ModuleList):
+        tree["warp_mlp"] = [_linear_to_jax(lin, get) for lin in module.warp_mlp]
+    elif hasattr(module, "warp_mlp"):
         tree["warp_mlp"] = deform_to_jax(module.warp_mlp, get)
-    for name in ("se3_refine", "warp_latent"):
+    for name in ("se3_refine", "warp_latent", "warp_embedding"):
         if hasattr(module, name):
             tree[name] = _np(get(getattr(module, name).weight))
     return tree

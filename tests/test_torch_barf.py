@@ -162,15 +162,14 @@ def test_barf_adam_step_and_checkpoint(systems, tmp_path):
 
 @pytest.mark.parametrize("dataset,item", [("iphone", "M14"), ("dtu", "M10")])
 def test_barf_on_other_data_names_the_roadmap_item(tmp_path, dataset, item):
-    """BARF on data not ported yet raises and names its ROADMAP item; on DTU
-    (M10, ported) it builds and takes a finite step."""
+    """BARF builds and takes a finite step on each ROADMAP item's data: DTU
+    (M10) and iPhone (M14), where, as on LLFF, it starts from the identity
+    (the JAX package's models/barf.py:74-81)."""
     opt = _options(tmp_path)
     opt.data.dataset = dataset
-    if item == "M10":
-        system = BarfSystem(opt, "cpu")
-        system.attach_data(_arrays(N_IMG, 0), _arrays(1, 1))
-        system.init_state(0)
-        assert np.isfinite(float(system.train_step()["loss_all"]))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        BarfSystem(opt, "cpu")
+    system = BarfSystem(opt, "cpu")
+    system.attach_data(_arrays(N_IMG, 0), _arrays(1, 1))
+    system.init_state(0)
+    if item == "M14":
+        assert torch.equal(system.get_train_pose(), torch.eye(3, 4).expand(N_IMG, 3, 4))
+    assert np.isfinite(float(system.train_step()["loss_all"]))

@@ -45,6 +45,12 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.utils.vis",
     "neural_invertible_warp_tpu_torch.utils.pose_viewer",
     "neural_invertible_warp_tpu_torch.ops.epipolar",
+    "neural_invertible_warp_tpu_torch.ops.garf_field",
+    "neural_invertible_warp_tpu_torch.ops.warp2d",
+    "neural_invertible_warp_tpu_torch.models.garf",
+    "neural_invertible_warp_tpu_torch.models.planar",
+    "neural_invertible_warp_tpu_torch.garf_llff",
+    "neural_invertible_warp_tpu_torch.planar_options",
     "neural_invertible_warp_tpu_torch.train",
     "neural_invertible_warp_tpu_torch.evaluate",
     "chip_smoke",
@@ -75,6 +81,19 @@ process_options(opt)
 system = get_system_class(opt.model)(opt, "cpu")
 system.attach_data(chip_smoke.make_dtu_scene(4, 5, 2, seed=0),
                    chip_smoke.make_dtu_scene(4, 5, 1, seed=1))
+from neural_invertible_warp_tpu_torch.garf_llff import garf_llff_options
+for model in ("nerf_gaussian", "garf", "garf_se3_field"):
+    opt = garf_llff_options(model)
+    opt.output_root = {out!r}
+    process_options(opt)
+    system = get_system_class(model)(opt, "cpu")
+    system.attach_data(chip_smoke.make_scene(4, 5, 2, seed=0),
+                       chip_smoke.make_scene(4, 5, 1, seed=1))
+from neural_invertible_warp_tpu_torch.planar_options import planar_options
+from neural_invertible_warp_tpu_torch.models import planar
+opt = planar_options("homography")
+opt.data.image_size, opt.data.patch_crop, opt.batch_size = [12, 16], [6, 6], 2
+planar.PlanarSystem(opt, "cpu", image=chip_smoke.make_scene(12, 16, 1, seed=0)["image"][0])
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
@@ -150,15 +169,27 @@ def test_port_dotdict_behaves_as_the_jax_one():
         set(vars(jax_dotdict.DotDict)) - {"__doc__", "__module__"}
 
 
+JAX_MODEL_NAMES = ("nerf", "barf", "barf_se3_field", "barf_inn_llff", "nerf_inn_llff",
+                   "barf_inn_blender", "nerf_dtu", "barf_dtu", "barf_inn_dtu", "nerf_inn_dtu",
+                   "nerf_gaussian", "garf", "garf_se3_field")
+
+
 @pytest.mark.parametrize("name,item", [("barf_se3_field", "M9"), ("barf_dtu", "M10"),
                                        ("garf", "M11"), ("homography", "M11")])
-def test_registry_names_the_roadmap_item(name, item):
-    """A name not ported yet raises and names its ROADMAP item; the DTU
-    family (M10, ported) resolves its four names to the port's classes,
-    paired as the JAX registry pairs them."""
+def test_registry_names_the_roadmap_item(name, item, monkeypatch):
+    """Each ROADMAP item's names resolve as the JAX registry resolves them:
+    ``barf_se3_field`` (M9) to BARF's class; the DTU family (M10) to the
+    port's four classes, paired as the JAX registry pairs them; with the
+    GARF family (M11) every name of the JAX registry, to a port class of the
+    same name; the planar names (M11) are not systems of either registry:
+    ``run_training`` sends them to ``run_planar_training``."""
+    from neural_invertible_warp_tpu.models import get_system_class as jax_system_class
     from neural_invertible_warp_tpu_torch.models import get_system_class
+    if item == "M9":
+        assert get_system_class(name) is get_system_class("barf")
+        assert jax_system_class(name) is jax_system_class("barf")
+        return
     if item == "M10":
-        from neural_invertible_warp_tpu.models import get_system_class as jax_system_class
         from neural_invertible_warp_tpu_torch.models import dtu
         for dtu_name in ("nerf_dtu", "barf_dtu", "barf_inn_dtu", "nerf_inn_dtu"):
             cls = get_system_class(dtu_name)
@@ -166,8 +197,24 @@ def test_registry_names_the_roadmap_item(name, item):
             assert cls.__name__ == jax_system_class(dtu_name).__name__
         assert get_system_class("nerf_inn_dtu") is get_system_class("barf_inn_dtu")
         return
-    with pytest.raises(KeyError, match=item):
-        get_system_class(name)
+    if name == "garf":
+        for model in JAX_MODEL_NAMES:
+            cls = get_system_class(model)
+            assert cls.__module__.startswith("neural_invertible_warp_tpu_torch.models."), model
+            assert cls.__name__ == jax_system_class(model).__name__, model
+        from neural_invertible_warp_tpu_torch.models import garf
+        assert get_system_class(name) is garf.GarfSystem
+        return
+    from neural_invertible_warp_tpu_torch.models import engine, planar
+    seen = []
+    monkeypatch.setattr(planar, "run_planar_training",
+                        lambda opt, device, image=None: seen.append(opt.model))
+    for model in ("homography", "planar", "img_relu"):
+        for registry in (get_system_class, jax_system_class):
+            with pytest.raises(KeyError, match="unknown model"):
+                registry(model)
+        engine.run_training(DotDict(model=model), "cpu")
+    assert seen == ["homography", "planar", "img_relu"]
 
 
 def test_registry_resolves_the_inn_warp_models():
@@ -319,7 +366,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         "ops/pdcnet/pdcnet.py", "ops/pdcnet/convert.py", "utils/matchers.py",
         "ops/epipolar.py", "utils/colmap_io.py", "utils/colmap_init.py", "utils/sfm.py",
         "utils/sfm_native.py", "utils/geometry_np.py", "utils/vis.py",
-        "utils/pose_viewer.py")} <= set(sources)
+        "utils/pose_viewer.py", "ops/garf_field.py", "ops/warp2d.py", "models/garf.py",
+        "models/planar.py", "data/iphone.py", "data/tandt.py", "garf_llff.py",
+        "planar_options.py")} <= set(sources)
     found =["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
              for path in sources for root, line in _imported_roots(path)
              if root in BANNED_IMPORTS]
@@ -395,15 +444,14 @@ def test_port_llff_loader_gives_the_jax_arrays(tmp_path):
 @pytest.mark.parametrize("name,item", [("dtu", "M10"), ("iphone", "M14"),
                                        ("tandt", "M14")])
 def test_unported_data_loaders_name_the_roadmap_item(name, item):
-    """A loader not ported yet raises and names its ROADMAP item; DTU's (M10,
-    ported) resolves to the port's own copy."""
+    """Each ROADMAP item's loader resolves to the port's own copy: DTU's
+    (M10), iPhone's and Tanks-and-Temples' (M14); an unknown name raises."""
+    import importlib
     from neural_invertible_warp_tpu_torch.data import get_dataset
-    if item == "M10":
-        from neural_invertible_warp_tpu_torch.data import dtu
-        assert get_dataset(name) is dtu and dtu.Dataset.__module__ == dtu.__name__
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        get_dataset(name)
+    mod = importlib.import_module("neural_invertible_warp_tpu_torch.data." + name)
+    assert get_dataset(name) is mod and mod.Dataset.__module__ == mod.__name__
+    with pytest.raises(KeyError, match="unknown dataset"):
+        get_dataset(name + "_x")
 
 
 # ----------------------------------------------------------------- checkpoints
