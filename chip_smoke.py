@@ -126,6 +126,20 @@ Phases, one or more lines each:
      losses against the CPU (and float64), then 5,000 steps with the corner
      error required to fall; img_relu at 512x512 (10,000 pixels a step, 3x256
      ReLU) 1,000 steps with the PSNR required to rise; no kernel launches.
+ 15. sharded: the flagship (barf_inn_llff at full width, phase 4's scene)
+     20 steps in 2 processes on the one card, ray-sharded (parallel/mesh.py)
+     under a gloo group, spawned by parallel/audit.py, each rank launching
+     K2 on its half of the rays and K3 on its half of each render chunk;
+     against a one-process run on the same (seed, step) draws: the losses
+     of steps 0-2 to 1e-4 relative, every summed gradient leaf of step 0 to
+     1e-5 of its max or, where it cancels, no farther from a float64 step
+     on the CPU than 1.5x the one-process step's farthest leaf, the
+     parameters of the two ranks bit-identical after 20 steps, and the
+     sharded render of the validation view equal to the one-process render
+     of the same weights to 1e-6 of its max (bit-exact or not, printed);
+     then one step under an nccl group of one process, bit-equal to the
+     step without a group. ms/step per rank (two processes share the card:
+     not a speed result).
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -429,6 +443,14 @@ GARF_WARMUP = 5
 # only 8.7e-7 under TF32: this gate, not the loss's, would catch it). The
 # warps after the first steps are printed beside the CPU's and a float64
 # run's, not gated: Adam's first steps pass those differences on to them.
+# The sharded path: ranks on the one card (gloo: NCCL refuses two ranks on
+# one device), steps, and the gates. Losses: the JAX audit's own gate
+# (EVIDENCE_r5.md §2). The render: each ray's K3 result depends on its
+# own operands only, whichever half of the chunk it is launched with.
+SHARD_RANKS = 2
+SHARD_STEPS = 20
+TOL_SHARD_LOSS = 1e-4
+TOL_SHARD_RENDER = 1e-6
 PLANAR_CPU_STEPS = 3
 PLANAR_STEPS = 5000
 # the corner error after PLANAR_STEPS steps must fall below this share of
@@ -3097,6 +3119,242 @@ def phase_planar(device):
     return launches, dict(ms_homography=ms, ms_img_relu=ms_fit, corner_error=(err0, err1))
 
 
+# ------------------------------------------------------------ the sharded path
+
+class _Captured(Exception):
+    """Raised by capture_call's stand-in once it holds the call's arguments."""
+
+
+def capture_call(module, name, run):
+    """(args, kwargs) of the first call of ``module.<name>`` that ``run()``
+    makes. The stand-in raises before the call is made, so nothing launches
+    and ``run`` goes no further (no collective is reached)."""
+    real, seen = getattr(module, name), {}
+
+    def stand_in(*args, **kw):
+        seen.update(args=args, kw=kw)
+        raise _Captured
+    setattr(module, name, stand_in)
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        setattr(module, name, real)
+    check("args" in seen, "{} was not called".format(name))
+    return seen["args"], seen["kw"]
+
+
+def hold_shard_kernels(job, final, device, failures):
+    """K2 and K3 at each rank's share, through their wrappers, against their
+    plain versions: K2 on the rank's rays of step 0 (its slice of the global
+    draws, the warp's center/ray, as the sharded step hands them to K2) with
+    the step's loss scale, K3 on the rank's half of the first render chunk at
+    the weights after the run (``final``: rank 0's parameters and aux). The
+    arguments are captured from the system's own calls under a group of one
+    rank of SHARD_RANKS, which needs no process group: the capture stops
+    before the first collective. Returns the largest rgb error of each."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    from neural_invertible_warp_tpu_torch.parallel import audit, mesh
+    errs = {"k2": 0.0, "k3": 0.0}
+    system = audit.build_system(job, device)
+    system.seed_step()
+    draws = system.draw_step()
+    n_rays = draws[0].shape[0]
+    mlp = system.graph.nerf
+    names = ["d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    for rank in range(SHARD_RANKS):
+        with mesh.use_group(mesh.RayGroup(None, rank, SHARD_RANKS)):
+            args, kw = capture_call(fp, "fused_render_rays_pe_train", lambda: (
+                system._forward_train(draws[0], system.step, *draws[1:])))
+        check(kw.get("noise") is None and kw.get("density_activ") == "softplus", kw)
+        center, ray, depth, target = [t.detach() for t in args[1:]]
+        B, R = depth.shape[:2]
+        # the step's scale of this rank's squared error: 10^w over the global count
+        weight = 10.0 ** float(system.opt.loss_weight.render) * R / n_rays
+        print("  K2 wrapper at rank {}'s share of step 0 ({} rays x {} samples) against its "
+              "plain version:".format(rank, [B, R], depth.shape[2]))
+        sq, out, grads = k2_wrapper(mlp, center, ray, depth, target, kw, weight)
+        sq_ref, out_ref, grads_ref = k2_plain(mlp, center, ray, depth, target, kw, weight)
+        sq64, out64, grads64 = k2_f64(mlp, center, ray, depth, target, kw, weight)
+        for key in ("rgb", "depth", "opacity"):
+            err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key])
+            if key == "rgb":
+                errs["k2"] = max(errs["k2"], err)
+        compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+        for name, gk, gr, g64 in zip(["dcenter", "dray"] + names, grads, grads_ref, grads64):
+            compare(name, gk, gr, TOL["grad"], failures, g64, TOL_SFM_K2_VS_F64)
+    del system
+    system = audit.build_system(dict(job, state_dict=final["params"], aux=final["aux"],
+                                     step=SHARD_STEPS), device)
+    mlp = system.graph.nerf
+    pose, intr = system.test_data["pose"][:1], system.test_data["intr"][:1]
+    for rank in range(SHARD_RANKS):
+        with mesh.use_group(mesh.RayGroup(None, rank, SHARD_RANKS)):
+            args, kw = capture_call(fp, "fused_render_rays_pe",
+                                    lambda: system.render_image(pose, intr))
+        center, ray, depth = args[1:]
+        B, R, K_ = depth.shape[:3]
+        print("  K3 wrapper at rank {}'s share of the first render chunk ({} rays x {} "
+              "samples) against its plain version:".format(rank, [B, R], K_))
+        with torch.no_grad():
+            got = fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
+            out8 = fp.render_rays_plain(mlp, center.reshape(B * R, 3), ray.reshape(B * R, 3),
+                                        depth.reshape(B * R, K_), kw["progress"],
+                                        kw["barf_c2f"], kw["density_activ"])
+            ref = split_plain(out8, B, R, kw["bgcolor"] if kw["setbg_opaque"] else None)
+        for key, g in zip(("rgb", "depth", "opacity"), got):
+            err = compare(key, g, ref[key], TOL["value"], failures)
+            if key == "rgb":
+                errs["k3"] = max(errs["k3"], err)
+    del system
+    return errs
+
+
+def phase_sharded(device):
+    """Path sharded: the flagship's ray-sharded step and render in
+    SHARD_RANKS processes on the one card (gloo), against one process on the
+    same (seed, step) draws, and one step under an nccl group of one
+    process against the step without a group. Returns the launch counts of
+    the ranks, summed."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from neural_invertible_warp_tpu_torch.config import process_options
+    from neural_invertible_warp_tpu_torch.flagship import flagship_options
+    from neural_invertible_warp_tpu_torch.parallel import audit, mesh
+    opt = flagship_options()
+    opt.data.image_size = list(IMAGE_HW)
+    opt.output_root = os.path.join(HERE, "build", "chip_smoke_run_sharded")
+    process_options(opt)
+    H, W = IMAGE_HW
+    job = dict(options=opt.to_plain(), train=make_scene(H, W, N_TRAIN, seed=0),
+               test=make_scene(H, W, N_VAL, seed=1), seed=0, steps=SHARD_STEPS,
+               grads_at=[0], render=[0])
+    n_rays = opt.nerf.rand_rays // N_TRAIN
+    print("sharded: barf_inn_llff flagship, {} ranks on one card (gloo), {} views at {}x{}, "
+          "{} rays per view, {} steps".format(SHARD_RANKS, N_TRAIN, H, W, n_rays, SHARD_STEPS))
+    t0 = time.time()
+    ranks = [r[0] for r in audit.run([job], SHARD_RANKS, backend="gloo", device="cuda",
+                                     timeout=300)]
+    spawn_seconds = time.time() - t0
+    one = audit.run_job(job, device)
+    failures = []
+
+    # losses of steps 0-2
+    worst = 0.0
+    for res in ranks:
+        for step in range(3):
+            for k, ref in one["metrics"][step].items():
+                if k.startswith("loss_"):
+                    got = res["metrics"][step][k]
+                    worst = max(worst, 0.0 if got == ref else abs(got - ref) / abs(ref))
+    print("  losses of steps 0-2, largest deviation from one process {:.3e} (rel)  tol {:.0e}  "
+          "{}".format(worst, TOL_SHARD_LOSS, "ok" if worst < TOL_SHARD_LOSS else "FAIL"))
+    if not worst < TOL_SHARD_LOSS:
+        failures.append("losses")
+
+    # the summed gradients of step 0, against one process and, where a leaf
+    # misses, float64 on the CPU on the same draws
+    as_t = lambda grads: {k: torch.as_tensor(v) for k, v in grads.items()}
+    grads_1 = as_t(one["grads"][0])
+    check(sorted(ranks[0]["grads"][0]) == sorted(grads_1), "gradient leaves differ")
+    misses = [k for k, g in ranks[0]["grads"][0].items()
+              if audit.max_rel(g, one["grads"][0][k]) > TOL["grad"]]
+    grads_64 = None
+    if misses:
+        probe = audit.build_system(job, device)
+        probe.seed_step()
+        ray_idx, depth_rand, _ = probe.draw_step()
+        del probe
+        f64 = audit.build_system(dict(job, float64=True), "cpu")
+        _, grads_64 = garf_step_grads(f64, ray_idx.cpu(), depth_rand.cpu().double())
+        del f64
+        print("  step-0 gradients: {} leaves miss {:.0e} of their max; float64 on the CPU "
+              "on the step's draws".format(len(misses), TOL["grad"]))
+    worst_grad = 0.0
+    for r, res in enumerate(ranks):
+        print("  step-0 gradient leaves of rank {} (summed) against one process:".format(r))
+        grads = as_t(res["grads"][0])
+        if grads_64 is None:
+            for name, g in grads.items():
+                compare(name, g, grads_1[name], TOL["grad"], failures)
+                worst_grad = max(worst_grad, audit.max_rel(g, grads_1[name]))
+        else:
+            worst_grad = max(worst_grad, hold_leaves(grads, grads_1, grads_64, failures))
+
+    # the two ranks' parameters and aux state after SHARD_STEPS steps
+    same = all(np.array_equal(ranks[0]["params"][k], res["params"][k])
+               for res in ranks[1:] for k in ranks[0]["params"])
+    same = same and all(np.array_equal(ranks[0]["aux"][k], res["aux"][k])
+                        for res in ranks[1:] for k in ranks[0]["aux"])
+    print("  parameters and aux of the {} ranks after {} steps bit-identical: {}".format(
+        SHARD_RANKS, SHARD_STEPS, same))
+    if not same:
+        failures.append("parameters across ranks")
+
+    # the sharded render against one process rendering the same weights
+    ref = audit.run_job(dict(job, state_dict=ranks[0]["params"], aux=ranks[0]["aux"],
+                             step=SHARD_STEPS, steps=0), device)["renders"][0]
+    exact = True
+    for r, res in enumerate(ranks):
+        for k, v in ref.items():
+            got = res["renders"][0][k]
+            exact = exact and np.array_equal(got, v)
+            compare("render {} r{}".format(k, r), torch.as_tensor(got), torch.as_tensor(v),
+                    TOL_SHARD_RENDER, failures)
+    print("  sharded render bit-exact against one process: {}".format(exact))
+
+    # K2 and K3 at the shapes the ranks gave them, against their plain versions
+    shard_errs = hold_shard_kernels(job, ranks[0], device, failures)
+
+    # one step under an nccl group of one process against no group
+    base = dict(job, steps=1, render=[])
+    plain = audit.run_job(base, device)
+    with tempfile.TemporaryDirectory(prefix="niw_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            backend = dist.get_backend()
+            nccl = audit.run_job(base, device, mesh.make_group())
+        finally:
+            dist.destroy_process_group()
+    nccl_equal = (nccl["metrics"] == plain["metrics"]
+                  and all(np.array_equal(nccl["grads"][0][k], g)
+                          for k, g in plain["grads"][0].items())
+                  and all(np.array_equal(nccl["params"][k], p)
+                          for k, p in plain["params"].items()))
+    print("  nccl, world size 1 ({}): step 0 bit-equal to the step without a group: "
+          "{}".format(backend, nccl_equal))
+    if not nccl_equal:
+        failures.append("nccl world size 1")
+
+    n_chunks = -(-H * W // min(opt.nerf.rand_rays, H * W))
+    for r, res in enumerate(ranks):
+        counts = res["launches"]
+        check(counts["train_k2"] == SHARD_STEPS and counts["render_k3"] == n_chunks
+              and not counts["train_k6_fwd"],
+              "rank {} launched {}".format(r, counts))
+    launches = {"k2": sum(res["launches"]["train_k2"] for res in ranks),
+                "k3": sum(res["launches"]["render_k3"] for res in ranks)}
+    ms = [statistics.median(res["step_seconds"][5:]) * 1e3 for res in ranks]
+    ms_one = statistics.median(one["step_seconds"][5:]) * 1e3
+    print("sharded: {} ranks on {}: ms/step {} (median of steps 6-{}), render {} s per view; "
+          "one process {:.2f} ms/step, {:.2f} s (two processes share one card: not a speed "
+          "result); spawn and run {:.1f} s; launches per rank K2 {} K3 {}; card: {}".format(
+              SHARD_RANKS, ranks[0]["device"], " / ".join("{:.2f}".format(m) for m in ms),
+              SHARD_STEPS, " / ".join("{:.2f}".format(r["render_seconds"][0]) for r in ranks),
+              ms_one, one["render_seconds"][0], spawn_seconds, SHARD_STEPS, n_chunks,
+              card_line()))
+    print("sharded: gates: losses {:.3e} (tol {:.0e}), step-0 leaves {:.3e} of max, "
+          "ranks bit-identical {}, render bit-exact {}, nccl world size 1 bit-equal {}; "
+          "K2 / K3 at the ranks' shares against their plain versions, rgb max abs errors "
+          "{:.3e} / {:.3e}".format(worst, TOL_SHARD_LOSS, worst_grad, same, exact, nccl_equal,
+                                   shard_errs["k2"], shard_errs["k3"]))
+    check(not failures, "sharded path failed: {}".format(failures))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3138,12 +3396,14 @@ def main():
     torch.cuda.empty_cache()
     launches_garf, _ = phase_garf(device)
     launches_planar, _ = phase_planar(device)
+    torch.cuda.empty_cache()
+    launches_sharded = phase_sharded(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
              "dtu": launches_dtu, "fine": launches_fine,
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
-             "pose_init_sfm": launches_sfm}
+             "pose_init_sfm": launches_sfm, "sharded": launches_sharded}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 

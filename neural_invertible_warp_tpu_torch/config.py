@@ -16,7 +16,8 @@ first and are overridden leaf-wise by the child. CLI overrides are checked
 against existing keys (``safe_check``): an unknown key prompts on a TTY and
 raises otherwise. The JAX package's ``process_options`` is not copied: it
 also configures JAX. The port's own names the run after its seed, as that one
-does, and sets the output path and ``H, W``.
+does, and sets the output path and ``H, W``. ``save_options_file`` writes the
+resolved options into the run directory, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -145,3 +146,32 @@ def set_options(argv, makedirs=True):
     opt = load_options("options/{}.yaml".format(opt_cmd.yaml))
     opt = override_options(opt, opt_cmd, key_stack=[], safe_check=True)
     return process_options(opt, makedirs=makedirs)
+
+
+def save_options_file(opt):
+    """Dump the resolved options into ``<output_path>/options.yaml``. Where a
+    different one is there already (a rerun into the same directory), ask on
+    a TTY whether to override it; otherwise warn, keep the old file as
+    ``options_prev.yaml`` and write the new one. The ``device`` key is left
+    out."""
+    import yaml
+    opt_fname = os.path.join(opt.output_path, "options.yaml")
+    plain = {k: v for k, v in opt.to_plain().items() if k not in ("device",)}
+    if os.path.isfile(opt_fname):
+        with open(opt_fname) as f:
+            opt_old = yaml.safe_load(f)
+        if plain != opt_old:
+            if sys.stdin.isatty():
+                override = None
+                while override not in ["y", "n"]:
+                    override = input("existing options file differs; override? (y/n) ")
+                if override == "n":
+                    print("safe exiting...")
+                    sys.exit(0)
+            else:
+                from .utils import log
+                log.warn("existing options file differs from current run; overwriting "
+                         "(previous file saved as options_prev.yaml)")
+                os.replace(opt_fname, os.path.join(opt.output_path, "options_prev.yaml"))
+    with open(opt_fname, "w") as f:
+        yaml.safe_dump(plain, f, default_flow_style=False, indent=4)

@@ -152,7 +152,7 @@ class BarfSystem(NerfSystem):
                     pose_it = pose_ops.compose([lie.se3_to_SE3(se3), pose])
                     center, ray = rays.get_center_and_ray(pose_it, intr, ray_idx, self.W)
                     out = self.render_rays(center, ray, mode="test-optim",
-                                           progress=progress)
+                                           progress=progress, intr=intr)
                     loss = torch.mean((out["rgb"] - pixels[:, ray_idx]) ** 2)
                     optim.zero_grad(set_to_none=True)
                     loss.backward()

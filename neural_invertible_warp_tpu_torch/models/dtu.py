@@ -30,6 +30,7 @@ import torch
 from ..ops import align, lie
 from ..ops import metrics as metrics_ops
 from ..ops import pose as pose_ops
+from ..parallel import mesh
 from ..utils import log
 from .barf import BarfSystem
 from .inn_warp import InnWarpSystem
@@ -60,18 +61,20 @@ class DTUMixin:
 
     def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
         out, target, extras = super()._forward_train(ray_idx, step, depth_rand, noise_rand)
-        extras["ray_idx"] = ray_idx
+        extras["ray_idx"] = mesh.shard_rays(ray_idx, 0)    # the rays rendered here
         return out, target, extras
 
     def compute_loss(self, out, target, extras):
         """The base losses; records the depth errors of the drawn rays
-        (``depth_abs``, ``depth_rmse``) in ``extras`` for the metrics."""
+        (``depth_abs``, ``depth_rmse``) in ``extras`` for the metrics, over
+        every rank's rays under a ray-sharded step."""
         losses = super().compute_loss(out, target, extras)
         data = self.train_data
         if "depth_gt_pixels" in data and "ray_idx" in extras:
-            extras["depth_abs"], extras["depth_rmse"] = metrics_ops.depth_error_on_rays(
+            sums = mesh.all_reduce_sum(metrics_ops.depth_error_sums_on_rays(
                 out["depth"].detach(), data["depth_gt_pixels"], data["valid_depth_pixels"],
-                extras["ray_idx"])
+                extras["ray_idx"]))
+            extras["depth_abs"], extras["depth_rmse"] = metrics_ops.abs_rmse_from_sums(sums)
         return losses
 
     def depth_scaling_factor(self):

@@ -1,11 +1,18 @@
 """Training engine (port of neural_invertible_warp_tpu/models/engine.py):
-dataset loading, a plain Python train loop, logging, validation and
-checkpoints. One ``train_step`` per iteration (the JAX package's
-``lax.scan`` step batching has no counterpart here).
+dataset loading, a plain Python train loop, logging (to the console and,
+where ``tb`` is set and a writer is importable, to tensorboard, with the
+validation images), validation, the live pose view ``poses.html`` every
+``freq.vis`` steps, and checkpoints. One ``train_step`` per iteration (the
+JAX package's ``lax.scan`` step batching has no counterpart here).
+``debug.nan_check`` runs the loop under autograd's anomaly detection and
+checks the loss and every gradient after each step, raising
+``FloatingPointError`` at the first non-finite one; ``tpu.profile_dir``
+writes a ``torch.profiler`` trace of the loop there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -16,6 +23,7 @@ from . import get_system_class
 from ..data import get_dataset
 from ..utils import ckpt as ckpt_util
 from ..utils.log import info as log
+from ..utils.log import warn
 
 
 class Trainer:
@@ -28,6 +36,8 @@ class Trainer:
         self.train_image_names = None   # per-image file names of the training split
         self.step_seconds = []     # wall time of each step (device-synced)
         self.history = []          # per-step metrics, 0-d device tensors
+        self.tb = None             # tensorboard writer (setup_visualizer)
+        self.live_pose_frames = []     # (step, aligned poses) of poses.html
 
     def load_dataset(self, eval_split="val"):
         """(train_arrays, test_arrays) of the configured dataset."""
@@ -64,14 +74,65 @@ class Trainer:
         log("initializing weights from scratch...")
         return 0
 
+    def setup_visualizer(self):
+        """A tensorboard writer into the run directory where ``tb`` is set:
+        tensorboardX's, else torch.utils.tensorboard's; without either the
+        run goes on without one, with a warning, as the JAX engine's does."""
+        if self.opt.get("tb") is None:
+            return
+        try:
+            from tensorboardX import SummaryWriter
+            self.tb = SummaryWriter(logdir=self.opt.output_path, flush_secs=10)
+        except ImportError:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
+            except ImportError as e:
+                warn("tensorboard writer unavailable: {}".format(e))
+
     def train(self):
         opt = self.opt
         log("training start")
-        end = min(opt.max_iter, opt.freq.get("early_termination") or opt.max_iter)
+        nan_check = bool((opt.get("debug") or {}).get("nan_check"))
+        profile_dir = (opt.get("tpu") or {}).get("profile_dir")
         t_start = time.time()
+        with contextlib.ExitStack() as stack:
+            if nan_check:
+                stack.enter_context(torch.autograd.set_detect_anomaly(True))
+            profiler = None
+            if profile_dir:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = stack.enter_context(torch.profiler.profile(activities=activities))
+            self._loop(nan_check)
+        elapsed = time.time() - t_start
+        log("trained {} iters in {:.1f}s".format(len(self.step_seconds), elapsed))
+        self.save_checkpoint(self.system.step)
+        if profiler is not None:
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, "trace.json")
+            profiler.export_chrome_trace(path)
+            log("profiler trace written to {}".format(path))
+        if self.tb:
+            self.tb.flush()
+        log("training done")
+
+    def _loop(self, nan_check):
+        opt = self.opt
+        end = min(opt.max_iter, opt.freq.get("early_termination") or opt.max_iter)
+        freq_vis = opt.freq.get("vis")
         while self.system.step < end:
             t0 = time.time()
-            metrics = self.system.train_step()
+            try:
+                metrics = self.system.train_step()
+            except RuntimeError as e:
+                # anomaly detection names the backward function that made a NaN
+                if nan_check and "nan values" in str(e):
+                    raise FloatingPointError("step {}: {}".format(self.system.step, e)) from e
+                raise
+            if nan_check:
+                self.check_finite(metrics, self.system.step - 1)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.step_seconds.append(time.time() - t0)
@@ -81,23 +142,91 @@ class Trainer:
                 self.log_scalars(metrics, it)
             if it % opt.freq.val == 0:
                 self.run_validation(it)
+            if freq_vis and it % freq_vis == 0:
+                self.update_live_pose_view(it)
             if it % opt.freq.ckpt == 0:
                 self.save_checkpoint(it)
-        elapsed = time.time() - t_start
-        log("trained {} iters in {:.1f}s".format(len(self.step_seconds), elapsed))
-        self.save_checkpoint(self.system.step)
-        log("training done")
+
+    def check_finite(self, metrics, step):
+        """Raise FloatingPointError naming ``step`` and what is not finite
+        among the step's metrics and the gradients it left (one host sync)."""
+        named = list(metrics.items()) + [
+            (name + ".grad", p.grad) for name, p in self.system.graph.named_parameters()
+            if p.grad is not None]
+        finite = torch.stack([torch.isfinite(v).all() for _, v in named]).tolist()
+        bad = [name for (name, _), ok in zip(named, finite) if not ok]
+        if bad:
+            raise FloatingPointError("non-finite values at step {}: {}".format(
+                step, ", ".join(bad)))
 
     def log_scalars(self, metrics, step, split="train"):
         host = {k: float(v) for k, v in metrics.items()}
         log("{} it {}: {}".format(split, step, " ".join(
             "{}={:.4g}".format(k, v) for k, v in sorted(host.items()))))
+        if self.tb:
+            for k, v in host.items():
+                self.tb.add_scalar("{}/{}".format(split, k), v, step)
 
     def run_validation(self, step):
         res = self.system.validate(max_views=self.opt.data.get("val_sub"))
         self.log_scalars({k: v for k, v in res.items() if np.isscalar(v)}, step,
                          split="val")
+        if self.tb and res.get("vis"):
+            self._write_val_images(res, step)
         return res
+
+    def _write_val_images(self, res, step):
+        """The first validation view's rgb and inverse depth, and with
+        ``tb.num_images`` [rows, cols] both as grids of the first views."""
+        from ..ops.render import invdepth_map
+        from ..utils.vis import colorize_depth, tile_images
+        opt = self.opt
+
+        def to_rgb(vis):
+            return np.clip(vis["rgb"].reshape(opt.H, opt.W, 3), 0, 1)
+
+        def to_invdepth(vis):
+            inv = invdepth_map(torch.as_tensor(vis["depth"]), torch.as_tensor(vis["opacity"]),
+                               ndc=bool(opt.camera.ndc))
+            return colorize_depth(inv.numpy().reshape(opt.H, opt.W))
+
+        vis_all = res.get("vis_all") or [res["vis"]]
+        self.tb.add_image("val/rgb", to_rgb(vis_all[0]), step, dataformats="HWC")
+        self.tb.add_image("val/invdepth", to_invdepth(vis_all[0]), step, dataformats="HWC")
+        if len(vis_all) > 1 and opt.get("tb") and opt.tb.get("num_images"):
+            rows, cols = (int(x) for x in opt.tb.num_images)
+            self.tb.add_image("val/rgb_grid", tile_images([to_rgb(v) for v in vis_all],
+                                                          rows, cols),
+                              step, dataformats="HWC")
+            self.tb.add_image("val/invdepth_grid",
+                              tile_images([to_invdepth(v) for v in vis_all], rows, cols),
+                              step, dataformats="HWC")
+
+    def update_live_pose_view(self, step):
+        """Rewrite ``<output_path>/poses.html``, the interactive viewer of
+        the pose trajectory so far (the reference's live visdom window):
+        the training poses, aligned to the GT by the validation-time sim(3)
+        where the model has one, as one more frame. Returns its path, or
+        None for a model that predicts no poses."""
+        from ..ops import align
+        from ..utils.pose_viewer import export_interactive_poses
+        system = self.system
+        pose, pose_ref = system.get_all_training_poses()
+        if pose is None:
+            return None
+        try:
+            system.prealign()
+            if system.sim3 is not None:
+                pose = align.apply_sim3_to_poses(pose, system.sim3, "pred_to_GT")
+        except (np.linalg.LinAlgError, ValueError) as e:   # early in training
+            warn("live pose view: prealign skipped ({})".format(e))
+        self.live_pose_frames.append((int(step), pose.detach().cpu().numpy()))
+        out = os.path.join(self.opt.output_path, "poses.html")
+        cam_depth = (self.opt.get("visdom") or {}).get("cam_depth", 0.2)
+        return export_interactive_poses(
+            out, self.live_pose_frames,
+            pose_ref=None if pose_ref is None else pose_ref.detach().cpu().numpy(),
+            cam_depth=cam_depth)
 
     def save_checkpoint(self, it):
         path = ckpt_util.save(self.opt.output_path, self.system, it)
@@ -115,5 +244,6 @@ def run_training(opt, device):
     trainer = Trainer(opt, device)
     trainer.build_system(*trainer.load_dataset())
     trainer.restore_checkpoint()
+    trainer.setup_visualizer()
     trainer.train()
     return trainer

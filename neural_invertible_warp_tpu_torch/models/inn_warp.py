@@ -15,6 +15,13 @@ point pairs with a Procrustes solver, keeps it as the pose readout
 ``tpu.fused_inn`` the warp runs as one CUDA kernel per direction (K6), which
 covers the paper's configuration of the network; the switch raises on any
 other. With the switch off (the default) the warp is the plain chain.
+
+Under a ray-sharded step (``parallel.mesh``) every rank warps the points of
+all the step's rays, fits the alignment on the full set and renders only
+its own rays: the alignment term, the same on every rank, is divided by the
+world size before the backward (``replicated_losses``), so the summed
+gradient is the global one, and ``aux["global_rigid"]`` comes out the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch import nn
 from ..ops import align, inn, lie, posenc, rays
 from ..ops import pose as pose_ops
 from ..ops.cuda import fused_inn
+from ..parallel import mesh
 from .barf import BarfSystem
 from .system import NerfSystem
 
@@ -33,6 +41,7 @@ from .system import NerfSystem
 class InnWarpSystem(BarfSystem):
 
     model_name = "barf_inn_llff"
+    replicated_losses = ("global_alignment",)
 
     def __init__(self, opt, device):
         super().__init__(opt, device)
@@ -212,12 +221,16 @@ class InnWarpSystem(BarfSystem):
         ray = grid_w - center_w
         progress = (torch.tensor(float(step), dtype=torch.float32)
                     / opt.max_iter).to(self.device)
+        # every rank warps all N rays (the alignment fits them all) and
+        # renders its own
+        ray_idx, depth_rand, noise_rand = self._shard_draws(ray_idx, depth_rand, noise_rand)
         target = data["pixels"][:, ray_idx]
-        out = self.render_rays(center_w, ray, mode="train", progress=progress,
-                               depth_range=depth_range, target=target,
-                               depth_rand=depth_rand, noise_rand=noise_rand)
+        out = self.render_rays(mesh.shard_rays(center_w), mesh.shard_rays(ray), mode="train",
+                               progress=progress, depth_range=depth_range, target=target,
+                               depth_rand=depth_rand, noise_rand=noise_rand,
+                               intr=data["intr"])
         extras = dict(grid_cam=grid_cam, center_cam=center_cam,
-                      grid_w=grid_w, center_w=center_w)
+                      grid_w=grid_w, center_w=center_w, n_rays=N)
         return out, target, extras
 
     def compute_loss(self, out, target, extras):

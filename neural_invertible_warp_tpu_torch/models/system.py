@@ -12,9 +12,17 @@ the weights to resample from) and the per-sample field K5 in eval and in
 the fallback tier, the MLP-only field K1 under ``tpu.fused_pe: false``, and
 the plain chain with both kernel switches off. On CUDA tensors a tier
 launches its kernels or raises; on CPU tensors it takes their plain
-versions. The branches not ported yet raise ``NotImplementedError`` naming
-the ROADMAP item that brings them. ``evaluate_full`` is the full test-set
-evaluation: pose error, test-time refinement, PSNR, SSIM, LPIPS.
+versions. ``evaluate_full`` is the full test-set evaluation: pose error,
+test-time refinement, PSNR, SSIM, LPIPS.
+
+Under a ``parallel.mesh`` group the train step and ``render_image`` shard
+the ray axis over the ranks (one process per GPU): every rank makes the
+step's draws at their global shapes and renders its own rays, the losses
+over rays are normalised by the global count, a term every rank computes
+identically (``replicated_losses``) is divided by the world size, and the
+gradients are summed over the ranks before the optimizer step, so every
+rank's parameters stay identical. Test-time pose refinement stays
+replicated: every rank runs the same draws and gets the same pose.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 
 from ..ops import nerf_mlp, rays, render, sampling
 from ..ops.cuda import fused_field, fused_pe
+from ..parallel import mesh
 from ..utils import log
 
 
@@ -45,6 +54,8 @@ class Graph(nn.Module):
 class NerfSystem:
 
     model_name = "nerf"
+    # losses every rank computes identically under a ray-sharded step
+    replicated_losses = ()
 
     def __init__(self, opt, device):
         self.opt = opt
@@ -106,11 +117,18 @@ class NerfSystem:
     def make_schedules(self):
         from ..utils.optim import exp_decay_gamma, exp_schedule
         opt = self.opt
-        if opt.optim.get("clip_norm") or opt.optim.get("clip_norm_pose"):
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (ROADMAP M5)")
         gamma = exp_decay_gamma(opt.max_iter, opt.optim.lr, opt.optim.get("lr_end"))
         return {"main": exp_schedule(opt.optim.lr, gamma)}
+
+    def make_clips(self):
+        """dict label -> global-norm limit of its gradients: ``optim.clip_norm``
+        for the main group, ``optim.clip_norm_pose`` for the pose and latent
+        groups (the JAX package's ``clip_wrap``); none by default."""
+        opt = self.opt
+        limits = {"main": opt.optim.get("clip_norm"),
+                  "pose": opt.optim.get("clip_norm_pose"),
+                  "latent": opt.optim.get("clip_norm_pose")}
+        return {label: float(v) for label, v in limits.items() if v}
 
     def make_gates(self):
         """dict label -> number of first updates whose gradients are zeroed
@@ -132,7 +150,8 @@ class NerfSystem:
             groups.setdefault(label, []).extend(getattr(self.graph, name).parameters())
         for p in groups.get("frozen", []):
             p.requires_grad_(False)
-        self.optim = MultiAdam(groups, self.make_schedules(), self.make_gates())
+        self.optim = MultiAdam(groups, self.make_schedules(), self.make_gates(),
+                               self.make_clips())
         self.aux = self.init_aux()
         self.step = 0
 
@@ -167,7 +186,7 @@ class NerfSystem:
 
     def render_rays(self, center, ray, mode="train", progress=1.0,
                     depth_range=None, target=None, depth_rand=None,
-                    noise_rand=None):
+                    noise_rand=None, intr=None):
         """Stratified samples -> field -> compositing for center/ray [B,R,3].
 
         ``mode`` is "train" (stratified depths, density noise), "eval" or
@@ -175,16 +194,20 @@ class NerfSystem:
         test-time pose refinement). ``depth_rand`` [B,R,K,1] optionally
         supplies the stratification draw, ``noise_rand`` the standard-normal
         draws of the density noise: a list of [B,R,K] tensors, one per
-        field (coarse, then fine over all its samples). Returns dict(rgb,
-        depth, opacity[, *_fine][, render_sq_sum, render_n][,
-        render_fine_sq_sum, render_fine_n]).
+        field (coarse, then fine over all its samples). With ``camera.ndc``
+        the rays go to normalized device coordinates after the depth draw,
+        with the per-image ``intr`` [B,3,3]. Returns dict(rgb, depth,
+        opacity[, *_fine][, render_sq_sum, render_n][, render_fine_sq_sum,
+        render_fine_n]); for no rays (a rank's empty share) empty maps.
         """
         opt = self.opt
-        if opt.camera.ndc:
-            raise NotImplementedError("NDC rays are not ported yet (ROADMAP M1)")
         if mode not in ("train", "eval", "test-optim"):
             raise ValueError("unknown render mode: {!r}".format(mode))
         B, R = center.shape[0], center.shape[1]
+        if R == 0:
+            fields = ("", "_fine") if opt.nerf.fine_sampling else ("",)
+            return {k + f: center.new_zeros((B, 0, c)) for f in fields
+                    for k, c in (("rgb", 3), ("depth", 1), ("opacity", 1))}
         depth_range = depth_range if depth_range is not None \
             else tuple(opt.nerf.depth.range)
         K = opt.nerf.sample_intvs
@@ -194,6 +217,8 @@ class NerfSystem:
             B, R, K, depth_range, param=opt.nerf.depth.param,
             stratified=bool(opt.nerf.sample_stratified and mode == "train"),
             generator=self.generator, rand=depth_rand, device=center.device)
+        if opt.camera.ndc:
+            center, ray = rays.convert_NDC(center, ray, intr)
         # independent draws for the two fields
         noise = [None, None]
         noise_reg = opt.nerf.get("density_noise_reg") if mode == "train" else None
@@ -267,15 +292,24 @@ class NerfSystem:
     # ---------------------------------------------------------------- losses
 
     def compute_loss(self, out, target, extras):
-        if "render_sq_sum" in out:    # the one-call train kernel's squared error
-            losses = {"render": out["render_sq_sum"] / out["render_n"]}
-        else:
-            losses = {"render": torch.mean((out["rgb"] - target) ** 2)}
+        """The photometric MSE of each field. Under a ray-sharded step each
+        rank's term is its squared error over the global count of terms:
+        its own mean times its share of the step's ``extras["n_rays"]``."""
+        share = target.shape[1] / extras["n_rays"] if "n_rays" in extras else 1.0
+
+        def mse(sq_sum, n_terms, rgb):
+            if sq_sum is None:
+                if share == 0:      # no rays on this rank
+                    return torch.sum((rgb - target) ** 2)
+                loss = torch.mean((rgb - target) ** 2)
+            else:                   # the one-call train kernel's squared error
+                loss = sq_sum / n_terms
+            return loss if share == 1.0 else loss * share
+
+        losses = {"render": mse(out.get("render_sq_sum"), out.get("render_n"), out["rgb"])}
         if self.opt.loss_weight.get("render_fine") is not None:
-            if "render_fine_sq_sum" in out:
-                losses["render_fine"] = out["render_fine_sq_sum"] / out["render_fine_n"]
-            else:
-                losses["render_fine"] = torch.mean((out["rgb_fine"] - target) ** 2)
+            losses["render_fine"] = mse(out.get("render_fine_sq_sum"),
+                                        out.get("render_fine_n"), out["rgb_fine"])
         return losses
 
     def summarize_loss(self, losses):
@@ -298,10 +332,21 @@ class NerfSystem:
         optimizes no pose predicts none."""
         return None, self.train_data["pose"]
 
+    @staticmethod
+    def _shard_draws(ray_idx, depth_rand, noise_rand):
+        """This rank's rays of the step's global draws (all of them without
+        a group)."""
+        return (mesh.shard_rays(ray_idx, 0),
+                None if depth_rand is None else mesh.shard_rays(depth_rand),
+                None if noise_rand is None else [mesh.shard_rays(n) for n in noise_rand])
+
     def _forward_train(self, ray_idx, step, depth_rand=None, noise_rand=None):
-        """One training forward over the drawn rays of every image; returns
-        (out, target, extras)."""
+        """One training forward over the drawn rays of every image (this
+        rank's share of them under a group); returns (out, target, extras),
+        ``extras["n_rays"]`` the step's global ray count."""
         data = self.train_data
+        n_rays = ray_idx.shape[0]
+        ray_idx, depth_rand, noise_rand = self._shard_draws(ray_idx, depth_rand, noise_rand)
         center, ray = rays.get_center_and_ray(self.get_train_pose(), data["intr"],
                                               ray_idx, self.W)
         progress = (torch.tensor(float(step), dtype=torch.float32)
@@ -309,8 +354,8 @@ class NerfSystem:
         target = data["pixels"][:, ray_idx]
         out = self.render_rays(center, ray, mode="train", progress=progress,
                                target=target, depth_rand=depth_rand,
-                               noise_rand=noise_rand)
-        return out, target, {}
+                               noise_rand=noise_rand, intr=data["intr"])
+        return out, target, {"n_rays": n_rays}
 
     def update_aux(self, extras):
         pass
@@ -323,31 +368,64 @@ class NerfSystem:
         word = np.random.SeedSequence([self.seed, self.step]).generate_state(1)[0]
         self.generator.manual_seed(int(word))
 
-    def train_step(self, ray_u=None, depth_rand=None, noise_rand=None):
-        """One optimization step over all training images. One ray-index
-        draw is shared by every image (``rand_rays // n_train`` rays each).
-        ``ray_u`` / ``depth_rand`` / ``noise_rand`` optionally supply the
-        step's random draws; the others come from ``seed_step``'s generator.
-        Returns the step's metrics as 0-d tensors (no host sync): the losses,
-        and the scalar diagnostics a model records in ``extras`` (DTU's depth
-        errors)."""
+    def draw_step(self, ray_u=None, depth_rand=None, noise_rand=None):
+        """The step's random draws at their global shapes, from the
+        generator as ``seed_step`` seeded it, in the order the render makes
+        them: the ray indices (``rand_rays // n_train`` rays, one draw shared
+        by every image), the stratified depth jitter [B,N,K,1], then the
+        density noise [B,N,K] per field. Each given one is taken as is.
+        Returns (ray_idx [N], depth_rand, noise_rand)."""
         opt = self.opt
-        self.seed_step()
         n_rays = opt.nerf.rand_rays // self.n_train
+        draw = dict(generator=self.generator, device=self.device)
         ray_idx = sampling.sample_ray_subset(
             self.HW, n_rays, mode=(opt.get("tpu") or {}).get("ray_sample", "stratified"),
-            generator=self.generator, u=ray_u, device=self.device)
+            u=ray_u, **draw)
+        K = opt.nerf.sample_intvs
+        if depth_rand is None and opt.nerf.sample_stratified:
+            depth_rand = torch.rand((self.n_train, n_rays, K, 1), **draw)
+        if noise_rand is None and opt.nerf.get("density_noise_reg"):
+            ks = [K, K + opt.nerf.sample_intvs_fine] if opt.nerf.fine_sampling else [K]
+            noise_rand = [torch.randn((self.n_train, n_rays, k), **draw) for k in ks]
+        return ray_idx, depth_rand, noise_rand
+
+    def train_step(self, ray_u=None, depth_rand=None, noise_rand=None):
+        """One optimization step over all training images. ``ray_u`` /
+        ``depth_rand`` / ``noise_rand`` optionally supply the step's random
+        draws (``draw_step``); the others come from ``seed_step``'s
+        generator. Under a ``parallel.mesh`` group the step renders this
+        rank's share of the rays, sums the gradients over the ranks before
+        the optimizer step and returns the global metrics. Returns the
+        step's metrics as 0-d tensors (no host sync without a group): the
+        losses, and the scalar diagnostics a model records in ``extras``
+        (DTU's depth errors)."""
+        self.seed_step()
+        ray_idx, depth_rand, noise_rand = self.draw_step(ray_u, depth_rand, noise_rand)
         self.optim.zero_grad()
         out, target, extras = self._forward_train(ray_idx, self.step, depth_rand,
                                                   noise_rand)
         losses = self.compute_loss(out, target, extras)
-        total = self.summarize_loss(losses)
-        total.backward()
+        n_ranks = mesh.world_size()
+        total = self.summarize_loss({
+            k: v / n_ranks if n_ranks > 1 and k in self.replicated_losses else v
+            for k, v in losses.items()})
+        # under a group a rank without rays has nothing to differentiate
+        if total.requires_grad or mesh.active_group() is None:
+            total.backward()
+        mesh.all_reduce_grads(self.optim.parameters())
         self.optim.step()
         self.update_aux(extras)
         self.step += 1
-        metrics = {"loss_" + k: v.detach() for k, v in losses.items()}
-        metrics["loss_all"] = total.detach()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if mesh.active_group() is None:
+            total = total.detach()
+        else:    # the global losses: the ranks' shares of each per-ray term summed
+            keys = [k for k in losses if k not in self.replicated_losses]
+            summed = mesh.all_reduce_sum(torch.stack([losses[k] for k in keys]))
+            losses.update(zip(keys, summed.unbind()))
+            total = self.summarize_loss(losses)
+        metrics = {"loss_" + k: v for k, v in losses.items()}
+        metrics["loss_all"] = total
         metrics["psnr"] = -10.0 * torch.log10(metrics["loss_render"])
         metrics.update({k: v.detach() for k, v in extras.items()
                         if torch.is_tensor(v) and v.ndim == 0})
@@ -358,13 +436,23 @@ class NerfSystem:
     @torch.no_grad()
     def render_image(self, pose, intr, progress=1.0):
         """Full image for pose [1,3,4], intr [1,3,3]: a loop over chunks of
-        ``min(rand_rays, H*W)`` rays. Returns dict of [1, H*W, C] tensors."""
+        ``min(rand_rays, H*W)`` rays. Under a ``parallel.mesh`` group each
+        chunk's rays are split over the ranks, each renders its part and the
+        parts are gathered in rank order, so every rank holds the whole
+        image. Returns dict of [1, H*W, C] tensors."""
         chunk = min(self.opt.nerf.rand_rays, self.HW)
         outs = []
         for start in range(0, self.HW, chunk):
             idx = torch.arange(start, min(start + chunk, self.HW), device=self.device)
-            center, ray = rays.get_center_and_ray(pose, intr, idx, self.W)
-            outs.append(self.render_rays(center, ray, mode="eval", progress=progress))
+            center, ray = rays.get_center_and_ray(pose, intr, mesh.shard_rays(idx, 0),
+                                                  self.W)
+            out = self.render_rays(center, ray, mode="eval", progress=progress, intr=intr)
+            if mesh.active_group() is not None:   # one collective per chunk
+                keys = list(out)
+                packed = mesh.all_gather_rays(torch.cat([out[k] for k in keys], dim=-1),
+                                              len(idx))
+                out = dict(zip(keys, packed.split([out[k].shape[-1] for k in keys], -1)))
+            outs.append(out)
         return {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]}
 
     # ------------------------------------------------------------ validation

@@ -35,10 +35,17 @@ _AXES = {
 def _activation(name):
     if name == "softplus":     # beta = 100
         return lambda x: torch.logaddexp(100.0 * x, torch.zeros_like(x)) / 100.0
+    if name == "silu":
+        return F.silu
+    if name == "elu":
+        return F.elu
     if name == "relu":
         return torch.relu
-    raise NotImplementedError(
-        "INN activation {!r} is not ported yet (ROADMAP M3)".format(name))
+    if name == "sine":
+        return lambda x: torch.sin(10.0 * x)
+    if name == "gaussian":
+        return lambda x: torch.exp(-0.5 * x ** 2)
+    raise ValueError("unknown INN activation: {}".format(name))
 
 
 class WNLinear(nn.Module):

@@ -8,23 +8,39 @@ from __future__ import annotations
 import torch
 
 
+def _masked_sums(pred, gt, mask):
+    """[sum |e|, sum e^2, n] of the masked error. pred/gt/mask: same shape."""
+    mask = mask.to(pred.dtype)
+    diff = (pred - gt) * mask
+    return torch.stack([torch.sum(torch.abs(diff)), torch.sum(diff ** 2), torch.sum(mask)])
+
+
+def abs_rmse_from_sums(sums):
+    """Masked |e| mean and RMSE from ``_masked_sums``' [3] (summed over
+    ranks where the rays are sharded)."""
+    n = sums[2]
+    return sums[0] / (n + 1e-6), torch.sqrt(sums[1] / (n + 1e-6))
+
+
 def _masked_abs_rmse(pred, gt, mask):
     """Masked |e| mean and RMSE. pred/gt/mask: same shape."""
-    mask = mask.to(pred.dtype)
-    n = torch.sum(mask)
-    diff = (pred - gt) * mask
-    abs_e = torch.sum(torch.abs(diff)) / (n + 1e-6)
-    rmse = torch.sqrt(torch.sum(diff ** 2) / (n + 1e-6))
-    return abs_e, rmse
+    return abs_rmse_from_sums(_masked_sums(pred, gt, mask))
+
+
+def depth_error_sums_on_rays(pred_depth, depth_gt_pixels, valid_pixels, ray_idx):
+    """[sum |e|, sum e^2, n] of the depth error at sampled rays. pred_depth
+    [B,N,1] rendered depth; depth_gt_pixels, valid_pixels [B,HW] row-major;
+    ray_idx [N] shared."""
+    gt = depth_gt_pixels[:, ray_idx][..., None]
+    valid = valid_pixels[:, ray_idx][..., None]
+    return _masked_sums(pred_depth, gt, valid)
 
 
 def depth_error_on_rays(pred_depth, depth_gt_pixels, valid_pixels, ray_idx,
                         scaling_factor=1.0):
-    """Depth error at sampled rays. pred_depth [B,N,1] rendered depth;
-    depth_gt_pixels, valid_pixels [B,HW] row-major; ray_idx [N] shared."""
-    gt = depth_gt_pixels[:, ray_idx][..., None]
-    valid = valid_pixels[:, ray_idx][..., None]
-    return _masked_abs_rmse(pred_depth * scaling_factor, gt, valid)
+    """Depth error at sampled rays: (|e| mean, RMSE)."""
+    return abs_rmse_from_sums(depth_error_sums_on_rays(
+        pred_depth * scaling_factor, depth_gt_pixels, valid_pixels, ray_idx))
 
 
 def depth_error_full(pred_depth, depth_gt, valid, scaling_factor=1.0):

@@ -1,8 +1,8 @@
 """Ray generation from ray indices (port of neural_invertible_warp_tpu/ops/rays.py).
 
 Pixel centers sit at (x+0.5, y+0.5) with row-major index y*W + x; grid
-points live on the z=1 camera plane; rays are grid - center, unnormalized.
-NDC conversion is not ported yet (ROADMAP M1).
+points live on the z=1 camera plane; rays are grid - center, unnormalized;
+``convert_NDC`` maps them to normalized device coordinates.
 """
 
 from __future__ import annotations
@@ -47,3 +47,19 @@ def get_unwarped_center_and_ray(intr, ray_idx, W, pose_init=None):
         grid_3D = pose_ops.cam2world(grid_3D, pose_init)
         center_3D = pose_ops.cam2world(center_3D, pose_init)
     return center_3D, grid_3D
+
+
+def convert_NDC(center, ray, intr, near=1.0):
+    """Shift the ray origins to the near plane and project to NDC, with the
+    cameras facing +z (the reference's convention, not the usual -z).
+    center/ray [B,N,3], intr [B,3,3] -> (center, ray) [B,N,3]."""
+    center = center + (near - center[..., 2:]) / ray[..., 2:] * ray
+    cx, cy, cz = center[..., 0], center[..., 1], center[..., 2]
+    rx, ry, rz = ray[..., 0], ray[..., 1], ray[..., 2]
+    scale_x = (intr[:, 0, 0] / intr[:, 0, 2])[:, None]
+    scale_y = (intr[:, 1, 1] / intr[:, 1, 2])[:, None]
+    center_ndc = torch.stack([scale_x * (cx / cz), scale_y * (cy / cz),
+                              1 - 2 * near / cz], dim=-1)
+    ray_ndc = torch.stack([scale_x * (rx / rz - cx / cz), scale_y * (ry / rz - cy / cz),
+                           2 * near / cz], dim=-1)
+    return center_ndc, ray_ndc

@@ -42,12 +42,20 @@ def sample_ray_subset(n_total, n_pick, mode="stratified", generator=None,
 
     mode "stratified" (the flagship's ``tpu.ray_sample``): split
     range(n_total) into n_pick equal strata and pick one index uniformly in
-    each, from u ~ U[0,1)^n_pick. The other modes (``topk``,
-    ``permutation``) are not ported yet (ROADMAP M9).
+    each, from u ~ U[0,1)^n_pick. Mode "topk": the indices of the n_pick
+    largest of u ~ U[0,1)^n_total, largest first, a tie in index order (as
+    ``jax.lax.top_k`` orders them). Mode "permutation": the first n_pick of
+    ``torch.randperm(n_total)`` (the reference's draw; it takes no ``u``).
+    Both draw every n_pick-subset with equal probability.
     """
+    if mode == "permutation":
+        return torch.randperm(n_total, generator=generator, device=device)[:n_pick]
+    if mode == "topk":
+        if u is None:
+            u = torch.rand((n_total,), generator=generator, device=device)
+        return torch.sort(u, descending=True, stable=True).indices[:n_pick]
     if mode != "stratified":
-        raise NotImplementedError(
-            "ray_sample mode {!r} is not ported yet (ROADMAP M9)".format(mode))
+        raise ValueError("unknown ray_sample mode: {}".format(mode))
     if u is None:
         u = torch.rand((n_pick,), generator=generator, device=device)
     i = torch.arange(n_pick + 1, dtype=torch.int64, device=u.device)

@@ -6,9 +6,9 @@
 each a pickled ``dict(iter, state)`` of numpy arrays, where ``state`` is the
 JAX system's state tree: ``params`` (through the weight bridge), ``opt_state``
 per label as optax's adam state ``((count, mu, nu), (count,))`` with mu and nu
-raveled over the label's params in JAX leaf order (behind a gradient gate,
-GARF's pose warmup, the chain ``((count,), adam state)``), ``step`` and
-``aux``.
+raveled over the label's params in JAX leaf order (behind a gradient clip,
+``((), adam state)``; behind a gradient gate, GARF's pose warmup, the chain
+``((count,), ...)``), ``step`` and ``aux``.
 The JAX package's ``restore_checkpoint`` loads it into its own state, and
 ``restore`` here loads a file written by either package into a port system.
 """
@@ -55,6 +55,8 @@ def state_tree(system):
             opt_state[label] = ((count, ravel_like_jax({k: mu[k] for k in keys}),
                                  ravel_like_jax({k: nu[k] for k in keys})),
                                 (count,))
+            if label in optim.clips:    # clip_by_global_norm's empty state
+                opt_state[label] = ((), opt_state[label])
             if label in optim.gates:
                 opt_state[label] = ((count,), opt_state[label])
     return dict(params=to_jax_params(system.graph), opt_state=opt_state,
@@ -130,6 +132,8 @@ def load_state_tree(system, state):
             continue
         entry = state["opt_state"][label]
         if len(entry[0]) == 1:      # a gate's (count,) in front of Adam
+            entry = entry[1]
+        if len(entry[0]) == 0:      # a clip's empty state in front of Adam
             entry = entry[1]
         (count, mu, nu), _ = entry
         sub = {k: template[k] for k in keys}

@@ -5,7 +5,10 @@ schedules of models/system.py, barf.py and inn_warp.py).
 One ``torch.optim.Adam`` holds a parameter group per label. Before update
 number ``count`` (0 for the first) each group's lr is set to its schedule
 at ``count``, as optax's ``scale_by_schedule`` does. Parameters labelled
-``frozen`` are left out, so they never change.
+``frozen`` are left out, so they never change. In front of Adam, per group
+and in this order: a gate (GARF's pose warmup), then a clip to a global
+norm (``optim.clip_norm`` / ``clip_norm_pose``), as the JAX package chains
+them. Under a ray-sharded step both see the gradients summed over the ranks.
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ def exp_schedule(lr, gamma, warmup=None):
 
 class MultiAdam:
 
-    def __init__(self, groups, schedules, gates=None):
+    def __init__(self, groups, schedules, gates=None, clips=None):
         """groups: dict label -> list of parameters; schedules: dict label ->
         callable(count) -> lr; gates: dict label -> n, whose gradients are
-        zeroed in the first n updates. The label "frozen" is not optimized.
+        zeroed in the first n updates; clips: dict label -> max_norm, the
+        limit of the global norm of the group's gradients (optax's
+        ``clip_by_global_norm``: g * max_norm / norm where norm >= max_norm,
+        no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). The label
+        "frozen" is not optimized.
 
         A gate sits in front of Adam as optax's does: a gated update still
         counts, with zero gradients, so the moments stay zero, the
@@ -45,11 +52,16 @@ class MultiAdam:
         not count the update."""
         self.schedules = schedules
         self.gates = dict(gates or {})
+        self.clips = dict(clips or {})
         self.labels = [k for k in groups if k != "frozen"]
         self.opt = torch.optim.Adam(
             [dict(params=list(groups[k]), label=k) for k in self.labels],
             lr=0.0, betas=(0.9, 0.999), eps=1e-8)
         self.count = 0
+
+    def parameters(self):
+        """Every optimized parameter, group by group."""
+        return [p for group in self.opt.param_groups for p in group["params"]]
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
@@ -63,6 +75,14 @@ class MultiAdam:
                         p.grad = torch.zeros_like(p)
                     else:
                         p.grad.zero_()
+            max_norm = self.clips.get(group["label"])
+            if max_norm:
+                grads = [p.grad for p in group["params"] if p.grad is not None]
+                if grads:
+                    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                    keep = norm < max_norm    # on the device: no host sync
+                    for g in grads:
+                        g.copy_(torch.where(keep, g, g / norm * max_norm))
         self.opt.step()
         self.count += 1
 
