@@ -140,6 +140,12 @@ Phases, one or more lines each:
      then one step under an nccl group of one process, bit-equal to the
      step without a group. ms/step per rank (two processes share the card:
      not a speed result).
+ 16. evidence: the quality probe (evidence/probe_b3.py's main, the port's
+     quality harness) on a small B3 scene rendered on the card (12 views at
+     120x160, 11 train / 1 val), the flagship at full width 300 steps on a
+     compressed schedule (max_iter 300, the INN warp's c2f horizon 150, so
+     every PE band opens), a readout row every 100 steps and a validation
+     render: every row finite, K2 launched once per step, K3 in the render.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -461,6 +467,16 @@ PLANAR_STEPS = 5000
 # steps take it from 0.1738 to 0.1453, 0.836 of its start; the bound asks
 # for a fall of a tenth
 MAX_PLANAR_CORNER_SHARE = 0.9
+# path evidence: probe_b3 on a small B3 scene, a compressed schedule
+EVIDENCE_STEPS = 300
+EVIDENCE_ARGS = ["--iters", str(EVIDENCE_STEPS), "--max-iter", str(EVIDENCE_STEPS),
+                 "--max-pe-iter", str(EVIDENCE_STEPS // 2), "--log-every", "100",
+                 "--n-images", "12", "--size", "120,160", "--device", "cuda"]
+# the card's render of that scene against the CPU's, in uint8 levels: the
+# tolerance of tests/test_torch_evidence.py (two fp32 orders put a pixel on
+# the other side of a level at a few pixels)
+EVIDENCE_MAX_LEVELS = 1
+EVIDENCE_MAX_PIXEL_SHARE = 1e-3
 
 
 def check(ok, msg):
@@ -2458,39 +2474,6 @@ def phase_pose_init_pdcnet(device):
 
 # ------------------------------------- the SfM pose initialisation (DTU)
 
-def sfm_blob_params(seed=0, n_blobs=24, radius=1.1, axis_scale=(1.0, 1.0, 1.0),
-                    s_range=(0.16, 0.38)):
-    """Random bounded blob-field parameters (tests/synth_data.py::blob_params)."""
-    r = np.random.RandomState(seed)
-    v = r.randn(n_blobs, 3)
-    v /= np.linalg.norm(v, axis=-1, keepdims=True)
-    rad = radius * r.rand(n_blobs) ** (1.0 / 3.0)
-    mu = v * rad[:, None] * np.asarray(axis_scale)
-    s = s_range[0] + (s_range[1] - s_range[0]) * r.rand(n_blobs)
-    a = 25.0 + 35.0 * r.rand(n_blobs)
-    c = 0.06 + 0.88 * r.rand(n_blobs, 3)
-    return dict(mu=mu.astype(np.float32), s=s.astype(np.float32),
-                a=a.astype(np.float32), c=c.astype(np.float32))
-
-
-def sfm_backdrop_params(point, normal, seed=0):
-    """A textured wall (tests/synth_data.py::backdrop_params): a plane with a
-    band-limited colour field in its (u, v) coordinates."""
-    r = np.random.RandomState(seed)
-    n = np.asarray(normal, np.float64)
-    n = n / np.linalg.norm(n)
-    u = np.cross(n, [0.0, 1.0, 0.1])
-    u /= np.linalg.norm(u)
-    v = np.cross(n, u)
-    freqs = np.stack([r.uniform(0.8, 4.0, (3, 2)) for _ in range(3)])  # [3,3,2]
-    phases = r.uniform(0, 2 * np.pi, (3, 3))
-    amps = np.array([0.25, 0.15, 0.08])
-    return dict(point=np.asarray(point, np.float32), normal=n.astype(np.float32),
-                u=u.astype(np.float32), v=v.astype(np.float32),
-                freqs=freqs.astype(np.float32), phases=phases.astype(np.float32),
-                amps=amps.astype(np.float32))
-
-
 def sfm_ring_poses(n_views, H, W, seed=0, n_ring=49):
     """The middle n_views of tests/test_sfm_scale.py's DTU-like inward arc of
     n_ring views (so a cut keeps the views' spacing): w2c poses (OpenCV
@@ -2519,56 +2502,15 @@ def sfm_ring_poses(n_views, H, W, seed=0, n_ring=49):
     return np.stack(poses).astype(np.float32), intr
 
 
-def blob_render(pose_w2c, intr, H, W, blob, backdrop, device, n_samples=192,
-                depth_range=(1.5, 7.0), chunk=4096):
-    """tests/synth_data.py::analytic_blob_render in torch on ``device``, chunk
-    by chunk: the blob field (3-sigma-truncated Gaussian densities, colours
-    weighted by the untruncated ones) composited over unjittered samples,
-    and where a ray leaves the field, the wall with its spots. Returns rgb
-    [B,H,W,3], the depth of the ray parameter (z-depth) with the wall's hit,
-    and the field's opacity [B,H,W], as numpy float32."""
-    from neural_invertible_warp_tpu_torch.ops import rays, render, sampling
-    f32 = dict(dtype=torch.float32, device=device)
-    mu, s, a, c = (torch.as_tensor(blob[k], **f32) for k in ("mu", "s", "a", "c"))
-    bd = {k: torch.as_tensor(v, **f32) for k, v in backdrop.items()}
-    w_cut = float(np.exp(-4.5))
-    rgbs, depths, opacities = [], [], []
-    for b in range(pose_w2c.shape[0]):
-        pose = torch.as_tensor(pose_w2c[b:b + 1], **f32)
-        K = torch.as_tensor(intr[b:b + 1], **f32)
-        out = []
-        for start in range(0, H * W, chunk):
-            idx = torch.arange(start, min(start + chunk, H * W), device=device)
-            center, ray = rays.get_center_and_ray(pose, K, idx, W)           # [1,R,3]
-            depth = sampling.sample_depth(1, len(idx), n_samples, depth_range,
-                                          stratified=False, device=device)
-            pts = center[..., None, :] + ray[..., None, :] * depth           # [1,R,K,3]
-            d2 = ((pts[..., None, :] - mu) ** 2).sum(-1)                     # [1,R,K,NB]
-            w_raw = torch.exp(-0.5 * d2 / s ** 2)
-            sigma = (a * torch.clamp(w_raw - w_cut, min=0.0) / (1.0 - w_cut)).sum(-1)
-            wc = w_raw + 1e-8
-            rgb = torch.einsum("brkn,nc->brkc", wc, c) / wc.sum(-1)[..., None]
-            out_rgb, out_d, opac, _ = render.composite(ray, rgb, sigma, depth)
-            denom = (ray * bd["normal"]).sum(-1)
-            t = ((bd["point"] - center) * bd["normal"]).sum(-1) / torch.where(
-                denom.abs() < 1e-6, torch.full_like(denom, 1e-6), denom)
-            hit = center + t[..., None] * ray
-            uu = ((hit - bd["point"]) * bd["u"]).sum(-1)
-            vv = ((hit - bd["point"]) * bd["v"]).sum(-1)
-            col = torch.full(uu.shape + (3,), 0.5, **f32)
-            for o in range(3):
-                f, ph = bd["freqs"][o], bd["phases"][o]
-                col = col + float(backdrop["amps"][o]) * torch.sin(
-                    uu[..., None] * f[:, 0] + vv[..., None] * f[:, 1] + ph)
-            d2s = (uu[..., None] - bd["spot_uv"][:, 0]) ** 2 \
-                + (vv[..., None] - bd["spot_uv"][:, 1]) ** 2
-            wspot = torch.exp(-0.5 * d2s / bd["spot_s"] ** 2)
-            col = torch.clamp(col + wspot @ bd["spot_c"], 0.02, 0.98)
-            out.append((out_rgb + col * (1 - opac), out_d + t[..., None] * (1 - opac), opac))
-        rgbs.append(torch.cat([o[0] for o in out], 1).reshape(H, W, 3).cpu().numpy())
-        depths.append(torch.cat([o[1] for o in out], 1).reshape(H, W).cpu().numpy())
-        opacities.append(torch.cat([o[2] for o in out], 1).reshape(H, W).cpu().numpy())
-    return np.stack(rgbs), np.stack(depths), np.stack(opacities)
+def blob_render(pose_w2c, intr, H, W, blob, backdrop, device, chunk=4096):
+    """The SfM scene's render, ``evidence.scenes.render_blobs`` at 192
+    samples over [1.5, 7.0] in chunks of ``chunk`` rays: (rgb, depth,
+    opacity). tools/sfm_smoke_bounds.py renders on the CPU through it with
+    smaller chunks."""
+    from neural_invertible_warp_tpu_torch.evidence.scenes import render_blobs
+    return render_blobs(pose_w2c, intr, H, W, blob, depth_range=(1.5, 7.0),
+                        backdrop=backdrop, device=device,
+                        max_elems=chunk * 192 * len(blob["s"]))
 
 
 def make_sfm_scene(H, W, n, device):
@@ -2577,11 +2519,12 @@ def make_sfm_scene(H, W, n, device):
     with 800 colour spots, from sfm_ring_poses; GT depth from the render,
     valid everywhere, the blobs' opacity above 0.5 as the foreground mask;
     the loader's depth range [1.2, 5.2]."""
+    from neural_invertible_warp_tpu_torch.evidence.scenes import backdrop_params, blob_params
     poses, intr = sfm_ring_poses(n, H, W)
-    blob = sfm_blob_params(seed=7, n_blobs=80, radius=1.5, axis_scale=(1.3, 1.0, 1.4),
-                           s_range=(0.03, 0.07))
+    blob = blob_params(seed=7, n_blobs=80, radius=1.5, axis_scale=(1.3, 1.0, 1.4),
+                       s_range=(0.03, 0.07))
     blob["a"] = blob["a"] * 40.0          # opaque: first-hit anchoring
-    bd = sfm_backdrop_params(point=(0, 0, 1.8), normal=(0, 0, -1), seed=11)
+    bd = backdrop_params(point=(0, 0, 1.8), normal=(0, 0, -1), seed=11)
     trng = np.random.RandomState(13)
     n_spots = 800
     bd["spot_uv"] = (trng.rand(n_spots, 2).astype(np.float32) - 0.5) * 14.0
@@ -3355,6 +3298,129 @@ def phase_sharded(device):
     return launches
 
 
+# -------------------------------------------------- the quality harness
+
+def hold_evidence(trainer, train, val, failures):
+    """After path evidence: the scene the card rendered against the same
+    scene rendered on the CPU, in uint8 levels (EVIDENCE_MAX_LEVELS at no
+    more than EVIDENCE_MAX_PIXEL_SHARE of the pixels); K2 at the arguments
+    of the step after the last (final weights, every PE band open) and K3
+    at those of the first chunk of the validation render, each through its
+    wrapper against its plain version (K2's values and weight gradients to
+    TOL, dcenter/dray to TOL_INPUT_GRAD_ALL_BANDS; a gradient that misses
+    passes if it is no farther from float64 than TOL_SFM_K2_VS_F64 times
+    the plain version is). The arguments are captured from the probe's own
+    system (``capture_call``: nothing launches, nothing is counted).
+    Returns the largest rgb error of K2 and K3."""
+    from neural_invertible_warp_tpu_torch.evidence import probe_b3, scenes
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    t0 = time.time()
+    args = probe_b3.parse_args(EVIDENCE_ARGS)
+    H, W = (int(x) for x in args.size.split(","))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        cpu = scenes.blob_llff_arrays(n_images=args.n_images, img_size=(H, W),
+                                      n_blobs=args.n_blobs, val_ratio=0.1, backdrop=True,
+                                      spread=args.spread, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    for split, got, ref in (("train", train, cpu[0]), ("val", val, cpu[1])):
+        levels = np.abs(np.round(got["image"] * 255) - np.round(ref["image"] * 255))
+        share = float((levels > 0).any(-1).mean())
+        ok = (levels.max() <= EVIDENCE_MAX_LEVELS and share <= EVIDENCE_MAX_PIXEL_SHARE
+              and all(np.array_equal(got[k], ref[k]) for k in ("pose", "intr", "idx")))
+        print("  scene {} ({} views at {}x{}): card against CPU, at most {:.0f} level(s) "
+              "at {:.3e} of the pixels; cameras equal; {}".format(
+                  split, len(got["idx"]), H, W, levels.max(), share, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("scene " + split)
+    print("  CPU render of the scene: {:.1f} s".format(time.time() - t0))
+
+    system = trainer.system
+    errs = {}
+    targs, kw = capture_call(fp, "fused_render_rays_pe_train", system.train_step)
+    check(kw.get("noise") is None and kw.get("density_activ") == "softplus", kw)
+    mlp = targs[0]
+    names = ["d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    center, ray, depth, target = [t.detach() for t in targs[1:]]
+    B, R = depth.shape[:2]
+    weight = 10.0 ** float(system.opt.loss_weight.render)
+    print("  K2 wrapper at step {} ({} rays x {} samples, progress {:.3f}, final weights) "
+          "against its plain version:".format(system.step, [B, R], depth.shape[2],
+                                               float(kw["progress"])))
+    sq, out, grads = k2_wrapper(mlp, center, ray, depth, target, kw, weight)
+    sq_ref, out_ref, grads_ref = k2_plain(mlp, center, ray, depth, target, kw, weight)
+    sq64, out64, grads64 = k2_f64(mlp, center, ray, depth, target, kw, weight)
+    for key in ("rgb", "depth", "opacity"):
+        err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key])
+        if key == "rgb":
+            errs["k2"] = err
+    compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+    for i, (name, gk, gr, g64) in enumerate(zip(["dcenter", "dray"] + names, grads,
+                                                grads_ref, grads64)):
+        compare(name, gk, gr, TOL_INPUT_GRAD_ALL_BANDS if i < 2 else TOL["grad"], failures,
+                g64, TOL_SFM_K2_VS_F64)
+
+    rargs, kw = capture_call(fp, "fused_render_rays_pe", system.validate)
+    mlp, (center, ray, depth) = rargs[0], rargs[1:]
+    B, R, K_ = depth.shape[:3]
+    print("  K3 wrapper at the first chunk of the validation render ({} rays x {} samples) "
+          "against its plain version:".format([B, R], K_))
+    with torch.no_grad():
+        got = fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
+        out8 = fp.render_rays_plain(mlp, center.reshape(B * R, 3), ray.reshape(B * R, 3),
+                                    depth.reshape(B * R, K_), kw["progress"],
+                                    kw["barf_c2f"], kw["density_activ"])
+        ref = split_plain(out8, B, R, kw["bgcolor"] if kw["setbg_opaque"] else None)
+    for key, g in zip(("rgb", "depth", "opacity"), got):
+        err = compare(key, g, ref[key], TOL["value"], failures)
+        if key == "rgb":
+            errs["k3"] = err
+    return errs
+
+
+def phase_evidence():
+    """Path evidence: probe_b3's main through the kernels on a small B3
+    scene, then hold_evidence on what it trained. Returns the launch counts
+    of the path."""
+    from neural_invertible_warp_tpu_torch.evidence import harness, probe_b3
+    out = os.path.join(HERE, "build", "chip_smoke_evidence")
+    seen = {}
+    make_trainer = harness.make_trainer
+
+    def keep_trainer(opt, train, val, device):
+        seen.update(trainer=make_trainer(opt, train, val, device), train=train, val=val)
+        return seen["trainer"]
+    harness.make_trainer = keep_trainer
+    reset_counts()
+    t0 = time.time()
+    try:
+        rec = probe_b3.main(EVIDENCE_ARGS + ["--out-root", out, "--name", "smoke_evidence",
+                                             "--out", os.path.join(out, "results.jsonl")])
+        launches = field_counts()
+    finally:
+        harness.make_trainer = make_trainer
+    seconds = time.time() - t0
+    values = [v for row in rec["history"] for v in row.values()]
+    values += [v for v in rec.values() if isinstance(v, float)]
+    print("evidence: {}".format(json.dumps({k: v for k, v in rec.items() if k != "history"})))
+    print("evidence: rows {}".format(rec["history"]))
+    print("evidence: {:.1f} s, K2 {} launches over {} steps, K3 {}; {}".format(
+        seconds, launches["k2"], EVIDENCE_STEPS, launches["k3"], card_line()))
+    check(all(math.isfinite(v) for v in values), "evidence: a value is not finite")
+    check(launches["k2"] == EVIDENCE_STEPS,
+          "evidence: K2 launched {} times in {} steps".format(launches["k2"], EVIDENCE_STEPS))
+    check(launches["k3"] > 0, "evidence: the validation render launched no K3")
+    failures = []
+    errs = hold_evidence(seen["trainer"], seen["train"], seen["val"], failures)
+    print("evidence: gates: scene card against CPU, K2 at the last step and K3 at the "
+          "validation render against their plain versions, rgb max abs errors {:.3e} / "
+          "{:.3e}; {:.1f} s in all".format(errs["k2"], errs["k3"], time.time() - t0))
+    check(not failures, "evidence path failed: {}".format(failures))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3398,12 +3464,15 @@ def main():
     launches_planar, _ = phase_planar(device)
     torch.cuda.empty_cache()
     launches_sharded = phase_sharded(device)
+    torch.cuda.empty_cache()
+    launches_evidence = phase_evidence()
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
              "dtu": launches_dtu, "fine": launches_fine,
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
-             "pose_init_sfm": launches_sfm, "sharded": launches_sharded}
+             "pose_init_sfm": launches_sfm, "sharded": launches_sharded,
+             "evidence": launches_evidence}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 

@@ -122,19 +122,25 @@ def pop_device(argv):
     """Split ``--device=<cpu|cuda>`` off the option arguments. Returns
     (device, remaining arguments); the default device is the card, and
     asking for it without one raises."""
-    import torch
     device, rest = "cuda", []
     for arg in argv:
         if arg.startswith("--device="):
             device = arg.split("=", 1)[1]
         else:
             rest.append(arg)
+    return check_device(device), rest
+
+
+def check_device(device):
+    """``device`` ("cpu" or "cuda") if it can run here: asking for the card
+    without one raises instead of falling back to the CPU."""
+    import torch
     if device not in ("cpu", "cuda"):
         raise ValueError("--device must be cpu or cuda: {}".format(device))
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device=cpu to run the plain "
                            "PyTorch paths on the CPU")
-    return device, rest
+    return device
 
 
 def set_options(argv, makedirs=True):

@@ -1,6 +1,7 @@
 """Shared dataset machinery: image preprocessing, intrinsics adjustment,
 threaded preloading, whole-split collation. The port's own copy of
-neural_invertible_warp_tpu/data/base.py (numpy and PIL only).
+neural_invertible_warp_tpu/data/base.py (numpy; PIL imported where an image
+is processed).
 
 Parity with reference data/base.py:16-130; images come out as float32
 [H,W,C] in [0,1], intrinsics are adjusted for center-crop and resize
@@ -12,7 +13,6 @@ from __future__ import annotations
 import concurrent.futures as futures
 
 import numpy as np
-import PIL.Image
 
 from ..utils import log
 
@@ -78,6 +78,7 @@ class Dataset:
     @staticmethod
     def apply_color_jitter(image, jitter, order):
         """PIL color jitter matching torchvision adjust_* semantics."""
+        import PIL.Image
         import PIL.ImageEnhance
         mode = image.mode
         if mode != "RGB":
@@ -102,6 +103,7 @@ class Dataset:
         return image
 
     def apply_augmentation(self, image, aug):
+        import PIL.Image
         image = self.apply_color_jitter(image, aug["jitter"],
                                         aug["jitter_order"])
         if aug["flip"]:
@@ -116,6 +118,7 @@ class Dataset:
     def preprocess_image(self, opt, image, aug=None):
         """PIL -> float32 [H,W,C] in [0,1], with optional photometric
         augmentation, then center-crop + resize."""
+        import PIL.Image
         if aug is None and self.augment:
             aug = self.generate_augmentation(opt)
         if aug is not None:

@@ -1,5 +1,6 @@
 """Blender synthetic dataset loader. The port's own copy of
-neural_invertible_warp_tpu/data/blender.py (numpy, PIL and imageio only).
+neural_invertible_warp_tpu/data/blender.py (numpy; PIL and imageio imported
+where an image is read, so the pose parse needs neither).
 
 Format parity with reference data/blender.py:17-90:
 * ``transforms_{split}.json`` frame list with 4x4 c2w matrices;
@@ -14,11 +15,29 @@ import json
 import os
 
 import numpy as np
-import PIL.Image
-import imageio.v2 as imageio
 
 from . import base
 from .base import np_compose_pair, np_invert, np_pose
+
+
+def focal_length(meta, raw_W=800):
+    """The focal length in raw pixels of a ``transforms_*.json`` dict."""
+    return 0.5 * raw_W / np.tan(0.5 * meta["camera_angle_x"])
+
+
+def raw_to_w2c(pose_raw):
+    """A frame's ``transform_matrix`` (OpenGL c2w) -> OpenCV w2c [3,4]:
+    x-flip, then invert."""
+    flip = np_pose(R=np.diag([1.0, -1.0, -1.0]))
+    pose = np_compose_pair(flip, np.asarray(pose_raw)[:3].astype(np.float32))
+    return np_invert(pose)
+
+
+def parse_frames(meta):
+    """w2c poses [N,3,4] float32 of every frame of a ``transforms_*.json``
+    dict, as the loader reads them."""
+    return np.stack([raw_to_w2c(np.array(f["transform_matrix"], np.float32))
+                     for f in meta["frames"]])
 
 
 class Dataset(base.Dataset):
@@ -31,24 +50,19 @@ class Dataset(base.Dataset):
         with open(os.path.join(self.path, "transforms_{}.json".format(split))) as f:
             self.meta = json.load(f)
         self.list = self.meta["frames"]
-        self.focal = 0.5 * self.raw_W / np.tan(0.5 * self.meta["camera_angle_x"])
+        self.focal = focal_length(self.meta, self.raw_W)
         if subset:
             self.list = self.list[:subset]
         if opt.data.preload:
             self.images = self.preload_threading(opt, self.get_image)
             self.cameras = self.preload_threading(opt, self.get_camera, "cameras")
 
-    def parse_raw_camera(self, pose_raw):
-        flip = np_pose(R=np.diag([1.0, -1.0, -1.0]))
-        pose = np_compose_pair(flip, pose_raw[:3].astype(np.float32))
-        return np_invert(pose)
-
     def get_all_camera_poses(self, opt):
-        return np.stack([
-            self.parse_raw_camera(np.array(f["transform_matrix"], np.float32))
-            for f in self.list])
+        return parse_frames({"frames": self.list})
 
     def get_image(self, opt, idx):
+        import PIL.Image
+        import imageio.v2 as imageio
         fname = os.path.join(self.path, "{}.png".format(self.list[idx]["file_path"]))
         return PIL.Image.fromarray(imageio.imread(fname))
 
@@ -57,7 +71,7 @@ class Dataset(base.Dataset):
                          [0, self.focal, self.raw_H / 2],
                          [0, 0, 1]], dtype=np.float32)
         pose_raw = np.array(self.list[idx]["transform_matrix"], np.float32)
-        return intr, self.parse_raw_camera(pose_raw)
+        return intr, raw_to_w2c(pose_raw)
 
     def __getitem__(self, idx):
         opt = self.opt

@@ -1,5 +1,6 @@
 """LLFF forward-facing dataset loader. The port's own copy of
-neural_invertible_warp_tpu/data/llff.py (numpy, PIL and imageio only).
+neural_invertible_warp_tpu/data/llff.py (numpy; PIL and imageio imported
+where an image is read, so the pose parse needs neither).
 
 Format parity with reference data/llff.py:17-134:
 * ``poses_bounds.npy``: [N,17] rows = 3x5 camera matrix (c2w OpenGL
@@ -8,7 +9,7 @@ Format parity with reference data/llff.py:17-134:
 * world rescale by 1/(bounds.min()*0.75) (data/llff.py:56);
 * pose centering by the inverse of the average pose (data/llff.py:63-72);
 * per-camera conversion to w2c OpenCV with a 180-degree x-flip on both sides
-  (``parse_raw_camera``, data/llff.py:107-134);
+  (``raw_to_w2c``, data/llff.py:107-134);
 * sequential train/val split by ``val_ratio`` from the END of the list
   (data/llff.py:32-33).
 """
@@ -18,11 +19,51 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import PIL.Image
-import imageio.v2 as imageio
 
 from . import base
 from .base import np_compose_pair, np_invert, np_pose
+
+
+def parse_poses_bounds(data, raw_H=3024, raw_W=4032):
+    """The camera parse of a ``poses_bounds.npy`` array [N,17]: (poses_raw
+    [N,3,4] float32, axis-swapped, rescaled by 1/(bounds.min()*0.75) and
+    centred by the inverse of the average pose; bounds [N,2] rescaled alike;
+    the focal length in raw pixels). The raw image size the rows carry must
+    be ``raw_H`` x ``raw_W``."""
+    data = np.asarray(data).astype(np.float32)
+    cam_data = data[:, :-2].reshape(-1, 3, 5)
+    poses_raw = cam_data[..., :4].copy()
+    # swap conventions: new col0 = old col1, new col1 = -old col0
+    col0, col1 = poses_raw[..., 0].copy(), poses_raw[..., 1].copy()
+    poses_raw[..., 0], poses_raw[..., 1] = col1, -col0
+    got_H, got_W, focal = cam_data[0, :, -1]
+    assert raw_H == got_H and raw_W == got_W, \
+        "unexpected LLFF raw image size: {}x{}".format(got_H, got_W)
+    bounds = data[:, -2:]
+    scale = 1.0 / (bounds.min() * 0.75)
+    poses_raw[..., 3] *= scale
+    bounds = bounds * scale
+    return center_camera_poses(poses_raw), bounds, focal
+
+
+def center_camera_poses(poses):
+    """Subtract the average pose (reference data/llff.py:63-72)."""
+    center = poses[..., 3].mean(axis=0)
+    v1 = poses[..., 1].mean(axis=0)
+    v1 /= np.linalg.norm(v1)
+    v2 = poses[..., 2].mean(axis=0)
+    v2 /= np.linalg.norm(v2)
+    v0 = np.cross(v1, v2)
+    pose_avg = np.stack([v0, v1, v2, center], axis=-1)
+    return np_compose_pair(poses, np_invert(pose_avg)[None])
+
+
+def raw_to_w2c(pose_raw):
+    """OpenGL c2w -> OpenCV w2c with the double x-flip (data/llff.py:107-134)."""
+    flip = np_pose(R=np.diag([1.0, -1.0, -1.0]))
+    pose = np_compose_pair(flip, pose_raw[:3])
+    pose = np_invert(pose)
+    return np_compose_pair(flip, pose)
 
 
 class Dataset(base.Dataset):
@@ -45,46 +86,16 @@ class Dataset(base.Dataset):
             self.cameras = self.preload_threading(opt, self.get_camera, "cameras")
 
     def parse_cameras_and_bounds(self, opt):
-        fname = os.path.join(self.path, "poses_bounds.npy")
-        data = np.load(fname).astype(np.float32)
-        cam_data = data[:, :-2].reshape(-1, 3, 5)
-        poses_raw = cam_data[..., :4].copy()
-        # swap conventions: new col0 = old col1, new col1 = -old col0
-        col0, col1 = poses_raw[..., 0].copy(), poses_raw[..., 1].copy()
-        poses_raw[..., 0], poses_raw[..., 1] = col1, -col0
-        raw_H, raw_W, self.focal = cam_data[0, :, -1]
-        assert self.raw_H == raw_H and self.raw_W == raw_W, \
-            "unexpected LLFF raw image size: {}x{}".format(raw_H, raw_W)
-        bounds = data[:, -2:]
-        scale = 1.0 / (bounds.min() * 0.75)
-        poses_raw[..., 3] *= scale
-        bounds = bounds * scale
-        poses_raw = self.center_camera_poses(poses_raw)
+        data = np.load(os.path.join(self.path, "poses_bounds.npy"))
+        poses_raw, bounds, self.focal = parse_poses_bounds(data, self.raw_H, self.raw_W)
         return poses_raw, bounds
 
-    def center_camera_poses(self, poses):
-        """Subtract the average pose (reference data/llff.py:63-72)."""
-        center = poses[..., 3].mean(axis=0)
-        v1 = poses[..., 1].mean(axis=0)
-        v1 /= np.linalg.norm(v1)
-        v2 = poses[..., 2].mean(axis=0)
-        v2 /= np.linalg.norm(v2)
-        v0 = np.cross(v1, v2)
-        pose_avg = np.stack([v0, v1, v2, center], axis=-1)
-        return np_compose_pair(poses, np_invert(pose_avg)[None])
-
-    def parse_raw_camera(self, pose_raw):
-        """OpenGL c2w -> OpenCV w2c with the double x-flip (data/llff.py:107-134)."""
-        flip = np_pose(R=np.diag([1.0, -1.0, -1.0]))
-        pose = np_compose_pair(flip, pose_raw[:3])
-        pose = np_invert(pose)
-        pose = np_compose_pair(flip, pose)
-        return pose
-
     def get_all_camera_poses(self, opt):
-        return np.stack([self.parse_raw_camera(tup[1]) for tup in self.list])
+        return np.stack([raw_to_w2c(tup[1]) for tup in self.list])
 
     def get_image(self, opt, idx):
+        import PIL.Image
+        import imageio.v2 as imageio
         fname = os.path.join(self.path_image, self.list[idx][0])
         return PIL.Image.fromarray(imageio.imread(fname))
 
@@ -92,7 +103,7 @@ class Dataset(base.Dataset):
         intr = np.array([[self.focal, 0, self.raw_W / 2],
                          [0, self.focal, self.raw_H / 2],
                          [0, 0, 1]], dtype=np.float32)
-        pose = self.parse_raw_camera(self.list[idx][1])
+        pose = raw_to_w2c(self.list[idx][1])
         return intr, pose
 
     def __getitem__(self, idx):

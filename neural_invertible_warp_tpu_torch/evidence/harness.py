@@ -1,0 +1,212 @@
+"""The quality harness: build a configuration, train it on an in-memory
+scene, and read pose errors and PSNR along the way. The port's counterpart
+of tools/evidence_r2.py's ``build`` / ``make_trainer`` / ``train_loop`` /
+``relative_pose_error`` / ``fmt_history``, driving the port's ``Trainer``
+and systems one ``train_step`` at a time.
+
+``make_trainer`` pins TF32 off for cuBLAS and cuDNN (the warp's and the
+field's fp32 products must stay fp32), as the entry points do.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .. import config
+from ..models.engine import Trainer
+from ..ops import pose as pose_ops
+from .configs import apply_overrides, yaml_options
+
+
+def build(yaml_name, overrides):
+    """Options of ``options/<yaml_name>.yaml`` with ``overrides``
+    ({"dotted.key": value}, typed), post-processed as the CLI does (run
+    name, output directory, H and W)."""
+    opt = apply_overrides(yaml_options(yaml_name), overrides)
+    return config.process_options(opt)
+
+
+def make_trainer(opt, train_arrays, val_arrays, device):
+    """A ``Trainer`` on ``device`` with its system built on the arrays; TF32
+    off for cuBLAS and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = Trainer(opt, device)
+    trainer.build_system(train_arrays, val_arrays)
+    return trainer
+
+
+def initial_pose_error(system):
+    """dict(rot (deg), trans) of the aligned pose error before training. For
+    the INN models ``aux["global_rigid"]`` is set to the identity while it
+    is read: before the first alignment it holds the initial poses, and the
+    readout global_rigid o initial would count them twice."""
+    aux = system.aux
+    if "global_rigid" in aux:
+        system.aux = dict(aux, global_rigid=pose_ops.identity_pose(
+            (aux["global_rigid"].shape[0],), dtype=aux["global_rigid"].dtype,
+            device=aux["global_rigid"].device))
+    try:
+        R, t = system.evaluate_camera_alignment()
+    finally:
+        system.aux = aux
+    return dict(rot=float(np.rad2deg(np.mean(R))), trans=float(np.mean(t)))
+
+
+def relative_pose_error(system, n_pairs=200, seed=0):
+    """Gauge-invariant pose metric: mean relative-rotation error over random
+    camera pairs (deg). The absolute (Procrustes-aligned) error is
+    meaningless while the predicted camera centers are still collapsed at
+    the identity init — the sim3 rotation fit to a degenerate center cloud
+    is noise."""
+    pose_pred, pose_GT = system.get_all_training_poses()
+    if pose_pred is None:
+        return float("nan")
+    pose_pred = pose_pred.detach().cpu().numpy()
+    pose_GT = pose_GT.detach().cpu().numpy()
+    rng = np.random.RandomState(seed)
+    B = pose_pred.shape[0]
+    errs = []
+    for _ in range(n_pairs):
+        i, j = rng.choice(B, 2, replace=False)
+        R_rel = pose_pred[i, :, :3] @ pose_pred[j, :, :3].T
+        R_rel_gt = pose_GT[i, :, :3] @ pose_GT[j, :, :3].T
+        cos = (np.trace(R_rel @ R_rel_gt.T) - 1) / 2
+        errs.append(np.degrees(np.arccos(np.clip(cos, -1, 1))))
+    return float(np.mean(errs))
+
+
+def step_route(system):
+    """What carries a train step of ``system``, from its ``tpu.*`` switches
+    (the dispatch of ``NerfSystem.render_rays``)."""
+    opt = system.opt
+    tpu_cfg = opt.get("tpu") or {}
+    mode = system._field_mode()
+    fine = bool(opt.nerf.fine_sampling)
+    if mode == "off":
+        route = "the plain chain (no kernel)"
+    elif mode == "field":
+        route = "K1 (the MLP-only tier), compositing in PyTorch"
+    elif not tpu_cfg.get("fused_raymarch", False):
+        route = "K5, compositing in PyTorch"
+    elif not tpu_cfg.get("fused_train", True):
+        route = "K3 with K4 as its backward"
+    elif not fine:
+        route = "K2 (one-call train kernel)"
+    elif tpu_cfg.get("fused_raymarch_full", True):
+        route = "K2 for the coarse and the fine field"
+    else:
+        route = "K5 for the coarse field, K2 for the fine one"
+    if tpu_cfg.get("fused_inn") and "global_rigid" in system.aux:
+        route += ", the INN warp on K6"
+    if system.device.type != "cuda":
+        route += " (the kernels' plain versions, on the CPU)"
+    return route
+
+
+def train_loop(system, iters, log_every=5000, pose_errors=True):
+    """``iters`` train steps with a readout row every ``log_every`` steps
+    and after the last: it, psnr (of the step), loss_ga (INN models),
+    err_R_deg / err_t (Procrustes-aligned, mean over the training views),
+    err_R_rel (``relative_pose_error``), elapsed (s since the loop began).
+    Metrics reach the host only at those rows. Returns the rows."""
+    print("train_loop: {} steps on {}; each carried by {}".format(
+        iters, system.device, step_route(system)), flush=True)
+    history = []
+    t0 = time.time()
+    for it in range(1, iters + 1):
+        metrics = system.train_step()
+        if it % log_every and it != iters:
+            continue
+        row = dict(it=it, psnr=float(metrics["psnr"]))
+        if "loss_global_alignment" in metrics:
+            row["loss_ga"] = float(metrics["loss_global_alignment"])
+        if pose_errors:
+            R, t = system.evaluate_camera_alignment()
+            row["err_R_deg"] = float(np.rad2deg(np.mean(R)))
+            row["err_t"] = float(np.mean(t))
+            row["err_R_rel"] = relative_pose_error(system)
+        row["elapsed"] = time.time() - t0
+        history.append(row)
+        print(row, flush=True)
+    return history
+
+
+def fmt_history(history):
+    keys = list(history[0].keys())
+    lines = ["| " + " | ".join(keys) + " |",
+             "|" + "---|" * len(keys)]
+    for r in history:
+        cells = []
+        for k in keys:
+            v = r[k]
+            cells.append("{:.4g}".format(v) if isinstance(v, float) else str(v))
+        lines.append("| " + " | ".join(cells) + " |")
+    return "\n".join(lines) + "\n"
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them, or None
+    off the card."""
+    if not torch.cuda.is_available():
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def parse_overrides(pairs):
+    """``["a.b=value", ...]`` -> {"a.b": value}, each value parsed as JSON
+    (``false``, ``3``, ``[0.1, 0.5]``, ``"text"``); a value that is not
+    JSON stays a string."""
+    out = {}
+    for pair in pairs:
+        key, value = pair.split("=", 1)
+        try:
+            out[key] = json.loads(value)
+        except json.JSONDecodeError:
+            out[key] = value
+    return out
+
+
+def run_record(system, history, init, train_s, iters, horizon, pose):
+    """The result fields of a probe run (tools/probe_zoo_r4.py's record):
+    the initial and final pose errors, ``max_rel_after_half`` (the worst
+    err_R_rel from half the run on: the late kick of a c2f schedule shows
+    there) beside ``rel_at_half``, loss_ga, the held-out PSNR (a
+    ``validate`` pass), ms per step (readouts included) and the rows."""
+    rec = {}
+    if pose:
+        rec["init_rot_deg"] = round(init["rot"], 4)
+        rec["init_trans"] = round(init["trans"], 5)
+    last = history[-1]
+    rec["train_psnr"] = round(float(last["psnr"]), 3)
+    if pose:
+        rec["final_rot_deg"] = round(float(last["err_R_deg"]), 4)
+        rec["final_rot_rel_deg"] = round(float(last["err_R_rel"]), 4)
+        rec["final_trans"] = round(float(last["err_t"]), 5)
+        mid = [h for h in history if h["it"] >= iters // 2]
+        if len(mid) > 1:
+            rec["max_rel_after_half"] = round(max(float(h["err_R_rel"]) for h in mid), 4)
+            rec["rel_at_half"] = round(float(mid[0]["err_R_rel"]), 4)
+    if "loss_ga" in last:
+        rec["loss_ga"] = float(last["loss_ga"])
+    val = system.validate()
+    rec["val_psnr"] = round(float(val["psnr_val"]), 3)
+    rec["ms_per_step"] = round(1000.0 * train_s / iters, 3)
+    rec.update(iters=iters, horizon=horizon, route=step_route(system),
+               device=str(system.device), card=card_line(), history=history)
+    return rec
+
+
+def append_record(path, rec):
+    """Append ``rec`` as one JSON line to ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")

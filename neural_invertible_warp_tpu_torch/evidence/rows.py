@@ -1,0 +1,169 @@
+"""The quality rows on the card, each its own process with its own log:
+
+    python -m neural_invertible_warp_tpu_torch.evidence.rows R1 R2 [--out-dir DIR]
+
+``ROWS`` names each row's probe and arguments (PERF.md, "Quality rows on
+the card"); every entry of ``probe_zoo_r4.RUNS`` is a row too, under its
+own name (``probe_zoo_r4.DEFAULT_ORDER`` is the zoo's order). The rows given run side by side, each a
+``python -m neural_invertible_warp_tpu_torch.evidence.<probe>`` child that
+logs to ``<out-dir>/<row>.log`` and appends its record to
+``<out-dir>/<row>.jsonl``; ``--serial`` runs them one after another
+instead (alone on the card, for their ms/step). ``--iters N`` cuts every
+row to N steps on the same schedule (probe_b3) or to a horizon of N
+(probe_zoo_r4), for a short check. The kernels are built once before any
+row starts. Past ``--deadline`` seconds every row still running is
+stopped; its log keeps the readout rows it had written. Exits non-zero if
+a row failed or was stopped. ``--summary`` prints, for every row with a
+log in ``--out-dir``, its record (or, for a row stopped early, the last
+readout row its log holds: partial) and its readout rows from 0.35 to 0.55
+of its schedule, where a late c2f kick would show.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import glob
+import json
+import os
+import subprocess
+import sys
+import time
+
+from .probe_zoo_r4 import RUNS
+
+_B3_20K = ["--iters", "20000", "--max-iter", "20000", "--max-pe-iter", "10000",
+           "--log-every", "1000"]
+_B3_30K = ["--iters", "30000", "--log-every", "1000"]
+
+ROWS = {
+    # the compressed horizon, where the late c2f kick of a PE precision
+    # fault sits at ~8k: the kernel path, then the plain chain
+    "R1": ("probe_b3", _B3_20K),
+    "R2": ("probe_b3", _B3_20K + ["--overrides", "tpu.fused_pe=false",
+                                  "tpu.fused_kernel=false"]),
+    # R2 at another seed: the plain chain's spread
+    "R2s1": ("probe_b3", _B3_20K + ["--seed", "1", "--overrides", "tpu.fused_pe=false",
+                                    "tpu.fused_kernel=false"]),
+    # the flagship B3 row at three seeds
+    "R3s0": ("probe_b3", _B3_30K + ["--seed", "0"]),
+    "R3s1": ("probe_b3", _B3_30K + ["--seed", "1"]),
+    "R3s2": ("probe_b3", _B3_30K + ["--seed", "2"]),
+    # fine sampling (K2 at 64 and 192 samples, K5 in the validation render)
+    "R4": ("probe_zoo_r4", ["--run", "nerf_llff_repr_20k"]),
+    "R5": ("probe_zoo_r4", ["--run", "nerf_blender_repr_20k"]),
+    # R1 with the INN warp on K6
+    "R6": ("probe_b3", _B3_20K + ["--overrides", "tpu.fused_inn=true"]),
+}
+ROWS.update({name: ("probe_zoo_r4", ["--run", name]) for name in RUNS})
+
+
+def row_command(row, out_dir, device, iters=None):
+    probe, args = ROWS[row]
+    cmd = [sys.executable, "-m", "neural_invertible_warp_tpu_torch.evidence." + probe]
+    cmd += list(args) + ["--device", device]
+    if probe == "probe_b3":
+        cmd += ["--name", row, "--out", os.path.join(out_dir, row + ".jsonl"),
+                "--out-root", os.path.join(out_dir, "runs")]
+        if iters:
+            cmd += ["--iters", str(iters), "--log-every", str(max(1, iters // 2))]
+    else:
+        cmd += ["--tag", row, "--out-dir", os.path.join(out_dir, row)]
+        if iters:
+            cmd += ["--horizon", str(iters)]
+    return cmd
+
+
+def summary(out_dir):
+    """One line per row of ``out_dir``: its record, or the last readout row
+    of its log where it has none (partial); then its rows in the window
+    0.35-0.55 of the schedule. Returns dict row -> (record or None, rows)."""
+    out = {}
+    for log in sorted(glob.glob(os.path.join(out_dir, "*.log"))):
+        row = os.path.basename(log)[:-4]
+        with open(log) as f:
+            lines = f.read().splitlines()
+        rows = [ast.literal_eval(line) for line in lines if line.startswith("{'it': ")]
+        recs = glob.glob(os.path.join(out_dir, row + ".jsonl")) + glob.glob(
+            os.path.join(out_dir, row, "results.jsonl"))
+        rec = None
+        if recs:
+            with open(recs[0]) as f:
+                rec = json.loads(f.read().splitlines()[-1])
+        out[row] = (rec, rows)
+        if rec is not None:
+            keys = ("iters", "horizon", "init_rot_deg", "init_trans", "final_rot_rel_deg",
+                    "final_rot_deg", "final_trans", "rel_at_half", "max_rel_after_half",
+                    "train_psnr", "val_psnr", "ms_per_step", "elapsed_s", "card")
+            print("{} complete: {}".format(row, {k: rec[k] for k in keys if k in rec}))
+            horizon = rec["horizon"]
+        else:
+            print("{} partial: last row {}".format(row, rows[-1] if rows else None))
+            # the schedule horizon from the command, the log's first line
+            words = lines[0].split() if lines else []
+            at = [i for i, w in enumerate(words) if w in ("--max-iter", "--horizon")]
+            horizon = int(words[at[-1] + 1]) if at else None
+        if horizon:
+            window = [r for r in rows if 0.35 * horizon <= r["it"] <= 0.55 * horizon]
+            print("{} rows at 0.35-0.55 of {}: {}".format(row, horizon, window))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("rows", nargs="*", choices=sorted(ROWS))
+    ap.add_argument("--summary", action="store_true",
+                    help="print the rows found in --out-dir and run nothing")
+    ap.add_argument("--out-dir", default=os.path.join("build", "evidence", "rows"))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--serial", action="store_true")
+    ap.add_argument("--iters", type=int)
+    ap.add_argument("--deadline", type=float, default=float("inf"),
+                    help="seconds after which running rows are stopped")
+    args = ap.parse_args(argv)
+    if args.summary:
+        summary(args.out_dir)
+        return 0
+    os.makedirs(args.out_dir, exist_ok=True)
+    if args.device == "cuda":
+        from ..ops.cuda import build
+        lib = build.load_library()
+        print("rows: kernels built in {:.1f} s".format(lib.build_seconds), flush=True)
+    t0 = time.time()
+    running, rcs = {}, {}
+
+    def start(row):
+        cmd = row_command(row, args.out_dir, args.device, args.iters)
+        log = open(os.path.join(args.out_dir, row + ".log"), "w")
+        log.write(" ".join(cmd) + "\n")
+        log.flush()
+        print("rows: {} started at {:.0f} s: {}".format(row, time.time() - t0,
+                                                       " ".join(cmd[2:])), flush=True)
+        running[row] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log)
+
+    queue = list(args.rows)
+    while queue or running:
+        if time.time() - t0 > args.deadline:
+            queue.clear()
+        while queue and (not args.serial or not running):
+            start(queue.pop(0))
+        time.sleep(2)
+        for row, (proc, log) in list(running.items()):
+            if proc.poll() is None and time.time() - t0 > args.deadline:
+                proc.terminate()
+                try:
+                    proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            if proc.poll() is not None:
+                log.close()
+                rcs[row] = proc.returncode
+                del running[row]
+                print("rows: {} rc={} at {:.0f} s".format(row, proc.returncode,
+                                                         time.time() - t0), flush=True)
+    return 1 if any(rcs.values()) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,6 +55,15 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.planar_options",
     "neural_invertible_warp_tpu_torch.train",
     "neural_invertible_warp_tpu_torch.evaluate",
+    "neural_invertible_warp_tpu_torch.data.base",
+    "neural_invertible_warp_tpu_torch.data.llff",
+    "neural_invertible_warp_tpu_torch.data.blender",
+    "neural_invertible_warp_tpu_torch.evidence.configs",
+    "neural_invertible_warp_tpu_torch.evidence.scenes",
+    "neural_invertible_warp_tpu_torch.evidence.harness",
+    "neural_invertible_warp_tpu_torch.evidence.probe_b3",
+    "neural_invertible_warp_tpu_torch.evidence.probe_zoo_r4",
+    "neural_invertible_warp_tpu_torch.evidence.rows",
     "chip_smoke",
 ]
 
@@ -96,6 +105,14 @@ from neural_invertible_warp_tpu_torch.models import planar
 opt = planar_options("homography")
 opt.data.image_size, opt.data.patch_crop, opt.batch_size = [12, 16], [6, 6], 2
 planar.PlanarSystem(opt, "cpu", image=chip_smoke.make_scene(12, 16, 1, seed=0)["image"][0])
+from neural_invertible_warp_tpu_torch.evidence import harness, probe_b3, scenes
+args = probe_b3.parse_args(["--size", "6,8", "--n-images", "5", "--out-root", {out!r},
+                            "--overrides", "data.val_ratio=0.25"])
+opt = probe_b3.probe_options(args)
+train, val, _ = scenes.blob_llff_arrays(n_images=5, img_size=(6, 8), val_ratio=0.25,
+                                        backdrop=True)
+harness.make_trainer(opt, train, val, "cpu")
+scenes.blob_blender_arrays(n_train=2, n_val=1, img_size=6)
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
@@ -389,6 +406,15 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     found =["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
              for path in sources for root, line in _imported_roots(path)
              if root in BANNED_IMPORTS]
+    assert not found, found
+    # the quality harness keeps its own copies of the scenes and probes, and
+    # needs no image library or YAML parser anywhere
+    evidence = [p for p in sources if os.sep + "evidence" + os.sep in p]
+    assert len(evidence) >= 6
+    found = ["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
+             for path in evidence for root, line in _imported_roots(path)
+             if root in ("yaml", "PIL", "imageio", "matplotlib", "synth_data",
+                         "evidence_r2", "probe_b3", "probe_zoo_r4", "tests", "tools")]
     assert not found, found
     # the walker sees imports inside functions: the port's config.py imports
     # yaml only there
