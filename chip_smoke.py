@@ -146,6 +146,19 @@ Phases, one or more lines each:
      compressed schedule (max_iter 300, the INN warp's c2f horizon 150, so
      every PE band opens), a readout row every 100 steps and a validation
      render: every row finite, K2 launched once per step, K3 in the render.
+ 17. evidence_dtu: the DTU probe (evidence/probe_dtu.py's main) for
+     barf_inn_dtu from noisy_gt on a small blob DTU scene rendered on the
+     card (13 views at 75x100, 11 train / 2 test), 200 steps on the paper's
+     schedule, then the full DTU evaluation (5 test-time refinement steps per
+     test view, depth errors, masked metrics); then
+     evidence/probe_extra_datasets.py's iPhone and Tanks-and-Temples slow
+     pans, 100 steps each: every readout, depth error and masked metric
+     finite, K2 launched once per step, K3 and K4 in the DTU evaluation; two
+     views of the card's DTU scene (images, depth, masks) and the first
+     training view of each pan against a CPU render; for each of the three
+     runs K2 at the step after its last and K3 at the first chunk of the
+     DTU evaluation or of the pan's validation render against their plain
+     versions (hold_evidence).
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -477,6 +490,23 @@ EVIDENCE_ARGS = ["--iters", str(EVIDENCE_STEPS), "--max-iter", str(EVIDENCE_STEP
 # the other side of a level at a few pixels)
 EVIDENCE_MAX_LEVELS = 1
 EVIDENCE_MAX_PIXEL_SHARE = 1e-3
+# path evidence_dtu: probe_dtu on a small blob DTU scene (13 views at 75x100,
+# 11 train / 2 test), the paper's schedule (max_iter 200000, so the PE bands
+# stay closed), 5 test-time refinement steps per test view; then 100 steps
+# each of the iPhone and Tanks-and-Temples slow pans
+EVIDENCE_DTU_STEPS = 200
+EVIDENCE_DTU_ARGS = ["--iters", str(EVIDENCE_DTU_STEPS), "--log-every", "100",
+                     "--n-images", "13", "--size", "75,100", "--device", "cuda",
+                     "--model", "barf_inn_dtu", "--init", "noisy_gt",
+                     "--overrides", "optim.test_iter=5"]
+EVIDENCE_EXTRA_STEPS = 100
+# the views of the DTU scene held against a CPU render: (split, ring index);
+# ring view 0 is the first test view, ring view 1 the first train view
+EVIDENCE_DTU_CPU_VIEWS = (("test", 0), ("train", 1))
+# the card's DTU depth against the CPU's where both are valid: the CPU
+# tests' tolerance against synth_data's PFM
+EVIDENCE_DEPTH_REL = 1e-5
+EVIDENCE_EXTRA_RUNS = ("iphone_narrow", "tandt_narrow")
 
 
 def check(ok, msg):
@@ -3300,44 +3330,59 @@ def phase_sharded(device):
 
 # -------------------------------------------------- the quality harness
 
-def hold_evidence(trainer, train, val, failures):
-    """After path evidence: the scene the card rendered against the same
-    scene rendered on the CPU, in uint8 levels (EVIDENCE_MAX_LEVELS at no
-    more than EVIDENCE_MAX_PIXEL_SHARE of the pixels); K2 at the arguments
-    of the step after the last (final weights, every PE band open) and K3
-    at those of the first chunk of the validation render, each through its
-    wrapper against its plain version (K2's values and weight gradients to
-    TOL, dcenter/dray to TOL_INPUT_GRAD_ALL_BANDS; a gradient that misses
-    passes if it is no farther from float64 than TOL_SFM_K2_VS_F64 times
-    the plain version is). The arguments are captured from the probe's own
-    system (``capture_call``: nothing launches, nothing is counted).
-    Returns the largest rgb error of K2 and K3."""
-    from neural_invertible_warp_tpu_torch.evidence import probe_b3, scenes
-    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
-    t0 = time.time()
-    args = probe_b3.parse_args(EVIDENCE_ARGS)
-    H, W = (int(x) for x in args.size.split(","))
+def on_all_cores(fn, *args, **kw):
+    """``fn(*args, **kw)`` with torch's intra-op threads on every core (a
+    render of a scene on the CPU to hold the card's against)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)
     try:
-        cpu = scenes.blob_llff_arrays(n_images=args.n_images, img_size=(H, W),
-                                      n_blobs=args.n_blobs, val_ratio=0.1, backdrop=True,
-                                      spread=args.spread, device="cpu")
+        return fn(*args, **kw)
     finally:
         torch.set_num_threads(threads)
-    for split, got, ref in (("train", train, cpu[0]), ("val", val, cpu[1])):
+
+
+def hold_scene(pairs, failures):
+    """Each (label, card arrays, CPU arrays) of ``pairs``: the images in
+    uint8 levels (EVIDENCE_MAX_LEVELS at no more than
+    EVIDENCE_MAX_PIXEL_SHARE of the pixels), the cameras (and indices) the
+    CPU's arrays hold equal; where they hold DTU's maps, fg_mask and
+    valid_depth_gt equal but at no more than EVIDENCE_MAX_PIXEL_SHARE of the
+    pixels, and depth_gt within EVIDENCE_DEPTH_REL of the CPU's where both
+    are valid."""
+    for label, got, ref in pairs:
         levels = np.abs(np.round(got["image"] * 255) - np.round(ref["image"] * 255))
         share = float((levels > 0).any(-1).mean())
         ok = (levels.max() <= EVIDENCE_MAX_LEVELS and share <= EVIDENCE_MAX_PIXEL_SHARE
-              and all(np.array_equal(got[k], ref[k]) for k in ("pose", "intr", "idx")))
+              and all(np.array_equal(got[k], ref[k]) for k in ("pose", "intr", "idx")
+                      if k in ref))
+        maps = ""
+        if "depth_gt" in ref:
+            shares = [float((got[k] != ref[k]).mean()) for k in ("fg_mask", "valid_depth_gt")]
+            both = (got["valid_depth_gt"] > 0) & (ref["valid_depth_gt"] > 0)
+            rel = float(np.max(np.abs(got["depth_gt"] - ref["depth_gt"])[both]
+                               / np.abs(ref["depth_gt"][both]))) if both.any() else math.inf
+            ok = ok and max(shares) <= EVIDENCE_MAX_PIXEL_SHARE and rel <= EVIDENCE_DEPTH_REL
+            maps = "; fg_mask / valid_depth_gt differ at {:.3e} / {:.3e} of the pixels, " \
+                   "depth_gt within {:.3e} relative".format(*shares, rel)
         print("  scene {} ({} views at {}x{}): card against CPU, at most {:.0f} level(s) "
-              "at {:.3e} of the pixels; cameras equal; {}".format(
-                  split, len(got["idx"]), H, W, levels.max(), share, "ok" if ok else "FAIL"))
+              "at {:.3e} of the pixels; cameras equal{}; {}".format(
+                  label, len(got["image"]), *got["image"].shape[1:3], levels.max(), share,
+                  maps, "ok" if ok else "FAIL"))
         if not ok:
-            failures.append("scene " + split)
-    print("  CPU render of the scene: {:.1f} s".format(time.time() - t0))
+            failures.append("scene " + label)
 
-    system = trainer.system
+
+def hold_evidence(system, failures, render=None):
+    """After an evidence path: K2 at the arguments of the step after the
+    last (final weights) and K3 at those of the first render chunk of
+    ``render`` (``system.validate`` by default), each through its wrapper
+    against its plain version (K2's values and weight gradients to TOL,
+    dcenter/dray to TOL_INPUT_GRAD_ALL_BANDS; a gradient that misses passes
+    if it is no farther from float64 than TOL_SFM_K2_VS_F64 times the plain
+    version is). The arguments are captured from the probe's own system
+    (``capture_call``: nothing launches, nothing is counted). Returns the
+    largest rgb error of K2 and K3."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
     errs = {}
     targs, kw = capture_call(fp, "fused_render_rays_pe_train", system.train_step)
     check(kw.get("noise") is None and kw.get("density_activ") == "softplus", kw)
@@ -3362,11 +3407,11 @@ def hold_evidence(trainer, train, val, failures):
         compare(name, gk, gr, TOL_INPUT_GRAD_ALL_BANDS if i < 2 else TOL["grad"], failures,
                 g64, TOL_SFM_K2_VS_F64)
 
-    rargs, kw = capture_call(fp, "fused_render_rays_pe", system.validate)
-    mlp, (center, ray, depth) = rargs[0], rargs[1:]
+    rargs, kw = capture_call(fp, "fused_render_rays_pe", render or system.validate)
+    mlp, (center, ray, depth) = rargs[0], [t.detach() for t in rargs[1:]]
     B, R, K_ = depth.shape[:3]
-    print("  K3 wrapper at the first chunk of the validation render ({} rays x {} samples) "
-          "against its plain version:".format([B, R], K_))
+    print("  K3 wrapper at the first render chunk ({} rays x {} samples) against its plain "
+          "version:".format([B, R], K_))
     with torch.no_grad():
         got = fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
         out8 = fp.render_rays_plain(mlp, center.reshape(B * R, 3), ray.reshape(B * R, 3),
@@ -3384,7 +3429,7 @@ def phase_evidence():
     """Path evidence: probe_b3's main through the kernels on a small B3
     scene, then hold_evidence on what it trained. Returns the launch counts
     of the path."""
-    from neural_invertible_warp_tpu_torch.evidence import harness, probe_b3
+    from neural_invertible_warp_tpu_torch.evidence import harness, probe_b3, scenes
     out = os.path.join(HERE, "build", "chip_smoke_evidence")
     seen = {}
     make_trainer = harness.make_trainer
@@ -3413,11 +3458,144 @@ def phase_evidence():
           "evidence: K2 launched {} times in {} steps".format(launches["k2"], EVIDENCE_STEPS))
     check(launches["k3"] > 0, "evidence: the validation render launched no K3")
     failures = []
-    errs = hold_evidence(seen["trainer"], seen["train"], seen["val"], failures)
+    t1 = time.time()
+    args = probe_b3.parse_args(EVIDENCE_ARGS)
+    H, W = (int(x) for x in args.size.split(","))
+    cpu = on_all_cores(scenes.blob_llff_arrays, n_images=args.n_images, img_size=(H, W),
+                       n_blobs=args.n_blobs, val_ratio=0.1, backdrop=True,
+                       spread=args.spread, device="cpu")
+    hold_scene([("train", seen["train"], cpu[0]), ("val", seen["val"], cpu[1])], failures)
+    print("  CPU render of the scene: {:.1f} s".format(time.time() - t1))
+    errs = hold_evidence(seen["trainer"].system, failures)
     print("evidence: gates: scene card against CPU, K2 at the last step and K3 at the "
           "validation render against their plain versions, rgb max abs errors {:.3e} / "
           "{:.3e}; {:.1f} s in all".format(errs["k2"], errs["k3"], time.time() - t0))
     check(not failures, "evidence path failed: {}".format(failures))
+    return launches
+
+
+def phase_evidence_dtu():
+    """Path evidence_dtu: probe_dtu's main (barf_inn_dtu from noisy_gt on a
+    small blob DTU scene rendered on the card, the full DTU evaluation with
+    a few test-time refinement steps), then probe_extra_datasets' iPhone and
+    Tanks-and-Temples slow pans. Then the card's scenes against the CPU's:
+    DTU's images, depth and masks at EVIDENCE_DTU_CPU_VIEWS, and the first
+    training view of each extra scene. Then ``hold_evidence`` on each run's
+    system: K2 at the step after its last, and K3 at the first chunk of the
+    DTU evaluation or of the extra run's validation render, against their
+    plain versions. Returns the launch counts of the path."""
+    from neural_invertible_warp_tpu_torch.data import dtu as dtu_data
+    from neural_invertible_warp_tpu_torch.evidence import (harness, probe_dtu,
+                                                           probe_extra_datasets, scenes)
+    out = os.path.join(HERE, "build", "chip_smoke_evidence_dtu")
+    seen = {}
+    make_trainer = harness.make_trainer
+
+    def keep_trainer(opt, train, test, device):
+        trainer = make_trainer(opt, train, test, device)
+        if "dtu" in seen:       # the extra datasets' runs, in EVIDENCE_EXTRA_RUNS' order
+            seen.setdefault("extra", []).append(dict(system=trainer.system, train=train,
+                                                     opt=opt))
+            return trainer
+        system, evaluate_full = trainer.system, trainer.system.evaluate_full
+
+        def counted_evaluation(*a, **k):
+            before = field_counts()
+            results = evaluate_full(*a, **k)
+            seen["eval"] = {key: n - before[key] for key, n in field_counts().items()}
+            return results
+        system.evaluate_full = counted_evaluation
+        seen["dtu"] = dict(system=system, train=train, test=test, opt=opt,
+                           evaluate_full=evaluate_full)
+        return trainer
+    harness.make_trainer = keep_trainer
+    reset_counts()
+    t0 = time.time()
+    try:
+        rec = probe_dtu.main(EVIDENCE_DTU_ARGS + ["--out-root", out, "--name", "smoke_dtu",
+                                                  "--out", os.path.join(out, "results.jsonl")])
+        seconds = {"dtu": time.time() - t0}
+        extra = {}
+        for run in EVIDENCE_EXTRA_RUNS:
+            t1 = time.time()
+            extra[run] = probe_extra_datasets.main([
+                "--run", run, "--horizon", str(EVIDENCE_EXTRA_STEPS), "--device", "cuda",
+                "--tag", "smoke_" + run, "--out-dir", os.path.join(out, run)])
+            seconds[run] = time.time() - t1
+        launches = field_counts()
+    finally:
+        harness.make_trainer = make_trainer
+    steps = EVIDENCE_DTU_STEPS + 2 * EVIDENCE_EXTRA_STEPS
+    values = []
+    for r in [rec] + list(extra.values()):
+        values += [v for row in r["history"] for v in row.values()]
+        values += [v for v in r.values() if isinstance(v, (int, float))]
+    print("evidence_dtu: {}".format(json.dumps({k: v for k, v in rec.items()
+                                               if k != "history"})))
+    print("evidence_dtu: rows {}".format(rec["history"]))
+    for run, r in extra.items():
+        print("evidence_dtu: {} {}".format(run, json.dumps({k: v for k, v in r.items()
+                                                           if k != "history"})))
+    print("evidence_dtu: {} s; K2 {} launches over {} steps, K3 {}, K4 {}; in the DTU "
+          "evaluation K3 {}, K4 {}; {}".format(
+              {k: round(v, 1) for k, v in seconds.items()}, launches["k2"], steps,
+              launches["k3"], launches["k4"], seen["eval"]["k3"], seen["eval"]["k4"],
+              card_line()))
+    check(all(math.isfinite(v) for v in values), "evidence_dtu: a value is not finite")
+    check(all(k in rec for k in ("depth_abs", "depth_rms", "PSNR_masked", "SSIM_masked")),
+          "evidence_dtu: the DTU evaluation's keys are missing")
+    check(launches["k2"] == steps,
+          "evidence_dtu: K2 launched {} times in {} steps".format(launches["k2"], steps))
+    check(len(seen.get("extra", [])) == len(EVIDENCE_EXTRA_RUNS),
+          "evidence_dtu: {} extra systems kept".format(len(seen.get("extra", []))))
+    check(seen["eval"]["k3"] > 0 and seen["eval"]["k4"] > 0,
+          "evidence_dtu: the DTU evaluation launched K3 {} and K4 {} times".format(
+              seen["eval"]["k3"], seen["eval"]["k4"]))
+    failures = []
+    t1 = time.time()
+    dtu = seen["dtu"]
+    args = probe_dtu.parse_args(EVIDENCE_DTU_ARGS)
+    scene = scenes.dtu_scene(args.n_images, (dtu["opt"].H, dtu["opt"].W), args.seed)
+    views = EVIDENCE_DTU_CPU_VIEWS
+    rgb, depth, opacity = on_all_cores(scenes.render_views, scene,
+                                       (dtu["opt"].H, dtu["opt"].W), [v for _, v in views],
+                                       device="cpu")
+    maps = scenes.dtu_maps(depth, opacity)
+    keys = ("image", "pose", "intr") + tuple(maps)
+    pairs = []
+    for i, (split, view) in enumerate(views):
+        got = dtu[split]
+        j = dtu_data.split_indices(None, args.n_images, dtu["opt"].data.dtu.dtuhold)[
+            split].index(view)
+        ref = dict(image=scenes.quantize(rgb[i:i + 1]), pose=scene["pose"][view:view + 1],
+                   intr=scene["intr"][view:view + 1])
+        ref.update({k: v[i:i + 1] for k, v in maps.items()})
+        pairs.append(("DTU {} view {}".format(split, view),
+                      {k: got[k][j:j + 1] for k in keys}, ref))
+    for run, kept in zip(EVIDENCE_EXTRA_RUNS, seen["extra"]):
+        _, make_scene, kw = probe_extra_datasets.run_scene(run, kept["opt"])
+        scene = make_scene(**kw)
+        view = int(scene["splits"]["train"][0])       # the first training view
+        rgb, _, _ = on_all_cores(scenes.render_views, scene, kw["img_size"], [view],
+                                 device="cpu")
+        ref = dict(image=scenes.quantize(rgb), intr=scene["intr"][view:view + 1])
+        if not run.startswith("iphone"):             # the iPhone loader's poses are dummies
+            ref["pose"] = scene["render_pose"][view:view + 1]
+        pairs.append(("{} train view {}".format(run, view),
+                      {k: kept["train"][k][:1] for k in ref}, ref))
+    hold_scene(pairs, failures)
+    print("  CPU render of {} views: {:.1f} s".format(len(pairs), time.time() - t1))
+    errs = {"dtu": hold_evidence(dtu["system"], failures,
+                                 render=lambda: dtu["evaluate_full"](dump_images=False))}
+    for run, kept in zip(EVIDENCE_EXTRA_RUNS, seen["extra"]):
+        print("  {}:".format(run))
+        errs[run] = hold_evidence(kept["system"], failures)
+    print("evidence_dtu: gates: scenes card against CPU; K2 at the step after each run's last "
+          "and K3 at the first chunk of the DTU evaluation or the extra runs' validation "
+          "render against their plain versions, rgb max abs errors {}; {:.1f} s in all".format(
+              json.dumps({run: ["{:.3e}".format(e["k2"]), "{:.3e}".format(e["k3"])]
+                          for run, e in errs.items()}), time.time() - t0))
+    check(not failures, "evidence_dtu path failed: {}".format(failures))
     return launches
 
 
@@ -3466,13 +3644,15 @@ def main():
     launches_sharded = phase_sharded(device)
     torch.cuda.empty_cache()
     launches_evidence = phase_evidence()
+    torch.cuda.empty_cache()
+    launches_evidence_dtu = phase_evidence_dtu()
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
              "dtu": launches_dtu, "fine": launches_fine,
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
              "pose_init_sfm": launches_sfm, "sharded": launches_sharded,
-             "evidence": launches_evidence}
+             "evidence": launches_evidence, "evidence_dtu": launches_evidence_dtu}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 

@@ -16,21 +16,35 @@ import numpy as np
 
 from . import base
 
+RAW_HW = (1080, 1920)
+
+
+def focal_length(raw_W=RAW_HW[1]):
+    """The hard-coded iPhone focal length in raw pixels (reference
+    data/iphone.py): 4.2 mm over a 12.8 mm / 2.55 sensor width."""
+    return raw_W * 4.2 / (12.8 / 2.55)
+
+
+def split_frames(frames, val_ratio, split):
+    """The frames of ``split``: the last int(N * val_ratio) are the
+    validation split, the rest the training split."""
+    num_val = int(len(frames) * val_ratio)
+    return frames[:-num_val] if split == "train" else frames[-num_val:]
+
 
 class Dataset(base.Dataset):
 
     def __init__(self, opt, split="train", subset=None):
-        self.raw_H, self.raw_W = 1080, 1920
+        self.raw_H, self.raw_W = RAW_HW
         super().__init__(opt, split)
         self.root = opt.data.get("root") or "data/iphone"
         self.path = os.path.join(self.root, opt.data.scene)
         self.path_image = os.path.join(self.path, "images")
         self.list = sorted(os.listdir(self.path_image), key=lambda f: int(f.split(".")[0]))
-        num_val = int(len(self.list) * opt.data.val_ratio)
-        self.list = self.list[:-num_val] if split == "train" else self.list[-num_val:]
+        self.list = split_frames(self.list, opt.data.val_ratio, split)
         if subset:
             self.list = self.list[:subset]
-        self.focal = self.raw_W * 4.2 / (12.8 / 2.55)
+        self.focal = focal_length(self.raw_W)
         if opt.data.preload:
             self.images = self.preload_threading(opt, self.get_image)
             self.cameras = self.preload_threading(opt, self.get_camera, "cameras")

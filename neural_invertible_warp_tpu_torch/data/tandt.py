@@ -56,6 +56,18 @@ def spherify_poses(poses, bds):
     return poses_reset[:, :3, :4].astype(np.float32), bds.astype(np.float32)
 
 
+def split_indices(n, val_ratio):
+    """NoPe's split of ``n`` images: every ``val_ratio``-th from
+    ``val_ratio // 2`` on is a test image, the first two test images are the
+    validation split, the rest train. Returns dict(train, val, test) of
+    index arrays."""
+    ids = np.arange(n)
+    step = int(val_ratio)
+    i_test = ids[step // 2::step]
+    i_train = np.array([i for i in ids if i not in i_test])
+    return dict(train=i_train, val=i_test[:2], test=i_test)
+
+
 class Dataset(llff.Dataset):
 
     def __init__(self, opt, split="train", subset=None):
@@ -69,12 +81,7 @@ class Dataset(llff.Dataset):
         poses_raw, bounds = spherify_poses(poses_raw, bounds)
         self.list = list(zip(image_fnames, poses_raw, bounds))
 
-        # NoPe split: every val_ratio-th is test; the first 2 test images are val
-        ids = np.arange(len(self.list))
-        step = int(opt.data.val_ratio)
-        i_test = ids[step // 2::step]
-        i_train = np.array([i for i in ids if i not in i_test])
-        pick = dict(train=i_train, val=i_test[:2], test=i_test)[split]
+        pick = split_indices(len(self.list), opt.data.val_ratio)[split]
         self.list = [self.list[i] for i in pick]
         log.info("tandt split {}: {} images".format(split, len(self.list)))
         if subset:

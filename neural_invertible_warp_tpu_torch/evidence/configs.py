@@ -3,8 +3,9 @@ yaml-free way to override them.
 
 ``yaml_options(name)`` is ``options/<name>.yaml`` resolved through its
 ``_parent_`` chain, as ``config.load_options`` resolves it, without a YAML
-parser: for ``barf_llff``, ``barf_blender``, ``barf_blender_inn`` and
-``nerf_blender_repr``, the layers below (each what its YAML file itself
+parser: for ``barf_llff``, ``barf_iphone``, ``barf_blender``,
+``barf_blender_inn``, ``nerf_blender_repr``, ``nerf_dtu`` and ``barf_dtu``,
+the layers below (each what its YAML file itself
 says, ``_parent_`` aside) laid over one another from ``base.yaml`` down,
 and the port's other dict configs for the rest, with the command-line keys
 those carry taken out. tests/test_torch_evidence.py holds each against the YAML loader.
@@ -14,6 +15,7 @@ with the CLI's rule: a key the options lack raises.
 
 import copy
 
+from ..barf_inn_dtu import barf_inn_dtu_options
 from ..config import override_options
 from ..dotdict import DotDict
 from ..flagship import flagship_options
@@ -236,6 +238,91 @@ NERF_BLENDER_REPR = {   'arch': {   'layers_feat': [None, 256, 256, 256, 256, 25
     'freq': {'scalar': 200, 'vis': 1000, 'val': 2000, 'ckpt': 5000}}
 
 
+# options/nerf_dtu.yaml, over base.yaml
+NERF_DTU = {   'arch': {   'layers_feat': [None, 256, 256, 256, 256, 256, 256, 256, 256],
+                'layers_rgb': [None, 128, 3],
+                'skip': [4],
+                'posenc': {'L_3D': 10, 'L_view': 4},
+                'density_activ': 'softplus',
+                'tf_init': True},
+    'nerf': {   'view_dep': True,
+                'depth': {'param': 'metric', 'range': [1, 0]},
+                'sample_intvs': 128,
+                'sample_stratified': True,
+                'fine_sampling': False,
+                'sample_intvs_fine': None,
+                'rand_rays': 2048,
+                'density_noise_reg': None,
+                'setbg_opaque': None},
+    'data': {   'dataset': 'dtu',
+                'scene': 'scan82',
+                'image_size': [300, 400],
+                'num_workers': 4,
+                'preload': True,
+                'val_ratio': 0.1,
+                'dtu': {   'split_type': None,
+                           'dtuhold': 8,
+                           'train_sub': None,
+                           'val_sub': None,
+                           'crop_ratio': None,
+                           'crop': None,
+                           'resize_by': 'max',
+                           'resize': None,
+                           'resize_factor': None,
+                           'mask_img': False,
+                           'light_cond': 3,
+                           'max_images': 49,
+                           'increase_depth_range_by_x_percent': 0}},
+    'camera': {'model': 'perspective', 'ndc': False},
+    'loss_weight': {'render': 0, 'render_fine': None, 'global_alignment': None},
+    'weight_sched': {   'render': {'start_decay': None},
+                        'render_fine': {'start_decay': None},
+                        'global_alignment': {'start_decay': None}},
+    'optim': {   'lr': 0.001,
+                 'lr_end': 0.0001,
+                 'sched': {'type': 'ExponentialLR', 'gamma': None}},
+    'batch_size': None,
+    'max_epoch': None,
+    'max_iter': 200000,
+    'freq': {   'scalar': 200,
+                'vis': 1000,
+                'val': 2000,
+                'ckpt': 5000,
+                'early_termination': 100000}}
+
+# options/barf_dtu.yaml, over nerf_dtu.yaml
+BARF_DTU = {   'barf_c2f': None,
+    'camera': {'noise': None},
+    'optim': {   'lr_pose': 0.0005,
+                 'lr_pose_end': 1e-08,
+                 'sched_pose': {'type': 'ExponentialLR', 'gamma': None},
+                 'warmup_pose': None,
+                 'test_photo': True,
+                 'test_iter': 100},
+    'visdom': {'cam_depth': 0.2},
+    'pose': {   'parameterization': 'se3',
+                'init': 'given',
+                'noise': 0.15,
+                'n_first_fixed_poses': 0,
+                'optimize_relative_poses': False,
+                'dtu_reconstruction': False,
+                'colmap': {   'flow_ckpt_path': 'pretrained_models/PDCNet_megadepth.pth.tar'},
+                'sfm': {'matcher': 'zncc', 'quant_px': 1.0, 'weights_path': None}},
+    'inn': {   'proj_type': 'fixed_positional_encoding',
+               'proj_dims': 256,
+               'real_nvp': {   'anneal': 'reference',
+                               'c2f': True,
+                               'max_pe_iter': 100000,
+                               'd_hidden': 128,
+                               'multires': 6,
+                               'latent_dim': 128},
+               'actfn': 'softplus'},
+    'save': {'init_poses': None, 'pred_poses': None}}
+
+# options/barf_iphone.yaml, over barf_llff.yaml
+BARF_IPHONE = {'data': {'dataset': 'iphone', 'scene': 'IMG_0239', 'image_size': [480, 640]}}
+
+
 def _resolved(base, *layers):
     """``base`` with ``layers`` laid over it in order, leaf-wise, as a
     YAML file's ``_parent_`` chain is resolved."""
@@ -256,10 +343,14 @@ YAMLS = {
     "barf_inn_llff": lambda: _without_cli(flagship_options(), **{
         "barf_c2f": None, "loss_weight.global_alignment": None}),
     "barf_llff": lambda: _resolved(BASE, NERF_LLFF, BARF_LLFF),
+    "barf_iphone": lambda: _resolved(BASE, NERF_LLFF, BARF_LLFF, BARF_IPHONE),
     "barf_blender": lambda: _resolved(BASE, NERF_BLENDER, BARF_BLENDER),
     "barf_blender_inn": lambda: _resolved(BASE, NERF_BLENDER, BARF_BLENDER_INN),
     "nerf_blender_repr": lambda: _resolved(BASE, NERF_BLENDER_REPR),
     "nerf_llff_repr": lambda: _without_cli(nerf_llff_repr_options()),
+    "nerf_dtu": lambda: _resolved(BASE, NERF_DTU),
+    "barf_dtu": lambda: _resolved(BASE, NERF_DTU, BARF_DTU),
+    "barf_inn_dtu": lambda: _without_cli(barf_inn_dtu_options()),
     "nerf_gaussian_llff": lambda: _without_cli(garf_llff_options("nerf_gaussian")),
     "garf_llff": lambda: _without_cli(garf_llff_options("garf")),
     "garf_llff_se3": lambda: _without_cli(garf_llff_options("garf_se3_field")),

@@ -205,6 +205,21 @@ def run_record(system, history, init, train_s, iters, horizon, pose):
     return rec
 
 
+# the keys of the DTU evaluation (``DTUMixin.evaluate_full``): the aligned
+# pose error (pose models), the test views' PSNR, SSIM and LPIPS after
+# test-time refinement, the depth errors and the foreground-masked metrics
+DTU_EVAL_KEYS = ("rot_error_deg", "trans_error", "PSNR", "SSIM", "LPIPS", "depth_abs",
+                 "depth_rms", "PSNR_masked", "SSIM_masked", "LPIPS_masked")
+
+
+def dtu_record(results):
+    """The DTU evaluation's fields of a probe record, beside ``run_record``'s:
+    each of ``DTU_EVAL_KEYS`` that ``results`` has, rounded to 5 places
+    (LPIPS stays None without its weights)."""
+    return {k: None if results[k] is None else round(float(results[k]), 5)
+            for k in DTU_EVAL_KEYS if k in results}
+
+
 def append_record(path, rec):
     """Append ``rec`` as one JSON line to ``path``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -9,8 +9,8 @@ own name (``probe_zoo_r4.DEFAULT_ORDER`` is the zoo's order). The rows given run
 logs to ``<out-dir>/<row>.log`` and appends its record to
 ``<out-dir>/<row>.jsonl``; ``--serial`` runs them one after another
 instead (alone on the card, for their ms/step). ``--iters N`` cuts every
-row to N steps on the same schedule (probe_b3) or to a horizon of N
-(probe_zoo_r4), for a short check. The kernels are built once before any
+row to N steps on the same schedule (probe_b3, probe_dtu) or to a horizon
+of N (probe_zoo_r4, probe_extra_datasets), for a short check. The kernels are built once before any
 row starts. Past ``--deadline`` seconds every row still running is
 stopped; its log keeps the readout rows it had written. Exits non-zero if
 a row failed or was stopped. ``--summary`` prints, for every row with a
@@ -30,11 +30,12 @@ import subprocess
 import sys
 import time
 
+from .harness import DTU_EVAL_KEYS
 from .probe_zoo_r4 import RUNS
 
 _B3_20K = ["--iters", "20000", "--max-iter", "20000", "--max-pe-iter", "10000",
            "--log-every", "1000"]
-_B3_30K = ["--iters", "30000", "--log-every", "1000"]
+_30K = ["--iters", "30000", "--log-every", "1000"]
 
 ROWS = {
     # the compressed horizon, where the late c2f kick of a PE precision
@@ -46,14 +47,30 @@ ROWS = {
     "R2s1": ("probe_b3", _B3_20K + ["--seed", "1", "--overrides", "tpu.fused_pe=false",
                                     "tpu.fused_kernel=false"]),
     # the flagship B3 row at three seeds
-    "R3s0": ("probe_b3", _B3_30K + ["--seed", "0"]),
-    "R3s1": ("probe_b3", _B3_30K + ["--seed", "1"]),
-    "R3s2": ("probe_b3", _B3_30K + ["--seed", "2"]),
+    "R3s0": ("probe_b3", _30K + ["--seed", "0"]),
+    "R3s1": ("probe_b3", _30K + ["--seed", "1"]),
+    "R3s2": ("probe_b3", _30K + ["--seed", "2"]),
     # fine sampling (K2 at 64 and 192 samples, K5 in the validation render)
     "R4": ("probe_zoo_r4", ["--run", "nerf_llff_repr_20k"]),
     "R5": ("probe_zoo_r4", ["--run", "nerf_blender_repr_20k"]),
     # R1 with the INN warp on K6
     "R6": ("probe_b3", _B3_20K + ["--overrides", "tpu.fused_inn=true"]),
+    # paper Table 2 on the blob DTU scene (EVIDENCE_r3 section 5b, 30k):
+    # JAX 24.5 deg / 0.62 -> 0.51 deg abs / 0.27 rel, trans 0.0096, test PSNR
+    # 32.07, masked 26.79 / 0.931, depth 0.097 / 0.334
+    "D1": ("probe_dtu", _30K + ["--model", "barf_inn_dtu", "--init", "noisy_gt"]),
+    # the SE(3) control: JAX 0.35 deg / 0.19, trans 0.0075, 32.23, masked
+    # 29.20 / 0.955, depth 0.083 / 0.293
+    "D2": ("probe_dtu", _30K + ["--model", "barf_dtu", "--init", "noisy_gt"]),
+    # from the SfM (ZNCC, 42/42 registered): JAX 4.63 deg / 0.047 -> 0.67 deg /
+    # 0.26, trans 0.0091, 31.80, masked 25.03 / 0.908, depth 0.097 / 0.308
+    "D3": ("probe_dtu", _30K + ["--model", "barf_inn_dtu", "--init", "colmap"]),
+    # EVIDENCE_r5 section 4, 20k: the iPhone slow pan, JAX 2.30 -> 0.397 deg
+    # rel, center 0.057, 44.1 / 18.9 dB
+    "X1": ("probe_extra_datasets", ["--run", "iphone_narrow", "--horizon", "20000"]),
+    # the Tanks-and-Temples gentle pan, JAX 26.7 -> 1.92 deg / 0.265 rel,
+    # trans 0.006, 49.3 / 35.3 dB
+    "X2": ("probe_extra_datasets", ["--run", "tandt_narrow", "--horizon", "20000"]),
 }
 ROWS.update({name: ("probe_zoo_r4", ["--run", name]) for name in RUNS})
 
@@ -62,7 +79,7 @@ def row_command(row, out_dir, device, iters=None):
     probe, args = ROWS[row]
     cmd = [sys.executable, "-m", "neural_invertible_warp_tpu_torch.evidence." + probe]
     cmd += list(args) + ["--device", device]
-    if probe == "probe_b3":
+    if probe in ("probe_b3", "probe_dtu"):
         cmd += ["--name", row, "--out", os.path.join(out_dir, row + ".jsonl"),
                 "--out-root", os.path.join(out_dir, "runs")]
         if iters:
@@ -94,7 +111,9 @@ def summary(out_dir):
         if rec is not None:
             keys = ("iters", "horizon", "init_rot_deg", "init_trans", "final_rot_rel_deg",
                     "final_rot_deg", "final_trans", "rel_at_half", "max_rel_after_half",
-                    "train_psnr", "val_psnr", "ms_per_step", "elapsed_s", "card")
+                    "init_rel_rot_deg", "init_center_err", "final_rel_rot_deg",
+                    "final_center_err", "train_psnr", "val_psnr") + DTU_EVAL_KEYS + (
+                        "ms_per_step", "elapsed_s", "card")
             print("{} complete: {}".format(row, {k: rec[k] for k in keys if k in rec}))
             horizon = rec["horizon"]
         else:

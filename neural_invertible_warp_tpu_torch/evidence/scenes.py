@@ -8,15 +8,27 @@ files those write (image [B,H,W,3] float32 in [0,1], intr [B,3,3], pose
 * ``blob_llff_arrays``: the wide forward-facing LLFF cluster with the blob
   slab at the cameras' common look-at point (``backdrop``: a textured wall
   behind it; ``dense``: a thick frustum-filling blob cloud);
-* ``blob_blender_arrays``: cameras on the r=4 sphere around a blob ball.
+* ``blob_blender_arrays``: cameras on the r=4 sphere around a blob ball;
+* ``blob_dtu_arrays``: the DTU arc over an opaque textured blob cluster
+  before a spotted wall, with GT depth, its validity and the foreground
+  mask, as the DTU loader gives them;
+* ``blob_iphone_arrays``: an unposed video of a blob cloud before a wall
+  (the loader's identity poses, and the true ones beside them);
+* ``blob_tandt_arrays``: a Tanks-and-Temples walk-through arc over a blob
+  slab and a wall.
 
 Poses come from the loaders' own parses (``data.llff.parse_poses_bounds``,
-``data.blender.raw_to_w2c``), so they equal what the loaders read. Images
+``data.blender.raw_to_w2c``, ``data.tandt.spherify_poses``; the DTU
+loader's cv2 parse of the projection matrices is reproduced without cv2
+by ``dtu_loader_w2c``), so they equal what the loaders read. Images
 are rendered in torch on ``device`` (the blob field composited over
 unjittered samples, as ``analytic_blob_render``) and quantized through
 uint8 as the PNG round trip does; the loaders' same-size BICUBIC resize is
 a copy. ``render_blobs`` also renders chip_smoke.py's SfM scene (a wall
-with colour spots; its depth and opacity maps). ``PROBE_SCENES`` names the five scenes of the quality probes.
+with colour spots; its depth and opacity maps). ``dtu_scene``,
+``iphone_scene`` and ``tandt_scene`` hold the cameras and content of the
+last three without rendering them; ``render_views`` renders any of their
+views alone. ``PROBE_SCENES`` names the five scenes of the quality probes.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..data import blender, llff
+from ..data import blender, dtu, iphone, llff, tandt
 from ..ops import rays, render, sampling
 
 LLFF_RAW_HW = (3024, 4032)
@@ -86,7 +98,10 @@ def render_blobs(pose_w2c, intr, H, W, blob, n_samples=192, depth_range=(2.0, 6.
                  bgcolor=1.0, backdrop=None, device="cpu", max_elems=1 << 23):
     """The blob field seen from w2c poses [B,3,4] with intrinsics [B,3,3]:
     3-sigma-truncated Gaussian densities, colours weighted by the
-    untruncated ones, composited over ``n_samples`` unjittered depths; where
+    untruncated ones (times 1 + amp sin(fx x) sin(fy y + 1.3) sin(fz z + 2.1)
+    where ``blob`` has ``tex`` = dict(freq=(fx, fy, fz), amp=amp): a 3-D
+    colour texture on the blob bodies), composited over ``n_samples``
+    unjittered depths; where
     a ray leaves the field, ``bgcolor`` or, with ``backdrop``, the textured
     wall (with Gaussian colour spots where it has ``spot_uv``, ``spot_s``
     and ``spot_c``). Rendered in chunks of rays on ``device``, at most
@@ -100,6 +115,10 @@ def render_blobs(pose_w2c, intr, H, W, blob, n_samples=192, depth_range=(2.0, 6.
         k: torch.as_tensor(v, **f32) for k, v in backdrop.items() if k != "amps"}
     # truncate tails at 3-sigma (smoothly) so the blobs stay compact
     w_cut = float(np.exp(-4.5))
+    tex = blob.get("tex")
+    if tex is not None:
+        fx, fy, fz = (float(v) for v in tex["freq"])
+        amp = float(tex["amp"])
     chunk = max(1, max_elems // (n_samples * len(blob["s"])))
     rgbs, depths, opacities = [], [], []
     for b in range(pose_w2c.shape[0]):
@@ -118,6 +137,10 @@ def render_blobs(pose_w2c, intr, H, W, blob, n_samples=192, depth_range=(2.0, 6.
             sigma = torch.sum(w, dim=-1)
             wc = w_raw + 1e-8
             rgb = torch.sum(wc[..., None] * c, dim=-2) / torch.sum(wc, -1)[..., None]
+            if tex is not None:
+                rgb = rgb * (1.0 + amp * torch.sin(fx * pts[..., 0])
+                             * torch.sin(fy * pts[..., 1] + 1.3)
+                             * torch.sin(fz * pts[..., 2] + 2.1))[..., None]
             out_rgb, out_d, opac, _ = render.composite(ray, rgb, sigma, depth)
             if bd is None:
                 parts.append((out_rgb + bgcolor * (1 - opac),
@@ -194,6 +217,22 @@ def wide_llff_poses_bounds(n_images=40, seed=0, spread=0.5):
     return np.stack(rows)
 
 
+def look_at_point(pose):
+    """(target, dist, look) of w2c poses [B,3,4]: the least-squares
+    intersection of the view axes (the cameras' common look-at point), the
+    mean distance of the camera centers from it, and each camera's viewing
+    direction [B,3]."""
+    R, t = pose[:, :, :3], pose[:, :, 3]
+    centers = -np.einsum("bij,bi->bj", R, t)                # c2w centers
+    look = R[:, 2, :]                                       # c2w z-axis rows
+    P = np.eye(3)[None] - look[:, :, None] * look[:, None, :]
+    A = P.sum(0) + 1e-4 * np.eye(3)
+    b = np.einsum("bij,bj->i", P, centers)
+    target = np.linalg.solve(A, b)
+    dist = float(np.mean(np.linalg.norm(target - centers, axis=-1)))
+    return target, dist, look
+
+
 def llff_cameras(poses_bounds, img_size, val_ratio):
     """(train, val) of dict(intr, pose) as the LLFF loader splits and parses
     ``poses_bounds``: the last int(N * val_ratio) views are the val split."""
@@ -216,17 +255,7 @@ def blob_llff_arrays(n_images=40, img_size=(240, 320), seed=0, spread=0.5,
     H, W = img_size
     train, val = llff_cameras(wide_llff_poses_bounds(n_images, seed, spread),
                               img_size, val_ratio)
-    pose = train["pose"]                                    # w2c [B,3,4]
-    R, t = pose[:, :, :3], pose[:, :, 3]
-    centers = -np.einsum("bij,bi->bj", R, t)                # c2w centers
-    look = R[:, 2, :]                                       # c2w z-axis rows
-    # triangulate the common look-at point: least-squares intersection of the
-    # view axes (the centered origin is the mean CAMERA position)
-    P = np.eye(3)[None] - look[:, :, None] * look[:, None, :]
-    A = P.sum(0) + 1e-4 * np.eye(3)
-    b = np.einsum("bij,bj->i", P, centers)
-    target = np.linalg.solve(A, b)
-    dist = float(np.mean(np.linalg.norm(target - centers, axis=-1)))
+    target, dist, look = look_at_point(train["pose"])
     if dense:
         # full-frame 3D structure at many depths: breaks both the
         # empty-space memorization gauge AND the planar ambiguity
@@ -291,6 +320,256 @@ def blob_blender_arrays(n_train=100, n_val=4, img_size=128, seed=0,
                                   depth_range=depth_range, device=device)
         out.append(_split(imgs, intr, pose))
     return out[0], out[1], blob
+
+
+# ------------------------------------------------------------------- DTU
+
+DTU_SCALE = 300.0
+DTU_TRANS_OFFSET = np.array([3.0, -2.0, 5.0])
+
+
+def dtu_ring_poses(n_views=49, seed=0, radius=3.2, theta_span=80.0):
+    """DTU-like inward-facing camera arc (OpenCV convention, c2w z toward
+    the scene), the geometry of a DTU robot-arm scan: cameras on a wobbly
+    arc at about constant distance, all looking at the table center.
+    Returns c2w [N,3,4] float64."""
+    rng = np.random.RandomState(seed)
+    c2ws = []
+    for i in range(n_views):
+        theta = np.deg2rad(theta_span * (i / (n_views - 1) - 0.5))
+        phi = np.deg2rad(20 + 12 * np.sin(3.0 * theta) + 2 * rng.randn())
+        r = radius + 0.12 * rng.randn()
+        eye = np.array([r * np.sin(theta) * np.cos(phi),
+                        r * np.sin(phi),
+                        -r * np.cos(theta) * np.cos(phi)])
+        target = np.array([0.05 * rng.randn(), 0.05 * rng.randn(), 0.0])
+        c2ws.append(_look_at_opencv(eye, target))
+    return np.stack(c2ws)
+
+
+def _look_at_opencv(eye, target):
+    """c2w [3,4] float64 of a camera at ``eye`` whose z axis points at
+    ``target`` (OpenCV convention, y down-ish from the world's +y up)."""
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    x_ax = np.cross([0.0, 1.0, 0.0], z)
+    x_ax /= np.linalg.norm(x_ax)
+    y_ax = np.cross(z, x_ax)
+    return np.concatenate([np.stack([x_ax, y_ax, z], axis=1), eye[:, None]], axis=1)
+
+
+def _w2c(c2w):
+    """w2c [3,4] float32 of c2w [3,4] float64, inverted in float64."""
+    return np.linalg.inv(np.concatenate([c2w, [[0, 0, 0, 1]]], 0))[:3].astype(np.float32)
+
+
+def dtu_loader_w2c(c2w):
+    """The w2c pose [3,4] float32 the DTU loader parses from the projection
+    matrix of c2w [3,4] written at DTU's raw scale (translation x300 plus
+    ``DTU_TRANS_OFFSET``, the offset in ``scale_mat``): c2w in float32, the
+    offset taken off and the 1/300 applied in the loader's order, inverted
+    in float32 (data/dtu.py, ``load_scene_data``)."""
+    pose_c2w = np.eye(4, dtype=np.float32)
+    pose_c2w[:3, :3] = c2w[:, :3]
+    pose_c2w[:3, 3] = DTU_SCALE * c2w[:, 3] + DTU_TRANS_OFFSET
+    pose_c2w[:3, 3:] -= DTU_TRANS_OFFSET[:, None]
+    pose_c2w[:3, 3:] *= dtu.SCALING_FACTOR
+    return np.linalg.inv(pose_c2w)[:3].astype(np.float32)
+
+
+def dtu_scene(n_images=49, img_size=(150, 200), seed=0):
+    """The cameras and content of make_blob_dtu_scene: dict(render_pose
+    (the generation w2c [N,3,4] float32 the views are rendered from), pose
+    (the loader's parse of them), intr [N,3,3], blob (50 medium textured
+    blobs and 40 small opaque dots), backdrop (a wall at z=1.6 with 800
+    colour spots), n_samples and depth_range (256 in [1.2, 6.2]), as
+    ``render_views`` reads them)."""
+    H, W = img_size
+    f = 1.1 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float64)
+    c2ws = dtu_ring_poses(n_views=n_images, seed=seed)
+    body = blob_params(seed=seed + 7, n_blobs=50, radius=1.2,
+                       axis_scale=(1.2, 1.0, 1.3), s_range=(0.09, 0.22))
+    body["a"] = body["a"] * 4.0
+    dots = blob_params(seed=seed + 19, n_blobs=40, radius=1.45,
+                       axis_scale=(1.2, 1.0, 1.3), s_range=(0.03, 0.06))
+    dots["a"] = dots["a"] * 40.0
+    blob = {k: np.concatenate([body[k], dots[k]]) for k in ("mu", "s", "a", "c")}
+    blob["tex"] = dict(freq=(9.0, 8.0, 10.0), amp=0.35)
+    bd = backdrop_params(point=(0, 0, 1.6), normal=(0, 0, -1.0), seed=seed + 23)
+    trng = np.random.RandomState(seed + 13)
+    n_spots = 800
+    bd["spot_uv"] = (trng.rand(n_spots, 2).astype(np.float32) - 0.5) * 10.0
+    bd["spot_s"] = (0.015 + 0.03 * trng.rand(n_spots)).astype(np.float32)
+    bd["spot_c"] = ((trng.rand(n_spots, 3) - 0.5) * 1.6).astype(np.float32)
+    return dict(render_pose=np.stack([_w2c(c) for c in c2ws]),
+                pose=np.stack([dtu_loader_w2c(c) for c in c2ws]),
+                intr=np.tile(K.astype(np.float32), (n_images, 1, 1)), blob=blob, backdrop=bd,
+                n_samples=256, depth_range=(1.2, 6.2))
+
+
+def render_views(scene, img_size, views, device="cpu"):
+    """(rgb, depth, opacity) of the views ``views`` (indices into its
+    cameras) of a scene of ``dtu_scene``, ``iphone_scene`` or
+    ``tandt_scene``, as its maker renders them. Each view is rendered on
+    its own, so a view comes out the same alone as among the others."""
+    views = list(views)
+    return render_blobs(scene["render_pose"][views], scene["intr"][views], *img_size,
+                        scene["blob"], n_samples=scene["n_samples"],
+                        depth_range=scene["depth_range"], backdrop=scene["backdrop"],
+                        device=device)
+
+
+def dtu_maps(depth, opacity):
+    """The DTU loader's per-pixel maps of rendered depth and opacity:
+    depth_gt (through the PFM's x300 and the loader's /300, in float32),
+    valid_depth_gt (depth > 0) and fg_mask (opacity > 0.5, the IDR mask)."""
+    depth_gt = (depth.astype(np.float32) * np.float32(DTU_SCALE)) \
+        * np.float32(dtu.SCALING_FACTOR)
+    return dict(depth_gt=depth_gt, valid_depth_gt=(depth_gt > 0).astype(np.float32),
+                fg_mask=(opacity > 0.5).astype(np.float32))
+
+
+def blob_dtu_arrays(n_images=49, img_size=(150, 200), seed=0, widen=0.15, dtuhold=8,
+                    device="cpu"):
+    """make_blob_dtu_scene in memory: a ``n_images``-view inward camera arc
+    over an opaque textured blob cluster before a spotted wall. Returns
+    (train arrays, test arrays, scene) in the layout the DTU loader gives
+    ``DTUMixin.attach_data``, every ``dtuhold``-th view in the test split
+    (``dtu.split_indices``): image (through uint8, as the PNGs), intr, pose
+    (the loader's parse), idx, ``dtu_maps``' depth_gt, valid_depth_gt and
+    fg_mask, and depth_range [1.2 (1 - widen), 5.2 (1 + widen)]."""
+    scene = dtu_scene(n_images, img_size, seed)
+    rgb, depth, opacity = render_views(scene, img_size, range(n_images), device)
+    maps = dtu_maps(depth, opacity)
+    depth_range = np.array([dtu.NEAR_DEPTH * (1 - widen), dtu.FAR_DEPTH * (1 + widen)],
+                           np.float32)
+    out = []
+    for split in ("train", "test"):
+        idx = dtu.split_indices(None, n_images, dtuhold)[split]
+        arrays = _split(rgb[idx], scene["intr"][idx], scene["pose"][idx])
+        arrays.update({k: v[idx] for k, v in maps.items()},
+                      depth_range=np.tile(depth_range, (len(idx), 1)))
+        out.append(arrays)
+    return out[0], out[1], scene
+
+
+# ---------------------------------------------------------------- iPhone
+
+def iphone_true_w2c(n_images=24, path_scale=1.0):
+    """The generation w2c poses [N,3,4] float32 of make_blob_iphone_scene's
+    video: a slow orbit with a handheld bob, always looking at the blob
+    cloud (OpenCV convention). ``path_scale`` shrinks the excursion (1.0:
+    a wide orbit, ~8.6 deg mean pairwise rotation; 0.35: a slow pan)."""
+    poses = []
+    for i in range(n_images):
+        t = i / (n_images - 1)
+        eye = np.array([0.9 * path_scale * np.sin(1.6 * t * np.pi),
+                        0.15 * path_scale * np.sin(2.3 * t * np.pi + 0.4),
+                        4.0 + 0.4 * path_scale * np.sin(0.9 * t * np.pi)])
+        target = np.array([0.15 * np.sin(2 * t * np.pi), 0.0, 0.0])
+        poses.append(_w2c(_look_at_opencv(eye, target)))
+    return np.stack(poses)
+
+
+def iphone_scene(n_images=24, img_size=(108, 192), seed=0, n_blobs=40, path_scale=1.0,
+                 val_ratio=0.1):
+    """The cameras and content of make_blob_iphone_scene: dict(render_pose
+    (the true w2c of every frame), intr (the iPhone loader's), blob (a blob
+    cloud), backdrop (a textured wall), n_samples and depth_range (192 in
+    [2.2, 6.2]), splits (the frames of train and val: the last
+    int(N * val_ratio) are the validation split, ``iphone.split_frames``))."""
+    H, W = img_size
+    raw_H, raw_W = iphone.RAW_HW
+    frames = np.arange(n_images)
+    return dict(render_pose=iphone_true_w2c(n_images, path_scale),
+                intr=_intrinsics(iphone.focal_length(raw_W), raw_H, raw_W, H, W, n_images),
+                blob=blob_params(seed=seed + 31, n_blobs=n_blobs, radius=1.15,
+                                 axis_scale=(1.5, 1.1, 0.7), s_range=(0.12, 0.30)),
+                backdrop=backdrop_params(point=(0.0, 0.0, -1.7), normal=(0.0, 0.0, 1.0),
+                                         seed=seed + 23),
+                n_samples=192, depth_range=(2.2, 6.2),
+                splits={s: iphone.split_frames(frames, val_ratio, s) for s in ("train", "val")})
+
+
+def blob_iphone_arrays(n_images=24, img_size=(108, 192), seed=0, n_blobs=40,
+                       path_scale=1.0, val_ratio=0.1, device="cpu"):
+    """make_blob_iphone_scene in memory: an unposed video of a blob cloud
+    before a textured wall, rendered at the iPhone loader's intrinsics
+    (``iphone_scene``). Returns (train arrays, val arrays, true w2c [N,3,4]
+    of every frame): the arrays carry the loader's identity poses."""
+    scene = iphone_scene(n_images, img_size, seed, n_blobs, path_scale, val_ratio)
+    imgs, _, _ = render_views(scene, img_size, range(n_images), device)
+    identity = np.tile(np.eye(3, 4, dtype=np.float32), (n_images, 1, 1))
+    train, val = (_split(imgs[f], scene["intr"][f], identity[f])
+                  for f in (scene["splits"][s] for s in ("train", "val")))
+    return train, val, scene["render_pose"]
+
+
+# ------------------------------------------------------ Tanks and Temples
+
+TANDT_RAW_HW = (540, 960)
+TANDT_FOCAL = 800.0
+
+
+def tandt_poses_bounds(n_images=24, seed=0, arc_scale=1.0):
+    """The ``poses_bounds.npy`` rows [N,17] of make_blob_tandt_scene's
+    forward-facing walk-through arc (``arc_scale`` 1.0: a 69 deg spread;
+    0.1: a gentle ~7 deg pan)."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n_images):
+        th = (i / n_images - 0.5) * 1.2 * arc_scale
+        eye = np.array([2.5 * np.sin(th), 0.3 + 0.05 * rng.randn(), 2.5 * np.cos(th)])
+        c2w = look_at_c2w(eye)
+        raw = c2w.copy()
+        raw[..., 0], raw[..., 1] = -c2w[..., 1], c2w[..., 0]
+        hwf = np.array([*TANDT_RAW_HW, TANDT_FOCAL], np.float32)[:, None]
+        rows.append(np.concatenate([np.concatenate([raw, hwf], axis=1).reshape(-1),
+                                    np.array([1.5 + rng.rand() * 0.1, 6.0])]))
+    return np.stack(rows)
+
+
+def tandt_scene(n_images=24, img_size=(180, 320), seed=0, n_blobs=40, arc_scale=1.0,
+                val_ratio=8):
+    """The cameras and content of make_blob_tandt_scene: dict(render_pose
+    (the Tanks-and-Temples loader's parse of the walk-through arc: LLFF's
+    parse at 540x960, then NoPe's spherification), intr, blob (a blob slab
+    past the training cameras' look-at point at ~2.2x its distance),
+    backdrop (a textured wall at ~3x), n_samples and depth_range (192
+    inside barf_llff's inverse-depth sampling range), splits (NoPe's,
+    ``tandt.split_indices``))."""
+    H, W = img_size
+    poses_raw, bounds, focal = llff.parse_poses_bounds(
+        tandt_poses_bounds(n_images, seed, arc_scale), *TANDT_RAW_HW)
+    poses_raw, _ = tandt.spherify_poses(poses_raw, bounds)
+    pose = np.stack([llff.raw_to_w2c(p) for p in poses_raw])
+    splits = tandt.split_indices(n_images, val_ratio)
+    target, dist, look = look_at_point(pose[splits["train"]])
+    mean_look = look.mean(0)
+    mean_look /= np.linalg.norm(mean_look)
+    return dict(render_pose=pose, intr=_intrinsics(focal, *TANDT_RAW_HW, H, W, n_images),
+                blob=blob_params(seed=seed + 17, n_blobs=n_blobs,
+                                 center=tuple(target + 1.2 * dist * mean_look),
+                                 radius=0.5 * dist, axis_scale=(1.5, 1.1, 0.8),
+                                 s_range=(0.10, 0.26)),
+                backdrop=backdrop_params(point=target + 2.0 * dist * mean_look,
+                                         normal=-mean_look, seed=seed + 23),
+                n_samples=192, depth_range=(max(0.2, 1.35 * dist), 3.3 * dist),
+                splits=splits)
+
+
+def blob_tandt_arrays(n_images=24, img_size=(180, 320), seed=0, n_blobs=40,
+                      arc_scale=1.0, val_ratio=8, device="cpu"):
+    """make_blob_tandt_scene in memory (``tandt_scene``), its train and val
+    splits rendered. Returns (train arrays, val arrays, blob)."""
+    scene = tandt_scene(n_images, img_size, seed, n_blobs, arc_scale, val_ratio)
+    out = []
+    for split in ("train", "val"):
+        idx = scene["splits"][split]
+        imgs, _, _ = render_views(scene, img_size, idx, device)
+        out.append(_split(imgs, scene["intr"][idx], scene["render_pose"][idx]))
+    return out[0], out[1], scene["blob"]
 
 
 # ------------------------------------------------------ the probes' scenes

@@ -106,14 +106,21 @@ def test_scene_arrays_equal_what_the_loaders_read(written_scenes, case):
 TOL_MAPS = 5e-5
 
 
-@pytest.mark.parametrize("wall", ["none", "spots"])
+@pytest.mark.parametrize("wall", ["none", "spots", "tex"])
 def test_render_blobs_maps_equal_synth_data(wall, monkeypatch):
     """render_blobs' rgb, depth and opacity against
     synth_data.analytic_blob_render(return_depth=True): without a wall on
-    the Blender cameras, and with chip_smoke.py's SfM wall of colour spots
-    (make_sfm_scene's own arguments, 2 views of 12x16), within TOL_MAPS of
-    each map's max."""
-    if wall == "none":
+    the Blender cameras, with chip_smoke.py's SfM wall of colour spots
+    (make_sfm_scene's own arguments, 2 views of 12x16), and with the blob
+    DTU scene's textured blobs (``tex``) and spotted wall (2 views of
+    12x16), within TOL_MAPS of each map's max."""
+    if wall == "tex":
+        scene = scenes.dtu_scene(2, (12, 16))
+        assert "tex" in scene["blob"]
+        args = (scene["render_pose"], scene["intr"], 12, 16, scene["blob"])
+        kw = dict(n_samples=256, depth_range=(1.2, 6.2), backdrop=scene["backdrop"])
+        got = scenes.render_blobs(*args, **kw)
+    elif wall == "none":
         pose = np.stack([scenes.blender.raw_to_w2c(m)
                          for m in scenes.blender_c2w(2, 0)["train"]])
         intr = scenes._intrinsics(200.0, 800, 800, 12, 12, 2)

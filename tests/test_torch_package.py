@@ -64,6 +64,8 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.evidence.probe_b3",
     "neural_invertible_warp_tpu_torch.evidence.probe_zoo_r4",
     "neural_invertible_warp_tpu_torch.evidence.rows",
+    "neural_invertible_warp_tpu_torch.evidence.probe_dtu",
+    "neural_invertible_warp_tpu_torch.evidence.probe_extra_datasets",
     "chip_smoke",
 ]
 
@@ -113,7 +115,16 @@ train, val, _ = scenes.blob_llff_arrays(n_images=5, img_size=(6, 8), val_ratio=0
                                         backdrop=True)
 harness.make_trainer(opt, train, val, "cpu")
 scenes.blob_blender_arrays(n_train=2, n_val=1, img_size=6)
-banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib",
+from neural_invertible_warp_tpu_torch.evidence import probe_dtu, probe_extra_datasets
+args = probe_dtu.parse_args(["--size", "6,8", "--n-images", "9", "--out-root", {out!r}])
+opt = probe_dtu.probe_options(args)
+train, test, _ = scenes.blob_dtu_arrays(n_images=9, img_size=(6, 8))
+harness.make_trainer(opt, train, test, "cpu")
+for run in ("iphone_narrow", "tandt_narrow"):
+    probe_extra_datasets.run_options(run, 10, out_dir={out!r})
+scenes.blob_iphone_arrays(n_images=10, img_size=(6, 8))
+scenes.blob_tandt_arrays(n_images=10, img_size=(6, 8))
+banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 """
@@ -122,7 +133,8 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
     """The port's slice modules and chip_smoke.py, imported and driven up to
     building the system, load none of jax, yaml, PIL, imageio, matplotlib,
-    nor the JAX package (the card's machine has none of the first five)."""
+    cv2, nor the JAX package (the card's machine has none of the first
+    six)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(
@@ -410,11 +422,12 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     # the quality harness keeps its own copies of the scenes and probes, and
     # needs no image library or YAML parser anywhere
     evidence = [p for p in sources if os.sep + "evidence" + os.sep in p]
-    assert len(evidence) >= 6
+    assert len(evidence) >= 8
     found = ["{}:{} imports {}".format(os.path.relpath(path, ROOT), line, root)
              for path in evidence for root, line in _imported_roots(path)
-             if root in ("yaml", "PIL", "imageio", "matplotlib", "synth_data",
-                         "evidence_r2", "probe_b3", "probe_zoo_r4", "tests", "tools")]
+             if root in ("yaml", "PIL", "imageio", "matplotlib", "cv2", "synth_data",
+                         "evidence_r2", "probe_b3", "probe_zoo_r4", "probe_dtu",
+                         "probe_extra_datasets", "tests", "tools")]
     assert not found, found
     # the walker sees imports inside functions: the port's config.py imports
     # yaml only there
