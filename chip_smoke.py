@@ -145,7 +145,11 @@ Phases, one or more lines each:
      120x160, 11 train / 1 val), the flagship at full width 300 steps on a
      compressed schedule (max_iter 300, the INN warp's c2f horizon 150, so
      every PE band opens), a readout row every 100 steps and a validation
-     render: every row finite, K2 launched once per step, K3 in the render.
+     render: every row finite, K2 launched once per step, K3 in the render;
+     then the same probe again, stopped after step 150 as SIGTERM stops a
+     row at its deadline, and resumed from its checkpoint in a new Python
+     process: every readout row and every record field but the timing
+     ones bit-equal to the uncut run's.
  17. evidence_dtu: the DTU probe (evidence/probe_dtu.py's main) for
      barf_inn_dtu from noisy_gt on a small blob DTU scene rendered on the
      card (13 views at 75x100, 11 train / 2 test), 200 steps on the paper's
@@ -490,6 +494,10 @@ EVIDENCE_ARGS = ["--iters", str(EVIDENCE_STEPS), "--max-iter", str(EVIDENCE_STEP
 # the other side of a level at a few pixels)
 EVIDENCE_MAX_LEVELS = 1
 EVIDENCE_MAX_PIXEL_SHARE = 1e-3
+# the evidence run cut after this step and resumed must equal the uncut one
+# bit for bit but in these fields, which time the run
+EVIDENCE_CUT_STEP = EVIDENCE_STEPS // 2
+EVIDENCE_TIMING_KEYS = ("elapsed", "elapsed_s", "ms_per_step", "segments")
 # path evidence_dtu: probe_dtu on a small blob DTU scene (13 views at 75x100,
 # 11 train / 2 test), the paper's schedule (max_iter 200000, so the PE bands
 # stay closed), 5 test-time refinement steps per test view; then 100 steps
@@ -3467,11 +3475,75 @@ def phase_evidence():
     hold_scene([("train", seen["train"], cpu[0]), ("val", seen["val"], cpu[1])], failures)
     print("  CPU render of the scene: {:.1f} s".format(time.time() - t1))
     errs = hold_evidence(seen["trainer"].system, failures)
+    hold_resumed_evidence(rec, out, failures)
     print("evidence: gates: scene card against CPU, K2 at the last step and K3 at the "
           "validation render against their plain versions, rgb max abs errors {:.3e} / "
-          "{:.3e}; {:.1f} s in all".format(errs["k2"], errs["k3"], time.time() - t0))
+          "{:.3e}; the cut and resumed run against the uncut one; {:.1f} s in all".format(
+              errs["k2"], errs["k3"], time.time() - t0))
     check(not failures, "evidence path failed: {}".format(failures))
     return launches
+
+
+def hold_resumed_evidence(uncut, out, failures):
+    """Path evidence's probe run again, stopped after EVIDENCE_CUT_STEP as
+    SIGTERM stops a row at its deadline (the checkpoint written after the
+    step in hand), then ``--resume`` in a new Python process, as a row is
+    resumed in a later call: its readout rows and record (read from its
+    ``--out`` file) must equal ``uncut``'s bit for bit but in
+    EVIDENCE_TIMING_KEYS. Prints the first row and the fields that differ."""
+    import signal
+    from neural_invertible_warp_tpu_torch.evidence import harness, probe_b3
+    make_trainer = harness.make_trainer
+
+    def stop_at_cut(opt, train, val, device):
+        trainer = make_trainer(opt, train, val, device)
+        system, train_step = trainer.system, trainer.system.train_step
+
+        def step(*a, **k):
+            metrics = train_step(*a, **k)
+            if system.step == EVIDENCE_CUT_STEP:
+                signal.raise_signal(signal.SIGTERM)
+            return metrics
+        system.train_step = step
+        return trainer
+    args = EVIDENCE_ARGS + ["--out-root", os.path.join(out, "cut"), "--name", "smoke_cut",
+                            "--out", os.path.join(out, "cut", "results.jsonl")]
+    t0 = time.time()
+    harness.make_trainer = stop_at_cut
+    try:
+        probe_b3.main(args)
+        rc = None
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        harness.make_trainer = make_trainer
+    check(rc == harness.STOPPED_RC, "evidence: the cut run ended with {}".format(rc))
+    child = subprocess.run(
+        [sys.executable, "-m", "neural_invertible_warp_tpu_torch.evidence.probe_b3"]
+        + args + ["--resume"], cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, "evidence: the resumed process ended with {}:\n{}\n{}".format(
+        child.returncode, child.stdout[-3000:], child.stderr[-3000:]))
+    with open(args[args.index("--out") + 1]) as f:
+        resumed = json.loads(f.read().splitlines()[-1])
+
+    def untimed(rec):
+        return {k: v for k, v in rec.items() if k not in EVIDENCE_TIMING_KEYS + ("name",)}
+    rows = [(a["it"], untimed(a) == untimed(b)) for a, b in zip(uncut["history"],
+                                                                 resumed["history"])]
+    fields = [k for k in set(untimed(uncut)) | set(untimed(resumed))
+              if k != "history" and uncut.get(k) != resumed.get(k)]
+    first = next((it for it, same in rows if not same), None)
+    print("evidence: cut after step {} and resumed ({} processes, {:.1f} s): readout rows "
+          "{}; first row that differs {}; record fields that differ {}".format(
+              EVIDENCE_CUT_STEP, resumed["segments"], time.time() - t0,
+              "equal" if first is None else "differ", first, sorted(fields)))
+    if first is not None:
+        print("evidence: uncut {} resumed {}".format(
+            uncut["history"][[it for it, _ in rows].index(first)],
+            resumed["history"][[it for it, _ in rows].index(first)]))
+    if (first is not None or fields or resumed["segments"] != 2
+            or len(resumed["history"]) != len(uncut["history"])):
+        failures.append("evidence: the resumed run differs from the uncut one")
 
 
 def phase_evidence_dtu():

@@ -4,6 +4,13 @@ of tools/evidence_r2.py's ``build`` / ``make_trainer`` / ``train_loop`` /
 ``relative_pose_error`` / ``fmt_history``, driving the port's ``Trainer``
 and systems one ``train_step`` at a time.
 
+A probe run resumes across processes through ``RowCheckpoint``: the latest
+state of the run (the system's state tree, the readout rows so far, the
+initial readout, the train seconds and the processes taken) in one file
+beside the run's output, rewritten at each readout row and on SIGTERM.
+Every step seeds its draws from (seed, step), so a run cut and resumed
+reads out what an uncut one would.
+
 ``make_trainer`` pins TF32 off for cuBLAS and cuDNN (the warp's and the
 field's fp32 products must stay fp32), as the entry points do.
 """
@@ -12,7 +19,10 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import signal
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -21,6 +31,7 @@ import torch
 from .. import config
 from ..models.engine import Trainer
 from ..ops import pose as pose_ops
+from ..utils import ckpt
 from .configs import apply_overrides, yaml_options
 
 
@@ -110,32 +121,132 @@ def step_route(system):
     return route
 
 
-def train_loop(system, iters, log_every=5000, pose_errors=True):
-    """``iters`` train steps with a readout row every ``log_every`` steps
-    and after the last: it, psnr (of the step), loss_ga (INN models),
+# the exit code of a probe stopped by SIGTERM once its checkpoint is written
+STOPPED_RC = 128 + signal.SIGTERM
+
+
+class RowCheckpoint:
+    """The latest checkpoint of a probe run, ``<output_path>/<name>.row.ckpt``:
+    a pickled dict of the system's state tree (``utils/ckpt.state_tree``:
+    parameters, Adam moments and count, step, aux), the readout rows so
+    far, the initial readout, the train and wall seconds so far and the
+    processes taken. Written to a temporary file, then renamed over the
+    last one, so a process stopped mid-write leaves the last whole file;
+    only the renamed file is ever read. At each readout row, after the
+    last step and on SIGTERM."""
+
+    SUFFIX = ".row.ckpt"
+
+    def __init__(self, output_path, name, resume=False, t0=None):
+        self.path = os.path.join(output_path, name + self.SUFFIX)
+        self.resume = resume
+        self.init = None
+        self.history = []
+        self.train_s = 0.0
+        self.wall_s = 0.0     # wall seconds of the earlier processes
+        self.segments = 1
+        self.t0 = time.time() if t0 is None else t0   # this process's start
+        self.stopping = False
+
+    def request_stop(self, signum=None, frame=None):
+        """Ask ``train_loop`` to write the checkpoint after the step in hand
+        and exit with ``STOPPED_RC`` (its SIGTERM handler)."""
+        self.stopping = True
+
+    def begin(self, system, init):
+        """Take ``init`` (the initial readout of the freshly built system) as
+        the run's; where ``resume`` is set and a checkpoint exists, load it
+        into ``system`` and continue from its step. The rebuilt start must
+        equal the checkpoint's (a scene, a draw or an SfM that does not
+        repeat raises)."""
+        self.init = init
+        if not (self.resume and os.path.exists(self.path)):
+            return
+        with open(self.path, "rb") as f:
+            payload = pickle.load(f)
+        if json.dumps(payload["init"], sort_keys=True) != json.dumps(init, sort_keys=True):
+            raise ValueError("{}: the rebuilt run starts at {}, the checkpoint's at {}".format(
+                self.path, init, payload["init"]))
+        ckpt.load_state_tree(system, payload["state"])
+        self.history = payload["history"]
+        self.train_s = payload["train_s"]
+        self.wall_s = payload["wall_s"]
+        self.segments = payload["segments"] + 1
+        print("resumed {} at step {} (process {})".format(self.path, system.step,
+                                                          self.segments), flush=True)
+
+    def save(self, system, history, train_s):
+        payload = dict(state=ckpt.state_tree(system), history=history, init=self.init,
+                       train_s=train_s, wall_s=self.wall_s + time.time() - self.t0,
+                       segments=self.segments)
+        tmp = self.path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.path)
+
+    @staticmethod
+    def step_of(path):
+        """The step of the checkpoint at ``path``."""
+        with open(path, "rb") as f:
+            return int(pickle.load(f)["state"]["step"])
+
+    def elapsed_s(self):
+        """Wall seconds of the run over all its processes."""
+        return self.wall_s + time.time() - self.t0
+
+    def finish(self):
+        """Delete the checkpoint once the run's record is written."""
+        for path in (self.path, self.path + ".tmp"):
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def train_loop(system, iters, row, log_every=5000, pose_errors=True):
+    """Train steps up to ``iters`` with a readout row every ``log_every``
+    steps and after the last: it, psnr (of the step), loss_ga (INN models),
     err_R_deg / err_t (Procrustes-aligned, mean over the training views),
-    err_R_rel (``relative_pose_error``), elapsed (s since the loop began).
-    Metrics reach the host only at those rows. Returns the rows."""
+    err_R_rel (``relative_pose_error``), elapsed (train s so far). Metrics
+    reach the host only at those rows. The loop continues from the
+    system's step and the rows of ``row`` (a ``RowCheckpoint`` after its
+    ``begin``), writes the checkpoint at each readout row, and on SIGTERM
+    writes it after the step in hand and exits with ``STOPPED_RC``.
+    Returns (the rows, the train seconds over all processes)."""
     print("train_loop: {} steps on {}; each carried by {}".format(
         iters, system.device, step_route(system)), flush=True)
-    history = []
-    t0 = time.time()
-    for it in range(1, iters + 1):
-        metrics = system.train_step()
-        if it % log_every and it != iters:
-            continue
-        row = dict(it=it, psnr=float(metrics["psnr"]))
-        if "loss_global_alignment" in metrics:
-            row["loss_ga"] = float(metrics["loss_global_alignment"])
-        if pose_errors:
-            R, t = system.evaluate_camera_alignment()
-            row["err_R_deg"] = float(np.rad2deg(np.mean(R)))
-            row["err_t"] = float(np.mean(t))
-            row["err_R_rel"] = relative_pose_error(system)
-        row["elapsed"] = time.time() - t0
-        history.append(row)
-        print(row, flush=True)
-    return history
+    history = list(row.history)
+    t0 = time.time() - row.train_s
+    # only the main thread may install a signal handler
+    handles_sigterm = threading.current_thread() is threading.main_thread()
+    if handles_sigterm:
+        previous = signal.signal(signal.SIGTERM, row.request_stop)
+    try:
+        for it in range(system.step + 1, iters + 1):
+            metrics = system.train_step()
+            readout = not (it % log_every and it != iters)
+            if readout:
+                rec = dict(it=it, psnr=float(metrics["psnr"]))
+                if "loss_global_alignment" in metrics:
+                    rec["loss_ga"] = float(metrics["loss_global_alignment"])
+                if pose_errors:
+                    R, t = system.evaluate_camera_alignment()
+                    rec["err_R_deg"] = float(np.rad2deg(np.mean(R)))
+                    rec["err_t"] = float(np.mean(t))
+                    rec["err_R_rel"] = relative_pose_error(system)
+                rec["elapsed"] = time.time() - t0
+                history.append(rec)
+                print(rec, flush=True)
+            if readout or row.stopping:
+                row.save(system, history, time.time() - t0)
+            if row.stopping:
+                print("train_loop: stopped after step {}; checkpoint {}".format(
+                    it, row.path), flush=True)
+                raise SystemExit(STOPPED_RC)
+    finally:
+        if handles_sigterm:
+            signal.signal(signal.SIGTERM, previous)
+    return history, time.time() - t0
 
 
 def fmt_history(history):
@@ -218,6 +329,12 @@ def dtu_record(results):
     (LPIPS stays None without its weights)."""
     return {k: None if results[k] is None else round(float(results[k]), 5)
             for k in DTU_EVAL_KEYS if k in results}
+
+
+def add_arguments(ap):
+    """A probe's resume option, ``--resume``."""
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the run's checkpoint where there is one")
 
 
 def append_record(path, rec):

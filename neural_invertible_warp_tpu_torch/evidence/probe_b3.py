@@ -20,6 +20,9 @@ moves the initial weights and the per-step draws; the scene stays at seed
 0. Runs on the card; ``--device=cpu`` runs the plain PyTorch paths instead,
 and without a card and without that flag it fails. ``--scene-root`` names
 ``data.root`` (the scene is made in memory, no file is read or written).
+The run keeps its latest checkpoint in ``<run dir>/<name>.row.ckpt``
+(``harness.RowCheckpoint``; at each readout row and on SIGTERM) and deletes it once the record is
+written; ``--resume`` continues from it.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(OUT_DIR, "results.jsonl"),
                     help="JSON-lines file the record is appended to")
     ap.add_argument("--name", default="probe_b3", help="the record's name")
+    harness.add_arguments(ap)
     return ap.parse_args(argv)
 
 
@@ -95,20 +99,22 @@ def main(argv=None):
     system = trainer.system
     init = harness.initial_pose_error(system)
     print("initial:", init, flush=True)
-    t1 = time.time()
-    history = harness.train_loop(system, args.iters, log_every=args.log_every)
-    train_s = time.time() - t1
+    row = harness.RowCheckpoint(opt.output_path, args.name, args.resume, t0)
+    row.begin(system, init)
+    history, train_s = harness.train_loop(system, args.iters, row,
+                                          log_every=args.log_every)
     rec = dict(name=args.name, model=opt.model, yaml=opt.yaml,
                note="identity init on the blob+backdrop LLFF scene, {} views at "
                     "{}x{}".format(args.n_images, opt.H, opt.W),
                seed=args.seed, overrides=args.overrides)
     rec.update(harness.run_record(system, history, init, train_s, args.iters,
                                   opt.max_iter, pose=True))
-    rec["elapsed_s"] = round(time.time() - t0, 1)
+    rec.update(segments=row.segments, elapsed_s=round(row.elapsed_s(), 1))
     print("final:", {k: rec[k] for k in ("final_rot_deg", "final_rot_rel_deg",
                                          "final_trans", "train_psnr")}, flush=True)
     print("probe val PSNR: {:.2f}".format(rec["val_psnr"]), flush=True)
     harness.append_record(args.out, rec)
+    row.finish()
     return rec
 
 

@@ -23,6 +23,9 @@ fields, ``horizon`` = max_iter, and ``harness.dtu_record``'s) to ``--out``.
 package's tool does. ``--overrides`` takes ``key=value`` pairs with JSON
 values (``optim.test_iter=5``). Runs on the card; ``--device=cpu`` runs the
 plain PyTorch paths, and without a card and without that flag it fails.
+``--resume`` continues from the run's checkpoint, as probe_b3's does; the
+system is built anew first, so ``colmap`` runs its SfM again, and the run
+goes on only where that start equals the checkpoint's.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(OUT_DIR, "results.jsonl"),
                     help="JSON-lines file the record is appended to")
     ap.add_argument("--name", default="probe_dtu", help="the record's name")
+    harness.add_arguments(ap)
     return ap.parse_args(argv)
 
 
@@ -106,10 +110,10 @@ def main(argv=None):
         init = harness.initial_pose_error(system)
         print("initial: rot {:.2f} deg, trans {:.4f}".format(init["rot"], init["trans"]),
               flush=True)
-    t1 = time.time()
-    history = harness.train_loop(system, args.iters, log_every=args.log_every,
-                                 pose_errors=pose)
-    train_s = time.time() - t1
+    row = harness.RowCheckpoint(opt.output_path, args.name, args.resume, t0)
+    row.begin(system, init)
+    history, train_s = harness.train_loop(system, args.iters, row,
+                                          log_every=args.log_every, pose_errors=pose)
     if pose:
         system.prealign()   # the sim(3) for the test poses' backtracking and the depth scale
     results = system.evaluate_full(dump_images=False)
@@ -122,8 +126,9 @@ def main(argv=None):
     rec.update(harness.run_record(system, history, init, train_s, args.iters,
                                   opt.max_iter, pose=pose))
     rec.update(harness.dtu_record(results))
-    rec["elapsed_s"] = round(time.time() - t0, 1)
+    rec.update(segments=row.segments, elapsed_s=round(row.elapsed_s(), 1))
     harness.append_record(args.out, rec)
+    row.finish()
     return rec
 
 

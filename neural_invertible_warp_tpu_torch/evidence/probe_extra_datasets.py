@@ -22,7 +22,9 @@ layouts the two loaders give:
 The record (tools/probe_extra_datasets.py's fields, with the readout rows
 under ``history``) is appended to ``<out-dir>/results.jsonl``; ``--tag``
 names it. Runs on the card; ``--device=cpu`` runs the plain PyTorch paths,
-and without a card and without that flag it fails.
+and without a card and without that flag it fails. ``--resume`` continues
+from the run's checkpoint (``harness.RowCheckpoint``), as probe_b3's does;
+the iPhone run keeps its initial readout (r0, c0) there.
 """
 
 from __future__ import annotations
@@ -105,9 +107,10 @@ def run_scene(run, opt):
     return scenes.blob_tandt_arrays, scenes.tandt_scene, dict(kw, arc_scale=RUNS[run])
 
 
-def run_one(run, horizon=20000, tag=None, device="cuda", out_dir=OUT_DIR):
-    """Train ``run`` for ``horizon`` steps on its scene; returns the record,
-    also appended to ``<out_dir>/results.jsonl``."""
+def run_one(run, horizon=20000, tag=None, device="cuda", out_dir=OUT_DIR, resume=False):
+    """Train ``run`` for ``horizon`` steps on its scene (``resume``: from its
+    checkpoint, where there is one); returns the record, also appended to
+    ``<out_dir>/results.jsonl``."""
     device = config.check_device(device)
     t0 = time.time()
     opt = run_options(run, horizon, out_dir)
@@ -127,6 +130,9 @@ def run_one(run, horizon=20000, tag=None, device="cuda", out_dir=OUT_DIR):
         return rel_rot_err_deg(pred, true_train), aligned_center_err(pred, true_train)
 
     log_every = max(2000, horizon // 10)
+    name = tag or "barf_{}{}_{}k".format("iphone" if iphone else "tandt",
+                                         "_narrow" if narrow else "", horizon // 1000)
+    row = harness.RowCheckpoint(opt.output_path, name, resume, t0)
     if iphone:
         r0, c0 = pose_errors()
         print("[{}] init: rel-rot {:.3f} deg, center {:.4f}".format(run, r0, c0), flush=True)
@@ -134,14 +140,12 @@ def run_one(run, horizon=20000, tag=None, device="cuda", out_dir=OUT_DIR):
                "generation poses (gauge-free rel-rot + sim3-aligned centers)".format(
                    "slow-pan narrow-baseline video (path_scale=0.35)" if narrow
                    else "smooth handheld orbit")
-        t1 = time.time()
-        history = harness.train_loop(system, horizon, log_every=log_every, pose_errors=False)
-        train_s = time.time() - t1
+        row.begin(system, dict(r0=r0, c0=c0))
+        history, train_s = harness.train_loop(system, horizon, row, log_every=log_every,
+                                              pose_errors=False)
         r1, c1 = pose_errors()
         val_psnr = system.validate()["psnr_val"]
-        rec = dict(name=tag or "barf_iphone{}_{}k".format("_narrow" if narrow else "",
-                                                          horizon // 1000),
-                   model="barf", yaml="barf_iphone", horizon=horizon, note=note,
+        rec = dict(name=name, model="barf", yaml="barf_iphone", horizon=horizon, note=note,
                    init_rel_rot_deg=round(r0, 4), init_center_err=round(c0, 5),
                    final_rel_rot_deg=round(r1, 4), final_center_err=round(c1, 5),
                    train_psnr=round(float(history[-1]["psnr"]), 3),
@@ -156,18 +160,16 @@ def run_one(run, horizon=20000, tag=None, device="cuda", out_dir=OUT_DIR):
         note = "tandt {} arc, barf-class identity init; loader GT (centered/spherified) " \
                "via evaluate_camera_alignment".format(
                    "gentle ~7-deg pan (arc_scale=0.1)" if narrow else "walk-through")
-        t1 = time.time()
-        history = harness.train_loop(system, horizon, log_every=log_every)
-        train_s = time.time() - t1
-        rec = dict(name=tag or "barf_tandt{}_{}k".format("_narrow" if narrow else "",
-                                                         horizon // 1000),
-                   model="barf", yaml="barf_llff+tandt", horizon=horizon, note=note)
+        row.begin(system, init)
+        history, train_s = harness.train_loop(system, horizon, row, log_every=log_every)
+        rec = dict(name=name, model="barf", yaml="barf_llff+tandt", horizon=horizon, note=note)
         rec.update(harness.run_record(system, history, init, train_s, horizon, horizon,
                                       pose=True))
-    rec["elapsed_s"] = round(time.time() - t0, 1)
+    rec.update(segments=row.segments, elapsed_s=round(row.elapsed_s(), 1))
     print("[{}] RESULT {}".format(run, json.dumps(
         {k: v for k, v in rec.items() if k != "history"})), flush=True)
     harness.append_record(os.path.join(out_dir, "results.jsonl"), rec)
+    row.finish()
     return rec
 
 
@@ -178,9 +180,10 @@ def main(argv=None):
     ap.add_argument("--tag", help="record the result under this name")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out-dir", default=OUT_DIR)
+    harness.add_arguments(ap)
     args = ap.parse_args(argv)
     return run_one(args.run, horizon=args.horizon, tag=args.tag, device=args.device,
-                   out_dir=args.out_dir)
+                   out_dir=args.out_dir, resume=args.resume)
 
 
 if __name__ == "__main__":

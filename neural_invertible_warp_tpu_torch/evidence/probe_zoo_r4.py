@@ -20,7 +20,9 @@ Scenes are made in memory on the run's device (``scenes.PROBE_SCENES``).
 ``<out-dir>/results.jsonl``; ``evidence.rows`` runs entries side by side or
 in sequence (``DEFAULT_ORDER``), each its own process with its own log.
 ``--over key=value`` adds a config override (JSON value). Runs on the card; ``--device=cpu`` runs the
-plain PyTorch paths.
+plain PyTorch paths. ``--resume`` continues from the run's checkpoint
+(``harness.RowCheckpoint``, in the run's output directory under the
+record's name), as probe_b3's does.
 """
 
 from __future__ import annotations
@@ -131,9 +133,10 @@ def run_options(name, extra_over=None, horizon_over=None, out_dir=OUT_DIR):
 
 
 def run_one(name, extra_over=None, tag=None, horizon_over=None, device="cuda",
-            out_dir=OUT_DIR):
-    """Train RUNS[name] for its horizon on its scene; returns the record,
-    also appended to ``<out_dir>/results.jsonl``."""
+            out_dir=OUT_DIR, resume=False):
+    """Train RUNS[name] for its horizon on its scene (``resume``: from its
+    checkpoint, where there is one); returns the record, also appended to
+    ``<out_dir>/results.jsonl``."""
     device = config.check_device(device)
     t0 = time.time()
     opt, s = run_options(name, extra_over, horizon_over, out_dir)
@@ -150,16 +153,17 @@ def run_one(name, extra_over=None, tag=None, horizon_over=None, device="cuda",
         init = harness.initial_pose_error(system)
         print("[{}] initial: rot {:.3f} deg trans {:.4f}".format(
             name, init["rot"], init["trans"]), flush=True)
-    t1 = time.time()
-    history = harness.train_loop(system, horizon, log_every=max(2000, horizon // 10),
-                                 pose_errors=has_pose)
-    train_s = time.time() - t1
+    row = harness.RowCheckpoint(opt.output_path, tag or name, resume, t0)
+    row.begin(system, init)
+    history, train_s = harness.train_loop(
+        system, horizon, row, log_every=max(2000, horizon // 10), pose_errors=has_pose)
     rec.update(harness.run_record(system, history, init, train_s, horizon, horizon,
                                   pose=has_pose))
-    rec["elapsed_s"] = round(time.time() - t0, 1)
+    rec.update(segments=row.segments, elapsed_s=round(row.elapsed_s(), 1))
     print("[{}] RESULT {}".format(name, json.dumps(
         {k: v for k, v in rec.items() if k != "history"})), flush=True)
     harness.append_record(os.path.join(out_dir, "results.jsonl"), rec)
+    row.finish()
     return rec
 
 
@@ -173,9 +177,11 @@ def main(argv=None):
                     help="override the spec horizon (one-off controls)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out-dir", default=OUT_DIR)
+    harness.add_arguments(ap)
     args = ap.parse_args(argv)
     return run_one(args.run, extra_over=harness.parse_overrides(args.over), tag=args.tag,
-                   horizon_over=args.horizon, device=args.device, out_dir=args.out_dir)
+                   horizon_over=args.horizon, device=args.device, out_dir=args.out_dir,
+                   resume=args.resume)
 
 
 if __name__ == "__main__":
