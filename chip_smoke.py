@@ -163,6 +163,24 @@ Phases, one or more lines each:
      runs K2 at the step after its last and K3 at the first chunk of the
      DTU evaluation or of the pan's validation render against their plain
      versions (hold_evidence).
+ 18. cli: the port's own command line on a scene of PNG files. The B3-class
+     blob scene (18 + 1 views) is written as an LLFF tree at 960x1280
+     (evidence/scenes.py's write_llff_tree, utils/image_io.write_png), so the
+     loader's read_png and its 2x BICUBIC downscale to 480x640 (Pillow's, in
+     numpy) run on the card's host; every PNG decodes back to the array
+     written. The options the CLI resolves (utils/options_yaml.py, no PyYAML)
+     equal flagship.py's with the same overrides, types included. Then
+     train.main with the flagship's flags (barf_inn_llff at full width, 100
+     steps, a validation and a checkpoint at step 100), evaluate.main (the
+     held-out view with 100 steps of test-time pose refinement; no novel-view
+     video) in this process, and `python -m
+     neural_invertible_warp_tpu_torch.evaluate` with the same flags as a
+     subprocess: K2 launched once per step, K3 and K4 launched, every logged
+     loss finite, model/100.ckpt, options.yaml, quant.txt and quant_pose.txt
+     written, the subprocess's rc 0 and its "restored checkpoint ... (iter
+     100)", every test-view PNG decodes at 480x640; then K2 at the step after
+     the last and K3 at the first validation chunk against their plain
+     versions (hold_evidence).
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -515,6 +533,12 @@ EVIDENCE_DTU_CPU_VIEWS = (("test", 0), ("train", 1))
 # tests' tolerance against synth_data's PFM
 EVIDENCE_DEPTH_REL = 1e-5
 EVIDENCE_EXTRA_RUNS = ("iphone_narrow", "tandt_narrow")
+# path cli: the flagship's CLI on an LLFF tree of PNGs, 18 train + 1 val views
+# (data.val_ratio 0.1) written at twice the flagship's 480x640
+CLI_VIEWS = 19
+CLI_WRITE_HW = (960, 1280)
+CLI_STEPS = 100
+CLI_SUBPROCESS_TIMEOUT = 300
 
 
 def check(ok, msg):
@@ -3671,6 +3695,136 @@ def phase_evidence_dtu():
     return launches
 
 
+def cli_flags(root, out):
+    """The flagship's command line on the tree under ``root``, writing under
+    ``out``, and the same overrides as typed values."""
+    flags = ["--model=barf_inn_llff", "--yaml=barf_inn_llff", "--barf_c2f=[0.1,0.5]",
+             "--loss_weight.global_alignment=4", "--data.root={}".format(root),
+             "--data.scene=blobfern", "--max_iter={}".format(CLI_STEPS),
+             "--freq.scalar=20", "--freq.val={}".format(CLI_STEPS),
+             "--freq.ckpt={}".format(CLI_STEPS), "--output_root={}".format(out),
+             "--novel_view_video!"]
+    typed = {"data": {"root": root, "scene": "blobfern"}, "max_iter": CLI_STEPS,
+             "freq": {"scalar": 20, "val": CLI_STEPS, "ckpt": CLI_STEPS},
+             "output_root": out, "novel_view_video": False}
+    return flags, typed
+
+
+def same_typed(a, b, where="options"):
+    """The first place where ``a`` and ``b`` differ in a value or a type, or
+    None (``True == 1`` in Python: the types are compared too)."""
+    if type(a) is not type(b) and not (isinstance(a, dict) and isinstance(b, dict)):
+        return "{}: {!r} ({}) against {!r} ({})".format(where, a, type(a).__name__, b,
+                                                        type(b).__name__)
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return "{}: keys {}".format(where, sorted(set(a) ^ set(b)))
+        for k in a:
+            diff = same_typed(a[k], b[k], "{}.{}".format(where, k))
+            if diff:
+                return diff
+        return None
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return "{}: lengths {} and {}".format(where, len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            diff = same_typed(x, y, "{}[{}]".format(where, i))
+            if diff:
+                return diff
+        return None
+    return None if a == b else "{}: {!r} against {!r}".format(where, a, b)
+
+
+def phase_cli(device):
+    """Path cli: the port's train and evaluate entry points from their own
+    command line on an LLFF tree of PNGs (phase 18 of the docstring).
+    Returns the launch counts of the path (train and the in-process
+    evaluation)."""
+    import shutil
+    from neural_invertible_warp_tpu_torch import config, evaluate, train
+    from neural_invertible_warp_tpu_torch.dotdict import DotDict
+    from neural_invertible_warp_tpu_torch.evidence import scenes
+    from neural_invertible_warp_tpu_torch.flagship import flagship_options
+    from neural_invertible_warp_tpu_torch.utils import image_io
+    out = os.path.join(HERE, "build", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    root = os.path.join(out, "data")
+    t0 = time.time()
+    scene = scenes.blob_llff_scene(n_images=CLI_VIEWS, val_ratio=0.1, backdrop=True)
+    written = scenes.write_llff_tree(scene, root, CLI_WRITE_HW, device=device,
+                                     max_elems=1 << 26)
+    t_scene = time.time() - t0
+    images = os.path.join(root, "blobfern", "images")
+    names = sorted(os.listdir(images))
+    check(len(names) == CLI_VIEWS, "cli: {} PNGs written".format(len(names)))
+    for name, img in zip(names, written):
+        check(np.array_equal(image_io.read_png(os.path.join(images, name)), img),
+              "cli: {} does not decode to the array written".format(name))
+    flags, typed = cli_flags(root, out)
+    opt = config.set_options(flags, makedirs=False)
+    ref = config.process_options(config.override_options(
+        DotDict(flagship_options()), DotDict(typed)), makedirs=False)
+    diff = same_typed(opt.to_plain(), ref.to_plain())
+    check(diff is None, "cli: the CLI's options differ from flagship_options(): {}".format(diff))
+    print("cli: {} views written at {}x{} in {:.1f} s ({:.1f} MB of PNG), each decoded back; "
+          "options equal flagship_options() with the same overrides".format(
+              CLI_VIEWS, *CLI_WRITE_HW, t_scene,
+              sum(os.path.getsize(os.path.join(images, n)) for n in names) / 1e6))
+    reset_counts()
+    t1 = time.time()
+    trainer = train.main(flags)
+    t_train = time.time() - t1
+    counts_train = field_counts()
+    t2 = time.time()
+    results = evaluate.main(flags)
+    t_eval = time.time() - t2
+    launches = field_counts()
+    losses = [float(v) for m in trainer.history for k, v in m.items() if k.startswith("loss")]
+    check(len(trainer.history) == CLI_STEPS and all(math.isfinite(v) for v in losses),
+          "cli: {} steps logged, a loss not finite".format(len(trainer.history)))
+    check(launches["k2"] == CLI_STEPS, "cli: K2 launched {} times in {} steps".format(
+        launches["k2"], CLI_STEPS))
+    check(counts_train["k3"] > 0 and launches["k3"] > counts_train["k3"] and launches["k4"] > 0,
+          "cli: K3 {} in training, {} in all; K4 {}".format(counts_train["k3"], launches["k3"],
+                                                            launches["k4"]))
+    run_dir = opt.output_path
+    for rel in ("model/{}.ckpt".format(CLI_STEPS), "options.yaml", "quant.txt",
+                "quant_pose.txt"):
+        check(os.path.isfile(os.path.join(run_dir, rel)), "cli: no {}".format(rel))
+    t3 = time.time()
+    run = subprocess.run([sys.executable, "-m", "neural_invertible_warp_tpu_torch.evaluate"]
+                         + flags, cwd=HERE, capture_output=True, text=True,
+                         timeout=CLI_SUBPROCESS_TIMEOUT)
+    t_sub = time.time() - t3
+    check(run.returncode == 0, "cli: evaluate exited {}: {}".format(run.returncode,
+                                                                     run.stderr[-2000:]))
+    restored = [l for l in run.stdout.splitlines() if "restored checkpoint" in l]
+    check(restored and "(iter {})".format(CLI_STEPS) in restored[-1],
+          "cli: evaluate restored no checkpoint of iteration {}: {}".format(
+              CLI_STEPS, run.stdout[-2000:]))
+    views = sorted(os.listdir(os.path.join(run_dir, "test_view")))
+    check(views, "cli: no test-view PNG")
+    for name in views:
+        img = image_io.read_png(os.path.join(run_dir, "test_view", name))
+        check(img.shape[:2] == (480, 640) and img.dtype == np.uint8,
+              "cli: {} decodes to {} {}".format(name, img.shape, img.dtype))
+    print("cli: train {:.1f} s ({:.2f} ms/step median), evaluate in-process {:.1f} s, "
+          "python -m ...evaluate {:.1f} s (rc 0; {}); losses {:.4f} -> {:.4f}; "
+          "evaluation {}".format(
+              t_train, 1e3 * statistics.median(trainer.step_seconds[5:]), t_eval, t_sub,
+              restored[-1].strip(), float(trainer.history[0]["loss_all"]),
+              float(trainer.history[-1]["loss_all"]),
+              {k: round(float(v), 4) for k, v in results.items()
+               if isinstance(v, (int, float)) and v is not None}))
+    print("cli: K2 {} launches over {} steps, K3 {} ({} in training's validation), K4 {}; "
+          "{}".format(launches["k2"], CLI_STEPS, launches["k3"], counts_train["k3"],
+                      launches["k4"], card_line()))
+    failures = []
+    hold_evidence(trainer.system, failures)
+    check(not failures, "cli path failed: {}".format(failures))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3718,13 +3872,16 @@ def main():
     launches_evidence = phase_evidence()
     torch.cuda.empty_cache()
     launches_evidence_dtu = phase_evidence_dtu()
+    torch.cuda.empty_cache()
+    launches_cli = phase_cli(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
              "dtu": launches_dtu, "fine": launches_fine,
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
              "pose_init_sfm": launches_sfm, "sharded": launches_sharded,
-             "evidence": launches_evidence, "evidence_dtu": launches_evidence_dtu}
+             "evidence": launches_evidence, "evidence_dtu": launches_evidence_dtu,
+             "cli": launches_cli}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 

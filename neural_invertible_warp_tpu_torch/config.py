@@ -2,9 +2,9 @@
 dot-notation CLI.
 
 ``parse_arguments``, ``load_options`` and ``override_options`` are the
-port's own copies of the JAX package's (neural_invertible_warp_tpu/config.py),
-with PyYAML imported inside the functions that need it, so that importing
-this module needs no YAML parser. CLI syntax:
+port's own copies of the JAX package's (neural_invertible_warp_tpu/config.py).
+They read and write YAML through ``utils/options_yaml.py``, which resolves
+scalars as PyYAML does, so no YAML library is needed. CLI syntax:
 
     --key1.key2=value  -> YAML-parsed value
     --key1.key2=       -> None
@@ -28,6 +28,7 @@ import string
 import sys
 
 from .dotdict import DotDict
+from .utils import options_yaml
 
 # Root against which relative option paths (e.g. "options/base.yaml") resolve.
 # Defaults to the repo root (parent of this package); overridable for tests.
@@ -39,7 +40,6 @@ OPTIONS_ROOT = os.environ.get(
 
 def parse_arguments(args):
     """Parse ``--a.b.c=val`` style CLI arguments into a nested DotDict."""
-    import yaml
     opt_cmd = {}
     for arg in args:
         assert arg.startswith("--"), "arguments must start with '--': {}".format(arg)
@@ -52,16 +52,15 @@ def parse_arguments(args):
         for k in keys_sub[:-1]:
             opt_sub = opt_sub.setdefault(k, {})
         assert keys_sub[-1] not in opt_sub, "duplicate CLI key: {}".format(key_str)
-        opt_sub[keys_sub[-1]] = yaml.safe_load(value)
+        opt_sub[keys_sub[-1]] = options_yaml.load_scalar(value)
     return DotDict(opt_cmd)
 
 
 def load_options(fname):
     """Load a YAML options file, resolving the ``_parent_`` chain."""
-    import yaml
     path = fname if os.path.isabs(fname) else os.path.join(OPTIONS_ROOT, fname)
     with open(path) as f:
-        opt = DotDict(yaml.safe_load(f) or {})
+        opt = DotDict(options_yaml.load(f.read()) or {})
     if "_parent_" in opt:
         parents = opt.pop("_parent_")
         if isinstance(parents, str):
@@ -160,12 +159,11 @@ def save_options_file(opt):
     a TTY whether to override it; otherwise warn, keep the old file as
     ``options_prev.yaml`` and write the new one. The ``device`` key is left
     out."""
-    import yaml
     opt_fname = os.path.join(opt.output_path, "options.yaml")
     plain = {k: v for k, v in opt.to_plain().items() if k not in ("device",)}
     if os.path.isfile(opt_fname):
         with open(opt_fname) as f:
-            opt_old = yaml.safe_load(f)
+            opt_old = options_yaml.load(f.read())
         if plain != opt_old:
             if sys.stdin.isatty():
                 override = None
@@ -180,4 +178,4 @@ def save_options_file(opt):
                          "(previous file saved as options_prev.yaml)")
                 os.replace(opt_fname, os.path.join(opt.output_path, "options_prev.yaml"))
     with open(opt_fname, "w") as f:
-        yaml.safe_dump(plain, f, default_flow_style=False, indent=4)
+        f.write(options_yaml.dump(plain))

@@ -1,7 +1,9 @@
 """Shared dataset machinery: image preprocessing, intrinsics adjustment,
 threaded preloading, whole-split collation. The port's own copy of
-neural_invertible_warp_tpu/data/base.py (numpy; PIL imported where an image
-is processed).
+neural_invertible_warp_tpu/data/base.py. Images are uint8 numpy arrays
+(``utils/image_io.read_image``), center-cropped by slicing and resized by
+``image_io.resize``, Pillow's BICUBIC bit for bit; only the augmentation
+branch (``data.augment``, which no option file sets) goes through PIL.
 
 Parity with reference data/base.py:16-130; images come out as float32
 [H,W,C] in [0,1], intrinsics are adjusted for center-crop and resize
@@ -14,7 +16,7 @@ import concurrent.futures as futures
 
 import numpy as np
 
-from ..utils import log
+from ..utils import image_io, log
 
 
 class Dataset:
@@ -116,21 +118,21 @@ class Dataset:
     # -- preprocessing ------------------------------------------------------
 
     def preprocess_image(self, opt, image, aug=None):
-        """PIL -> float32 [H,W,C] in [0,1], with optional photometric
-        augmentation, then center-crop + resize."""
-        import PIL.Image
+        """uint8 [H,W(,C)] -> float32 [H,W,C] in [0,1], with optional
+        photometric augmentation (through PIL), then center-crop + resize."""
         if aug is None and self.augment:
             aug = self.generate_augmentation(opt)
         if aug is not None:
-            image = self.apply_augmentation(image, aug)
+            import PIL.Image
+            image = np.asarray(self.apply_augmentation(PIL.Image.fromarray(image), aug))
         if opt.data.get("center_crop") is not None:
             left = (self.raw_W - self.crop_W) // 2
             top = (self.raw_H - self.crop_H) // 2
-            image = image.crop((left, top, left + self.crop_W, top + self.crop_H))
+            image = image[top:top + self.crop_H, left:left + self.crop_W]
         if opt.data.image_size[0] is not None:
             # PIL's default resample (reference data/base.py:105 calls
             # image.resize() with no resample argument -> BICUBIC)
-            image = image.resize((opt.W, opt.H), PIL.Image.BICUBIC)
+            image = image_io.resize(image, (opt.W, opt.H), "bicubic")
         arr = np.asarray(image, dtype=np.float32) / 255.0
         if arr.ndim == 2:
             arr = arr[..., None]

@@ -1,6 +1,6 @@
 """Blender synthetic dataset loader. The port's own copy of
-neural_invertible_warp_tpu/data/blender.py (numpy; PIL and imageio imported
-where an image is read, so the pose parse needs neither).
+neural_invertible_warp_tpu/data/blender.py (numpy; images through
+``utils/image_io``: PNG read and resized without PIL).
 
 Format parity with reference data/blender.py:17-90:
 * ``transforms_{split}.json`` frame list with 4x4 c2w matrices;
@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 
+from ..utils import image_io
 from . import base
 from .base import np_compose_pair, np_invert, np_pose
 
@@ -61,10 +62,8 @@ class Dataset(base.Dataset):
         return parse_frames({"frames": self.list})
 
     def get_image(self, opt, idx):
-        import PIL.Image
-        import imageio.v2 as imageio
         fname = os.path.join(self.path, "{}.png".format(self.list[idx]["file_path"]))
-        return PIL.Image.fromarray(imageio.imread(fname))
+        return image_io.read_image(fname)
 
     def get_camera(self, opt, idx):
         intr = np.array([[self.focal, 0, self.raw_W / 2],

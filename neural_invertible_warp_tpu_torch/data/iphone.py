@@ -1,5 +1,6 @@
 """iPhone unposed-video loader. The port's own copy of
-neural_invertible_warp_tpu/data/iphone.py (numpy, PIL and imageio only).
+neural_invertible_warp_tpu/data/iphone.py (numpy; images through
+``utils/image_io``: PNG without PIL, a JPEG through PIL).
 
 Format parity with reference data/iphone.py: numbered frames under
 ``<root>/<scene>/images``, sorted by number; the last ``val_ratio`` of them
@@ -14,6 +15,7 @@ import os
 
 import numpy as np
 
+from ..utils import image_io
 from . import base
 
 RAW_HW = (1080, 1920)
@@ -54,10 +56,7 @@ class Dataset(base.Dataset):
         return np.tile(np.eye(3, 4, dtype=np.float32), (len(self), 1, 1))
 
     def get_image(self, opt, idx):
-        import PIL.Image
-        import imageio.v2 as imageio
-        return PIL.Image.fromarray(imageio.imread(os.path.join(self.path_image,
-                                                               self.list[idx])))
+        return image_io.read_image(os.path.join(self.path_image, self.list[idx]))
 
     def get_camera(self, opt, idx):
         intr = np.array([[self.focal, 0, self.raw_W / 2],

@@ -1,6 +1,6 @@
 """LLFF forward-facing dataset loader. The port's own copy of
-neural_invertible_warp_tpu/data/llff.py (numpy; PIL and imageio imported
-where an image is read, so the pose parse needs neither).
+neural_invertible_warp_tpu/data/llff.py (numpy; images through
+``utils/image_io``: PNG read and resized without PIL, a JPEG through PIL).
 
 Format parity with reference data/llff.py:17-134:
 * ``poses_bounds.npy``: [N,17] rows = 3x5 camera matrix (c2w OpenGL
@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 
+from ..utils import image_io
 from . import base
 from .base import np_compose_pair, np_invert, np_pose
 
@@ -94,10 +95,8 @@ class Dataset(base.Dataset):
         return np.stack([raw_to_w2c(tup[1]) for tup in self.list])
 
     def get_image(self, opt, idx):
-        import PIL.Image
-        import imageio.v2 as imageio
         fname = os.path.join(self.path_image, self.list[idx][0])
-        return PIL.Image.fromarray(imageio.imread(fname))
+        return image_io.read_image(fname)
 
     def get_camera(self, opt, idx):
         intr = np.array([[self.focal, 0, self.raw_W / 2],

@@ -1,5 +1,6 @@
 """Tanks and Temples loader (the NoPe-NeRF layout). The port's own copy of
-neural_invertible_warp_tpu/data/tandt.py (numpy, PIL and imageio only).
+neural_invertible_warp_tpu/data/tandt.py (numpy; images read as
+``data/llff.py`` reads them).
 
 Format parity with reference data/tandt.py: LLFF's ``poses_bounds.npy``
 with LLFF's axis swap, rescale and centering at a raw size of 540x960, then

@@ -50,9 +50,8 @@ def generate_novel_view(opt, system, n_views=60):
     """Circular novel-view render around the central training camera (the
     pose readout, or the GT pose for a model that optimizes none), as
     ``novel_view/rgb_<i>.png`` (and a video when ffmpeg is available)."""
-    import imageio.v2 as imageio
     from .ops import pose as pose_ops
-    from .utils import log
+    from .utils import image_io, log
     pose_pred, pose_GT = system.get_all_training_poses()
     poses = pose_pred if pose_pred is not None else pose_GT
     scale = 1.0
@@ -70,8 +69,8 @@ def generate_novel_view(opt, system, n_views=60):
     for i in range(n_views):
         out = system.render_image(pose_novel[i:i + 1], intr, progress)
         rgb = np.clip(out["rgb"].reshape(opt.H, opt.W, 3).cpu().numpy(), 0, 1)
-        imageio.imwrite(os.path.join(novel_path, "rgb_{}.png".format(i)),
-                        (rgb * 255).astype(np.uint8))
+        image_io.write_png(os.path.join(novel_path, "rgb_{}.png".format(i)),
+                           (rgb * 255).astype(np.uint8))
     if shutil.which("ffmpeg") is not None:
         subprocess.run(["ffmpeg", "-y", "-framerate", "30", "-i",
                         os.path.join(novel_path, "rgb_%d.png"), "-pix_fmt", "yuv420p",

@@ -142,6 +142,7 @@ class RowCheckpoint:
         self.resume = resume
         self.init = None
         self.history = []
+        self.shadow = []      # the records of train_loop's ``shadow`` calls
         self.train_s = 0.0
         self.wall_s = 0.0     # wall seconds of the earlier processes
         self.segments = 1
@@ -169,6 +170,7 @@ class RowCheckpoint:
                 self.path, init, payload["init"]))
         ckpt.load_state_tree(system, payload["state"])
         self.history = payload["history"]
+        self.shadow = payload.get("shadow", [])
         self.train_s = payload["train_s"]
         self.wall_s = payload["wall_s"]
         self.segments = payload["segments"] + 1
@@ -177,7 +179,8 @@ class RowCheckpoint:
 
     def save(self, system, history, train_s):
         payload = dict(state=ckpt.state_tree(system), history=history, init=self.init,
-                       train_s=train_s, wall_s=self.wall_s + time.time() - self.t0,
+                       shadow=self.shadow, train_s=train_s,
+                       wall_s=self.wall_s + time.time() - self.t0,
                        segments=self.segments)
         tmp = self.path + ".tmp"
         with open(tmp, "wb") as f:
@@ -203,7 +206,8 @@ class RowCheckpoint:
                 os.remove(path)
 
 
-def train_loop(system, iters, row, log_every=5000, pose_errors=True):
+def train_loop(system, iters, row, log_every=5000, pose_errors=True, shadow=None,
+               shadow_every=0):
     """Train steps up to ``iters`` with a readout row every ``log_every``
     steps and after the last: it, psnr (of the step), loss_ga (INN models),
     err_R_deg / err_t (Procrustes-aligned, mean over the training views),
@@ -212,6 +216,9 @@ def train_loop(system, iters, row, log_every=5000, pose_errors=True):
     system's step and the rows of ``row`` (a ``RowCheckpoint`` after its
     ``begin``), writes the checkpoint at each readout row, and on SIGTERM
     writes it after the step in hand and exits with ``STOPPED_RC``.
+    ``shadow(system)``, where given, is called on the untrained system and
+    after every ``shadow_every``-th step; its records go to ``row.shadow``
+    (kept in the checkpoint, outside the train seconds).
     Returns (the rows, the train seconds over all processes)."""
     print("train_loop: {} steps on {}; each carried by {}".format(
         iters, system.device, step_route(system)), flush=True)
@@ -222,8 +229,15 @@ def train_loop(system, iters, row, log_every=5000, pose_errors=True):
     if handles_sigterm:
         previous = signal.signal(signal.SIGTERM, row.request_stop)
     try:
+        if shadow is not None and system.step == 0:
+            row.shadow = [shadow(system)]
+            t0 = time.time()
         for it in range(system.step + 1, iters + 1):
             metrics = system.train_step()
+            if shadow is not None and it % shadow_every == 0:
+                t_shadow = time.time()
+                row.shadow.append(shadow(system))
+                t0 += time.time() - t_shadow
             readout = not (it % log_every and it != iters)
             if readout:
                 rec = dict(it=it, psnr=float(metrics["psnr"]))

@@ -20,6 +20,11 @@ moves the initial weights and the per-step draws; the scene stays at seed
 0. Runs on the card; ``--device=cpu`` runs the plain PyTorch paths instead,
 and without a card and without that flag it fails. ``--scene-root`` names
 ``data.root`` (the scene is made in memory, no file is read or written).
+``--shadow-k6 EVERY`` holds K6 against the plain warp and a float64 warp
+on the run's state and next batch at step 0 and every EVERY steps, and
+reads the final state's held-out PSNR with the pose readout refitted
+through each (``shadow_k6``; the record's ``shadow_k6`` and
+``validate_k6``); the run's own steps are untouched.
 The run keeps its latest checkpoint in ``<run dir>/<name>.row.ckpt``
 (``harness.RowCheckpoint``; at each readout row and on SIGTERM) and deletes it once the record is
 written; ``--resume`` continues from it.
@@ -32,7 +37,7 @@ import os
 import time
 
 from .. import config
-from . import harness, scenes
+from . import harness, scenes, shadow_k6
 
 OUT_DIR = os.path.join("build", "evidence")
 
@@ -60,6 +65,9 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(OUT_DIR, "results.jsonl"),
                     help="JSON-lines file the record is appended to")
     ap.add_argument("--name", default="probe_b3", help="the record's name")
+    ap.add_argument("--shadow-k6", type=int, default=0, metavar="EVERY",
+                    help="hold K6 against the plain and a float64 warp at step 0 and "
+                         "every EVERY steps (0: off)")
     harness.add_arguments(ap)
     return ap.parse_args(argv)
 
@@ -101,14 +109,27 @@ def main(argv=None):
     print("initial:", init, flush=True)
     row = harness.RowCheckpoint(opt.output_path, args.name, args.resume, t0)
     row.begin(system, init)
+    shadow = None
+    if args.shadow_k6:
+        def shadow(system):
+            rec = shadow_k6.shadow_step(system)
+            print(shadow_k6.summary_line(rec), flush=True)
+            return rec
     history, train_s = harness.train_loop(system, args.iters, row,
-                                          log_every=args.log_every)
+                                          log_every=args.log_every, shadow=shadow,
+                                          shadow_every=args.shadow_k6)
     rec = dict(name=args.name, model=opt.model, yaml=opt.yaml,
                note="identity init on the blob+backdrop LLFF scene, {} views at "
                     "{}x{}".format(args.n_images, opt.H, opt.W),
                seed=args.seed, overrides=args.overrides)
     rec.update(harness.run_record(system, history, init, train_s, args.iters,
                                   opt.max_iter, pose=True))
+    if args.shadow_k6:
+        rec["shadow_k6"] = row.shadow
+        rec["shadow_k6_faults"] = sorted({leaf for r in row.shadow for leaf in r["fault"]})
+        rec["validate_k6"] = shadow_k6.validate_on_off(system)
+        print("validate_k6:", rec["validate_k6"], "faults:", rec["shadow_k6_faults"],
+              flush=True)
     rec.update(segments=row.segments, elapsed_s=round(row.elapsed_s(), 1))
     print("final:", {k: rec[k] for k in ("final_rot_deg", "final_rot_rel_deg",
                                          "final_trans", "train_psnr")}, flush=True)

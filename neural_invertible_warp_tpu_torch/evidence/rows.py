@@ -75,6 +75,15 @@ ROWS = {
     "R6": ("probe_b3", _B3_20K + ["--overrides", "tpu.fused_inn=true"]),
     "R6s1": ("probe_b3", _B3_20K + ["--seed", "1", "--overrides", "tpu.fused_inn=true"]),
     "R6s2": ("probe_b3", _B3_20K + ["--seed", "2", "--overrides", "tpu.fused_inn=true"]),
+    # R6s2 (R6's largest val-PSNR gap under R1) with K6 held against the plain
+    # warp and float64 on its own trajectory every 1,000 steps
+    "R6s2_shadow": ("probe_b3", _B3_20K + ["--seed", "2", "--shadow-k6", "1000",
+                                           "--overrides", "tpu.fused_inn=true"]),
+    # R1 and R6 at two more seeds, paired by seed
+    "R1s3": ("probe_b3", _B3_20K + ["--seed", "3"]),
+    "R1s4": ("probe_b3", _B3_20K + ["--seed", "4"]),
+    "R6s3": ("probe_b3", _B3_20K + ["--seed", "3", "--overrides", "tpu.fused_inn=true"]),
+    "R6s4": ("probe_b3", _B3_20K + ["--seed", "4", "--overrides", "tpu.fused_inn=true"]),
     # the paper's horizon, resumed across calls (~127 min alone at R1's
     # ms/step): EVIDENCE_r3 section 5e, JAX 0.086 deg rel / 0.175 abs, trans
     # 0.0040, 44.82 dB, no kick through 80k-92k
@@ -100,6 +109,10 @@ ROWS = {
     "X2": ("probe_extra_datasets", ["--run", "tandt_narrow", "--horizon", "20000"]),
 }
 ROWS.update({name: ("probe_zoo_r4", ["--run", name]) for name in RUNS})
+# barf on the LLFF blob scene at two more seeds (the scene stays at seed 0)
+ROWS.update({"barf_llff_20k_s{}".format(seed): (
+    "probe_zoo_r4", ["--run", "barf_llff_20k", "--over", "seed={}".format(seed)])
+    for seed in (1, 2)})
 
 
 def row_command(row, out_dir, device, iters=None, resume=False):

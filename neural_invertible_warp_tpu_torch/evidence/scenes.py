@@ -27,17 +27,21 @@ uint8 as the PNG round trip does; the loaders' same-size BICUBIC resize is
 a copy. ``render_blobs`` also renders chip_smoke.py's SfM scene (a wall
 with colour spots; its depth and opacity maps). ``dtu_scene``,
 ``iphone_scene`` and ``tandt_scene`` hold the cameras and content of the
-last three without rendering them; ``render_views`` renders any of their
+last three without rendering them, ``blob_llff_scene`` those of the first,
+which ``write_llff_tree`` writes as an LLFF tree of PNGs; ``render_views`` renders any of their
 views alone. ``PROBE_SCENES`` names the five scenes of the quality probes.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..data import blender, dtu, iphone, llff, tandt
 from ..ops import rays, render, sampling
+from ..utils import image_io
 
 LLFF_RAW_HW = (3024, 4032)
 LLFF_FOCAL = 3260.0
@@ -245,16 +249,15 @@ def llff_cameras(poses_bounds, img_size, val_ratio):
     return tuple(dict(intr=intr[s], pose=pose[s]) for s in cut)
 
 
-def blob_llff_arrays(n_images=40, img_size=(240, 320), seed=0, spread=0.5,
-                     n_blobs=24, val_ratio=0.1, backdrop=False, dense=False,
-                     device="cpu"):
-    """make_blob_llff_scene in memory: the blob slab is placed in the
-    PARSED world frame (after the loader's centering + bounds rescale) at
-    the cameras' least-squares common look-at point. Returns (train arrays,
-    val arrays, blob)."""
-    H, W = img_size
-    train, val = llff_cameras(wide_llff_poses_bounds(n_images, seed, spread),
-                              img_size, val_ratio)
+def blob_llff_scene(n_images=40, seed=0, spread=0.5, n_blobs=24, val_ratio=0.1,
+                    backdrop=False, dense=False):
+    """The cameras and content of ``blob_llff_arrays``'s scene, unrendered:
+    dict(poses_bounds [N,17], blob, backdrop (or None), depth_range,
+    val_ratio). The blob slab is placed in the PARSED world frame (after the
+    loader's centering + bounds rescale) at the training cameras'
+    least-squares common look-at point."""
+    poses_bounds = wide_llff_poses_bounds(n_images, seed, spread)
+    train, _ = llff_cameras(poses_bounds, LLFF_RAW_HW, val_ratio)
     target, dist, look = look_at_point(train["pose"])
     if dense:
         # full-frame 3D structure at many depths: breaks both the
@@ -274,12 +277,46 @@ def blob_llff_arrays(n_images=40, img_size=(240, 320), seed=0, spread=0.5,
         mean_look /= np.linalg.norm(mean_look)
         bd = backdrop_params(point=target + 1.4 * mean_look, normal=-mean_look,
                              seed=seed + 23)
+    return dict(poses_bounds=poses_bounds, blob=blob, backdrop=bd,
+                depth_range=(near, dist + 1.8), val_ratio=val_ratio)
+
+
+def blob_llff_arrays(n_images=40, img_size=(240, 320), seed=0, spread=0.5,
+                     n_blobs=24, val_ratio=0.1, backdrop=False, dense=False,
+                     device="cpu"):
+    """make_blob_llff_scene in memory (``blob_llff_scene`` rendered at
+    ``img_size``). Returns (train arrays, val arrays, blob)."""
+    H, W = img_size
+    scene = blob_llff_scene(n_images, seed, spread, n_blobs, val_ratio, backdrop, dense)
     out = []
-    for cams in (train, val):
-        imgs, _, _ = render_blobs(cams["pose"], cams["intr"], H, W, blob,
-                                  depth_range=(near, dist + 1.8), backdrop=bd, device=device)
+    for cams in llff_cameras(scene["poses_bounds"], img_size, val_ratio):
+        imgs, _, _ = render_blobs(cams["pose"], cams["intr"], H, W, scene["blob"],
+                                  depth_range=scene["depth_range"],
+                                  backdrop=scene["backdrop"], device=device)
         out.append(_split(imgs, cams["intr"], cams["pose"]))
-    return out[0], out[1], blob
+    return out[0], out[1], scene["blob"]
+
+
+def write_llff_tree(scene, root, size, name="blobfern", device="cpu", max_elems=1 << 23):
+    """Write ``scene`` (``blob_llff_scene``) as the LLFF tree
+    ``<root>/<name>/{images/NNN.png, poses_bounds.npy}``, every view rendered
+    at ``size`` (H, W) and quantized as ``quantize`` does, the PNGs through
+    ``utils/image_io.write_png``. The LLFF loader reads it with
+    ``data.root=<root> data.scene=<name>`` (and resizes it to
+    ``data.image_size``). Returns the uint8 images written [N,H,W,3]."""
+    H, W = size
+    poses_raw, _, focal = llff.parse_poses_bounds(scene["poses_bounds"], *LLFF_RAW_HW)
+    pose = np.stack([llff.raw_to_w2c(p) for p in poses_raw])
+    intr = _intrinsics(focal, *LLFF_RAW_HW, H, W, len(pose))
+    imgs, _, _ = render_blobs(pose, intr, H, W, scene["blob"], depth_range=scene["depth_range"],
+                              backdrop=scene["backdrop"], device=device, max_elems=max_elems)
+    img8 = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+    path = os.path.join(root, name)
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    for i, img in enumerate(img8):
+        image_io.write_png(os.path.join(path, "images", "{:03d}.png".format(i)), img)
+    np.save(os.path.join(path, "poses_bounds.npy"), scene["poses_bounds"])
+    return img8
 
 
 # --------------------------------------------------------------- Blender

@@ -172,7 +172,12 @@ class Trainer:
         self.log_scalars({k: v for k, v in res.items() if np.isscalar(v)}, step,
                          split="val")
         if self.tb and res.get("vis"):
-            self._write_val_images(res, step)
+            try:
+                self._write_val_images(res, step)
+            except ImportError as e:
+                # the writers encode images with PIL and depth is coloured by
+                # matplotlib; the card's machine has neither
+                warn("no validation images in tensorboard: {}".format(e))
         return res
 
     def _write_val_images(self, res, step):

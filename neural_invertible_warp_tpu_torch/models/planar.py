@@ -25,19 +25,17 @@ from torch import nn
 
 from ..ops import warp2d
 from ..ops.posenc import positional_encoding_c2f
-from ..utils import log
+from ..utils import image_io, log
 from ..utils.optim import MultiAdam
 from .system import Graph
 
 
 def load_image(opt):
-    """``data.image_fname`` resized (bilinear) to ``data.image_size``; [H,W,3]
-    float32 in [0,1]."""
-    import PIL.Image
-    import imageio.v2 as imageio
-    img = PIL.Image.fromarray(imageio.imread(opt.data.image_fname))
+    """``data.image_fname`` resized (bilinear, as PIL's) to ``data.image_size``;
+    [H,W,3] float32 in [0,1]."""
+    img = image_io.read_image(opt.data.image_fname)
     H, W = opt.data.image_size
-    img = img.resize((W, H), PIL.Image.BILINEAR)
+    img = image_io.resize(img, (W, H), "bilinear")
     return np.asarray(img, np.float32)[..., :3] / 255.0
 
 

@@ -37,7 +37,7 @@ from torch import nn
 from ..ops import nerf_mlp, rays, render, sampling
 from ..ops.cuda import fused_field, fused_pe
 from ..parallel import mesh
-from ..utils import log
+from ..utils import image_io, log
 
 
 class Graph(nn.Module):
@@ -585,6 +585,5 @@ class NerfSystem:
 
 
 def _save_png(path, arr):
-    import imageio.v2 as imageio
     arr = np.clip(np.asarray(arr), 0.0, 1.0)
-    imageio.imwrite(path, (arr * 255).astype(np.uint8))
+    image_io.write_png(path, (arr * 255).astype(np.uint8))

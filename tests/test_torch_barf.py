@@ -82,6 +82,29 @@ def test_barf_poses_and_labels(systems):
     np.testing.assert_allclose(t_t, t_j, rtol=1e-4, atol=1e-6)
 
 
+def test_barf_validation_path_matches_jax(systems):
+    """``validate`` of barf: the sim(3) of the pose readout onto the GT
+    centres (``prealign``), the evaluation pose it gives the held-out view
+    (``get_eval_pose``), the held-out PSNR and the aligned pose errors, as
+    the JAX package's."""
+    jsys, state, psys = systems
+    res = psys.validate()
+    ref = jsys.validate(state)
+    for k in ("psnr_val", "error_R", "error_t"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=1e-4, err_msg=k)
+    jsim3 = jsys.prealign(state)
+    psim3 = psys.prealign()
+    for k in ("t0", "t1", "s0", "s1", "R"):
+        np.testing.assert_allclose(psim3[k].cpu().numpy(), np.asarray(jsim3[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    pose_gt = psys.test_data["pose"][:1]
+    np.testing.assert_allclose(psys.get_eval_pose(pose_gt).cpu().numpy(),
+                               np.asarray(jsys.get_eval_pose(
+                                   state["params"], state["aux"],
+                                   jnp.asarray(pose_gt.cpu().numpy()))),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_barf_step0_loss_and_every_gradient(systems):
     jsys, state, psys = systems
     opt = jsys.opt

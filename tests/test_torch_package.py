@@ -66,11 +66,27 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.evidence.rows",
     "neural_invertible_warp_tpu_torch.evidence.probe_dtu",
     "neural_invertible_warp_tpu_torch.evidence.probe_extra_datasets",
+    "neural_invertible_warp_tpu_torch.evidence.shadow_k6",
+    "neural_invertible_warp_tpu_torch.utils.options_yaml",
+    "neural_invertible_warp_tpu_torch.utils.image_io",
     "chip_smoke",
 ]
 
 PROBE = """
 import importlib, sys
+
+
+class Blocked:
+    # the card's machine has none of these: importing one raises here too
+    names = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.names:
+            raise ImportError("blocked on the card's path: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
 for m in {mods!r}:
     importlib.import_module(m)
 import chip_smoke
@@ -124,6 +140,17 @@ for run in ("iphone_narrow", "tandt_narrow"):
     probe_extra_datasets.run_options(run, 10, out_dir={out!r})
 scenes.blob_iphone_arrays(n_images=10, img_size=(6, 8))
 scenes.blob_tandt_arrays(n_images=10, img_size=(6, 8))
+# the CLI on a PNG LLFF tree, written at twice the trained size
+import os
+from neural_invertible_warp_tpu_torch import evaluate, train
+root = os.path.join({out!r}, "cli_data")
+scenes.write_llff_tree(scenes.blob_llff_scene(n_images=8, val_ratio=0.25, backdrop=True),
+                       root, (24, 32), name="toyfern")
+flags = {cli!r} + ["--data.root=" + root, "--output_root=" + os.path.join({out!r}, "cli")]
+assert train.main(flags).system.step == 4
+results = evaluate.main(flags)
+assert results["PSNR"] > 0 and os.listdir(os.path.join({out!r}, "cli", "cli", "run0",
+                                                       "novel_view"))
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
@@ -132,13 +159,19 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 
 def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
     """The port's slice modules and chip_smoke.py, imported and driven up to
-    building the system, load none of jax, yaml, PIL, imageio, matplotlib,
-    cv2, nor the JAX package (the card's machine has none of the first
-    six)."""
+    building the system, and ``train.main`` / ``evaluate.main`` of the flagship
+    (``--device=cpu``, a tiny width, a validation with its tensorboard images)
+    on an LLFF tree of PNGs written at twice the trained size, all with jax,
+    yaml, PIL, imageio, matplotlib and cv2 blocked by a meta-path finder that
+    raises: both finish, and none of those nor the JAX package is loaded (the
+    card's machine has none of the first six)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"
+    cli = [f for f in CLI_FLAGS if not f.startswith(("--data.image_size", "--freq.val"))] + [
+        "--data.image_size=[12,16]", "--freq.val=4", "--device=cpu"]
     out = subprocess.run(
-        [sys.executable, "-c", PROBE.format(mods=SLICE_MODULES, out=str(tmp_path))],
+        [sys.executable, "-c", PROBE.format(mods=SLICE_MODULES, out=str(tmp_path), cli=cli)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
@@ -383,6 +416,38 @@ def _imported_roots(path):
     return roots
 
 
+# the modules the CLI runs (train, evaluate, the loaders it reads PNG trees
+# through, the systems that write PNGs), and the functions of theirs that may
+# import PIL: the augmentation branch (no option file sets data.augment) and
+# the JPEG branch (the card's machine has no JPEG decoder)
+CLI_PATH_MODULES = ("config.py", "train.py", "evaluate.py", "data/base.py", "data/llff.py",
+                    "data/blender.py", "data/iphone.py", "data/tandt.py", "models/system.py",
+                    "models/planar.py", "utils/image_io.py", "utils/options_yaml.py")
+PIL_BRANCHES = {("data/base.py", "apply_color_jitter"), ("data/base.py", "apply_augmentation"),
+                ("data/base.py", "preprocess_image"), ("utils/image_io.py", "read_image")}
+
+
+def _imported_roots_by_function(path):
+    """(top-level name, line, innermost enclosing function or None) of every
+    absolute import in a source file."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split(".")[0], child.lineno, func) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((child.module.split(".")[0], child.lineno, func))
+            inner = child.name if isinstance(child, (ast.FunctionDef,
+                                                     ast.AsyncFunctionDef)) else func
+            visit(child, inner)
+    visit(tree, None)
+    return out
+
+
 def test_matchers_run_on_the_card_unless_the_cpu_is_asked_for():
     """``PdcNetMatcher`` and ``ZnccMatcher`` take ``cuda:0`` by default and
     raise without a card instead of running on the CPU."""
@@ -429,10 +494,22 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                          "evidence_r2", "probe_b3", "probe_zoo_r4", "probe_dtu",
                          "probe_extra_datasets", "tests", "tools")]
     assert not found, found
-    # the walker sees imports inside functions: the port's config.py imports
-    # yaml only there
-    cfg = os.path.join(ROOT, "neural_invertible_warp_tpu_torch", "config.py")
-    assert "yaml" in [r for r, _ in _imported_roots(cfg)]
+    # no module reads YAML through PyYAML (utils/options_yaml.py does it)
+    found = ["{}:{}".format(os.path.relpath(path, ROOT), line) for path in sources
+             for root, line in _imported_roots(path) if root == "yaml"]
+    assert not found, found
+    # on the CLI path, PIL only in the augmentation branch and the JPEG
+    # branch, imageio nowhere; the walker sees imports inside functions
+    found, seen = [], set()
+    for rel in CLI_PATH_MODULES:
+        path = os.path.join(ROOT, "neural_invertible_warp_tpu_torch", *rel.split("/"))
+        for root, line, func in _imported_roots_by_function(path):
+            if root in ("PIL", "imageio", "matplotlib", "cv2"):
+                seen.add((rel, func))
+                if (rel, func) not in PIL_BRANCHES:
+                    found.append("{}:{} imports {} in {}".format(rel, line, root, func))
+    assert not found, found
+    assert seen == PIL_BRANCHES, seen
 
 
 # ------------------------------------------------------ the port's own copies
