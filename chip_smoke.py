@@ -77,6 +77,9 @@ Phases, one or more lines each:
      kernel, plain version and chain timed side by side, the launch
      sequences alone (CUDA graph replay) also at 4096 points, and the
      kernels of each launch sequence counted (at most 2 per direction);
+     with the output layers zero the warp is the identity and K6's output-
+     bias gradients must equal the float64 sums of the cotangent's columns
+     rounded once to fp32, bit for bit, on terms that cancel;
   9. kernel_k7: K7 (PDC-Net's 9x9 local correlation) and its adjoints in f1
      and in f2 through the wrappers against their plain versions on the card,
      at the calls of a 480x640 pair ([1,128,120,160], [1,256,60,80],
@@ -2080,6 +2083,16 @@ def _tier_steps(system, first):
     return statistics.median(seconds) * 1e3
 
 
+# K6's output-bias gradients on cancelling terms: with every output layer
+# lin{b}_{a,b}_1 zero (as at init) the warp is the identity and, in block i
+# with focus axis f and other axes o0, o1, db1_a = -sum g[..., f] and
+# db1_b[1:] = -sum g[..., o0], -sum g[..., o1] over all points, exactly. The
+# cotangent g is a multiple of 2^-INN_SUM_BITS under 16 whose columns sum to
+# INN_SUM_CANCEL of the sum of their |terms|, so every partial sum is exact
+# in float64 and the reference is the exact sum rounded once to fp32: K6 must
+# equal it bit for bit.
+INN_SUM_BITS = 20
+INN_SUM_CANCEL = 1e-3
 # --------------------------------------------------- the fused INN warp, K6
 
 def inn_setup(B, N, d_feat, seed, device):
@@ -2139,6 +2152,49 @@ def inn_bias_terms(net, code, pts, alpha, loss="sin"):
     for h in hooks:
         h.remove()
     return sums, grads
+
+
+def inn_bias_sum_check(device):
+    """K6's nine output-bias gradient entries against the exact sums they
+    are (INN_SUM_BITS above) at the flagship's warp shape, beside the kernel's
+    plain version's; raises unless K6 equals each bit for bit."""
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn as fi
+    _, B, N, d_feat, _ = INN_CASES[0]
+    alpha = 0.37
+    net, code, pts = inn_setup(B, N, d_feat, 104, device)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "_1." in name:
+                p.zero_()
+    g = torch.Generator().manual_seed(11)
+    units = torch.round(torch.randn(B * N, 3, generator=g, dtype=torch.float64)
+                        * 2.0 ** INN_SUM_BITS)
+    units -= torch.floor(units.mean(dim=0))
+    units += torch.round(INN_SUM_CANCEL * units.abs().mean(dim=0))
+    cot = (units / 2.0 ** INN_SUM_BITS).float().reshape(B, N, 3).to(device)
+    exact = -(units.sum(dim=0) / 2.0 ** INN_SUM_BITS)          # [3], float64
+    names = [n for n, _ in net.named_parameters()]
+    ulps = {}
+    for which in ("kernel", "plain"):
+        out = inn_forward(which, net, code, pts, alpha)
+        check(torch.equal(out, pts), "the warp with zero output layers is not the identity")
+        grads = dict(zip(names, torch.autograd.grad(out, list(net.parameters()), cot)))
+        worst = 0.0
+        for i, (fx, (oa, ob)) in enumerate(fi._BLOCK_AXES):
+            for got, axis in ((grads["lin{}_a_1.bias".format(i)][0], fx),
+                              (grads["lin{}_b_1.bias".format(i)][1], oa),
+                              (grads["lin{}_b_1.bias".format(i)][2], ob)):
+                ref = exact[axis].float()
+                ulp = float(torch.nextafter(ref.abs(), torch.tensor(math.inf)) - ref.abs())
+                worst = max(worst, abs(float(got) - float(ref)) / ulp)
+        ulps[which] = worst
+    print("kernels: K6 output-bias gradients on cancelling terms at [{},{},3]: largest miss "
+          "of the exact sum rounded to fp32, in its ulps: kernel {:.0f}, plain version {:.0f} "
+          "(|sum| / sum of |terms|: {:.1e})".format(
+              B, N, ulps["kernel"], ulps["plain"],
+              float(exact.abs().max() / units.abs().sum(dim=0).max() * 2.0 ** INN_SUM_BITS)))
+    check(ulps["kernel"] == 0, "K6's output-bias gradients miss their exact sums by {:.0f} "
+          "ulps".format(ulps["kernel"]))
 
 
 def inn_backward_ms(which, net, code, pts, alpha):
@@ -2288,6 +2344,7 @@ def phase_kernel_inn(device):
               fwd["device_ms_4096"], bwd["device_ms_4096"], fwd["kernels_per_call"],
               bwd["kernels_per_call"], card_line()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
+    inn_bias_sum_check(device)
     return records
 
 

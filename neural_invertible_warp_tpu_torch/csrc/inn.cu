@@ -51,6 +51,10 @@
 //   thread t adds, for unit t % 128 and every other row, the tile's terms of
 //   dW (embed rows), the dh sum (db0, and per image dcb), dw1 and db1 in point
 //   order into the CTA's partial buffer. Three CTAs per SM (80 registers).
+// - The output-bias gradients db1 are sums over every point of an output's
+//   cotangent whose terms largely cancel; an fp32 chain of partial sums lost
+//   more of them than the plain warp's reduction does, so they are added in
+//   double from the tile up and rounded to fp32 once.
 // - Weight gradients without atomics: a CTA walks the tiles of one image
 //   (about three CTAs per SM over all images, one tile each at the flagship
 //   shape) and owns one partial buffer. One epilogue launch: CTAs of 8 units
@@ -85,7 +89,7 @@ static_assert(UPL == 4, "a lane's units are one 16-byte row segment");
 // Partial weight-gradient buffer of one backward CTA, per block: rows of H floats
 //   0..25 dW_a embed rows | 26 dh_a sum (db0_a, and the image's dcb_a) |
 //   27 dw1_a | 28..40 dW_b embed rows | 41 dh_b sum | 42..44 dw1_b
-// then 8 floats: db1_a, db1_b[3], unused.
+// then 8 floats holding 4 doubles: db1_a, db1_b[3].
 constexpr int ROW_A = 0, ROW_DH_A = NE_A;
 constexpr int ROW_B = NE_A + 2, ROW_DH_B = ROW_B + NE_B;
 constexpr int ROWS = ROW_DH_B + 4;
@@ -441,11 +445,17 @@ __device__ __forceinline__ void branch_backward(Tile& tb, int warp, int lane, co
     for (int d = 0; d < D; d++) dcoord[p][d] = warp_sum(part[p][d]);
 }
 
+// The db1 slots of a block's partial buffer (8-byte aligned: PBLK and ROWS * H
+// are even and the workspace is 16-byte aligned).
+__device__ __forceinline__ double* db1_slots(float* blk) {
+  return reinterpret_cast<double*>(blk + ROWS * H);
+}
+
 // The tile's terms of one branch's partial rows (rows: the branch's first row
 // in the CTA's buffer; db1: its bias slots), added in point order: thread t
 // owns unit t % H and the rows t / H, t / H + BWD_NT / H, ...
 template <int NE, int NO>
-__device__ __forceinline__ void weight_grads(const Tile& tb, int np, float* rows, float* db1,
+__device__ __forceinline__ void weight_grads(const Tile& tb, int np, float* rows, double* db1,
                                              bool first) {
   constexpr int NQ = BWD_NT / H, NR = NE + 1 + NO, RPT = (NR + NQ - 1) / NQ;
   const int j = threadIdx.x % H, q = threadIdx.x / H;
@@ -471,7 +481,7 @@ __device__ __forceinline__ void weight_grads(const Tile& tb, int np, float* rows
     }
   }
   if (threadIdx.x < NO) {
-    float s = 0.f;
+    double s = 0.0;
     for (int p = 0; p < np; p++) s += tb.dout[p][threadIdx.x];
     db1[threadIdx.x] = first ? s : db1[threadIdx.x] + s;
   }
@@ -525,7 +535,7 @@ __device__ __forceinline__ void block_backward(const Args& a, int img, int nw, T
     u[p][1] = xin[p][OB];
   }
   __syncthreads();
-  weight_grads<NE_B, 3>(tb, np, blk + ROW_B * H, blk + ROWS * H + 1, first);
+  weight_grads<NE_B, 3>(tb, np, blk + ROW_B * H, db1_slots(blk) + 1, first);
   nb++;
   float dc_a[NPB][2];
   Tile& ta = tiles[nb & 1];
@@ -536,7 +546,7 @@ __device__ __forceinline__ void block_backward(const Args& a, int img, int nw, T
     dx[p][OB] += dc_a[p][1];
   }
   __syncthreads();
-  weight_grads<NE_A, 1>(ta, np, blk + ROW_A * H, blk + ROWS * H, first);
+  weight_grads<NE_A, 1>(ta, np, blk + ROW_A * H, db1_slots(blk), first);
   nb++;
 }
 
@@ -594,6 +604,25 @@ __device__ __forceinline__ void cta_sum8(const float* part, long long e, int t0,
   for (int u = 0; u < 8; u++) out[u] = warp_sum(s[u]);
 }
 
+// The 4 db1 doubles at offset e of the partial buffers of the backward CTAs
+// [t0, t1), added in double in cta_sum8's order and rounded to fp32 once.
+__device__ __forceinline__ void cta_sum_db1(const float* part, long long e, int t0, int t1,
+                                            int lane, float (&out)[8]) {
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int t = t0 + lane; t < t1; t += 32) {
+    const double* x = reinterpret_cast<const double*>(part + (long long)t * PCTA + e);
+#pragma unroll
+    for (int u = 0; u < 4; u++) s[u] += x[u];
+  }
+#pragma unroll
+  for (int u = 0; u < 4; u++) {
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+    out[u] = (float)s[u];
+    out[4 + u] = 0.f;
+  }
+}
+
 // CTAs [0, EPI_WN_CTAS): one per (branch, 8 hidden units j0 .. j0 + 7). Its
 // warps add the rows of those units over all backward CTAs (embed rows of dW,
 // the dh row, dw1; the CTA of units 0-7 also the db1 slots) and per image the
@@ -645,8 +674,10 @@ static __global__ void __launch_bounds__(EPI_NT) epilogue_kernel(EpilogueArgs a)
   float (*dcb)[EPI_UNITS] = rows + EPI_ROWS + 1;                          // [EPI_IMGS][8]
   for (int r = warp; r <= nr; r += EPI_WARPS) {       // row nr: the block's db1 slots
     float s[8];
-    cta_sum8(a.part, r < nr ? col + (long long)r * H : (long long)i * PBLK + ROWS * H, 0, nct,
-             lane, s);
+    if (r < nr)
+      cta_sum8(a.part, col + (long long)r * H, 0, nct, lane, s);
+    else
+      cta_sum_db1(a.part, (long long)i * PBLK + ROWS * H, 0, nct, lane, s);
     if (lane == 0)
 #pragma unroll
       for (int u = 0; u < 8; u++) rows[r][u] = s[u];

@@ -79,6 +79,10 @@ ROWS = {
     # warp and float64 on its own trajectory every 1,000 steps
     "R6s2_shadow": ("probe_b3", _B3_20K + ["--seed", "2", "--shadow-k6", "1000",
                                            "--overrides", "tpu.fused_inn=true"]),
+    # the same every 250 steps: how often the float64 rule fires on K6 and on
+    # the plain warp
+    "R6s2_shadow250": ("probe_b3", _B3_20K + ["--seed", "2", "--shadow-k6", "250",
+                                              "--overrides", "tpu.fused_inn=true"]),
     # R1 and R6 at two more seeds, paired by seed
     "R1s3": ("probe_b3", _B3_20K + ["--seed", "3"]),
     "R1s4": ("probe_b3", _B3_20K + ["--seed", "4"]),

@@ -32,9 +32,10 @@ through K6 and through the plain warp.
     python -m neural_invertible_warp_tpu_torch.evidence.shadow_k6 <record.jsonl>
 
 prints a run's shadow as a table, one row per sampled step, each leaf's
-largest distance over the steps, and how the K6 / plain ratios spread
-(``symmetry``: the same rule read the other way round flags the plain warp
-where it lies 1.5x as far as K6).
+largest distance over the steps, the six output biases' K6 / plain ratios
+at every sampled step, how the K6 / plain ratios spread, and the pairs the
+rule names (``rule_counts``: also read the other way round, where it flags
+the plain warp lying 1.5x as far as K6).
 """
 
 from __future__ import annotations
@@ -227,6 +228,41 @@ def table(record):
     return lines
 
 
+BIASES = ["dlin{}_{}_1.bias".format(b, br) for b in range(3) for br in "ab"]
+
+
+def bias_table(record):
+    """Markdown lines: per sampled step the K6 / plain ratio of the six
+    output-bias leaves, and the leaves where either way lies past
+    FAULT_FACTOR times the other's distance and misses it by TOL (the rule,
+    and the rule read the other way round)."""
+    lines = ["| step | " + " | ".join(b[1:-5] for b in BIASES) + " | rule: k6 / plain |",
+             "|---" * (len(BIASES) + 2) + "|"]
+    for rec in record["shadow_k6"]:
+        dist = rec["dist"]
+        plain_past = [b for b in BIASES if dist[b]["plain"] > FAULT_FACTOR * dist[b]["k6"]
+                      and dist[b]["k6_plain"] > TOL]
+        k6_past = [b for b in BIASES if b in rec["fault"]]
+        lines.append("| {} | {} | {} / {} |".format(
+            rec["step"], " | ".join("{:.2f}".format(_ratio(dist[b])) for b in BIASES),
+            ", ".join(b[1:-5] for b in k6_past) or "-",
+            ", ".join(b[1:-5] for b in plain_past) or "-"))
+    return lines
+
+
+def rule_counts(record):
+    """Over every (leaf, sampled step): how many, the pairs where the rule
+    names K6 (``fault``), and those where the same rule names the plain warp
+    (it lies FAULT_FACTOR times as far from float64 as K6 and misses it by
+    TOL)."""
+    pairs = [(r["step"], leaf, d) for r in record["shadow_k6"] for leaf, d in r["dist"].items()]
+    return dict(pairs=len(pairs),
+                k6=[(s, leaf) for s, leaf, d in pairs
+                    if d["k6"] > FAULT_FACTOR * d["plain"] and d["k6_plain"] > TOL],
+                plain=[(s, leaf) for s, leaf, d in pairs
+                       if d["plain"] > FAULT_FACTOR * d["k6"] and d["k6_plain"] > TOL])
+
+
 def symmetry(record):
     """Over every (leaf, sampled step) after step 0 where the plain warp's
     distance is not 0: how many, the median K6 / plain ratio, the share
@@ -247,7 +283,9 @@ def main(argv=None):
     with open(path) as f:
         record = json.loads(f.read().splitlines()[-1])
     print("\n".join(table(record)))
+    print("\n".join(bias_table(record)))
     print("symmetry: {}".format(symmetry(record)))
+    print("rule: {}".format(rule_counts(record)))
     print("faults: {}; validate_k6: {}".format(record["shadow_k6_faults"],
                                               record["validate_k6"]))
 

@@ -1,9 +1,10 @@
 """Training engine (port of neural_invertible_warp_tpu/models/engine.py):
 dataset loading, a plain Python train loop, logging (to the console and,
 where ``tb`` is set and a writer is importable, to tensorboard, with the
-validation images), validation, the live pose view ``poses.html`` every
-``freq.vis`` steps, and checkpoints. One ``train_step`` per iteration (the
-JAX package's ``lax.scan`` step batching has no counterpart here).
+validation images where PIL and matplotlib are importable), validation, the
+live pose view ``poses.html`` every ``freq.vis`` steps, and checkpoints.
+One ``train_step`` per iteration (the JAX package's ``lax.scan`` step
+batching has no counterpart here).
 ``debug.nan_check`` runs the loop under autograd's anomaly detection and
 checks the loss and every gradient after each step, raising
 ``FloatingPointError`` at the first non-finite one; ``tpu.profile_dir``
@@ -13,6 +14,7 @@ writes a ``torch.profiler`` trace of the loop there.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import os
 import time
 
@@ -26,6 +28,14 @@ from ..utils.log import info as log
 from ..utils.log import warn
 
 
+def _importable(name):
+    """Whether ``import name`` would find a module, without importing it."""
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ImportError:
+        return False
+
+
 class Trainer:
 
     def __init__(self, opt, device):
@@ -37,6 +47,7 @@ class Trainer:
         self.step_seconds = []     # wall time of each step (device-synced)
         self.history = []          # per-step metrics, 0-d device tensors
         self.tb = None             # tensorboard writer (setup_visualizer)
+        self.tb_images = False     # whether validation images go to tensorboard
         self.live_pose_frames = []     # (step, aligned poses) of poses.html
 
     def load_dataset(self, eval_split="val"):
@@ -89,6 +100,13 @@ class Trainer:
                 self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
             except ImportError as e:
                 warn("tensorboard writer unavailable: {}".format(e))
+                return
+        # the writers encode images with PIL, and depth is coloured by matplotlib
+        missing = [name for name in ("PIL", "matplotlib") if not _importable(name)]
+        self.tb_images = not missing
+        if missing:
+            warn("no validation images in tensorboard: {} not importable".format(
+                " and ".join(missing)))
 
     def train(self):
         opt = self.opt
@@ -171,13 +189,8 @@ class Trainer:
         res = self.system.validate(max_views=self.opt.data.get("val_sub"))
         self.log_scalars({k: v for k, v in res.items() if np.isscalar(v)}, step,
                          split="val")
-        if self.tb and res.get("vis"):
-            try:
-                self._write_val_images(res, step)
-            except ImportError as e:
-                # the writers encode images with PIL and depth is coloured by
-                # matplotlib; the card's machine has neither
-                warn("no validation images in tensorboard: {}".format(e))
+        if self.tb_images and res.get("vis"):
+            self._write_val_images(res, step)
         return res
 
     def _write_val_images(self, res, step):

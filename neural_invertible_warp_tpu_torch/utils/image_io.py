@@ -256,22 +256,19 @@ def _coefficients(in_size, out_size, method):
 
 def _pass(img, out_size, method, axis):
     """One 8-bit resampling pass along ``axis`` (0 rows, 1 columns) of uint8
-    [H,W,C]. The taps go into a dense [in, out] matrix and the sums are one
-    float64 product: every term is an integer under 2^31 and every sum one
-    under 2^53, so the product is exact, as Pillow's int32 sums are."""
+    [H,W,C]: each output adds its ksize input taps times their fixed-point
+    coefficients in int32, as Pillow's sums are (exact: they stay under 2^31)."""
     n_in = img.shape[axis]
     xmin, k = _coefficients(n_in, out_size, method)
-    dense = np.zeros((n_in, out_size))
-    cols = np.arange(out_size)
-    for t in range(k.shape[1]):
-        rows = xmin + t
-        ok = rows < n_in
-        dense[rows[ok], cols[ok]] = k[ok, t]
-    src = np.moveaxis(img, axis, -1)                           # [..., in]
-    flat = np.ascontiguousarray(src, dtype=np.float64).reshape(-1, n_in)
-    acc = (flat @ dense).astype(np.int64) + (1 << (PRECISION_BITS - 1))
-    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out.reshape(src.shape[:-1] + (out_size,)), -1, axis)
+    shape = [1, 1, 1]
+    shape[axis] = out_size
+    k = k.astype(np.int32).T.reshape([-1] + shape)               # [ksize, ...]
+    out_shape = list(img.shape)
+    out_shape[axis] = out_size
+    acc = np.full(out_shape, 1 << (PRECISION_BITS - 1), np.int32)
+    for t in range(k.shape[0]):         # a tap past the input has coefficient 0
+        acc += np.take(img, np.minimum(xmin + t, n_in - 1), axis=axis) * k[t]
+    return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def _premultiply(img):

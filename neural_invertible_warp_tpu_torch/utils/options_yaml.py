@@ -458,7 +458,7 @@ class _Flow:
         body = s[pos:end].rstrip(" \t")
         if not body:
             raise ValueError("an empty entry in a flow collection")
-        _check_plain(body, ValueError)
+        _check_plain(body, ValueError, flow_next=s[pos + 1:pos + 2])
         return resolve_plain(body), end
 
 
@@ -568,10 +568,15 @@ def _key(text, error):
     return resolve_plain(text)
 
 
-def _check_plain(text, error, continued=False):
+def _check_plain(text, error, continued=False, flow_next=None):
+    """Raise where ``text`` is no plain scalar. ``flow_next``: in a flow
+    collection, the character after the first one, where a ',' or a closing
+    bracket lets a lone '-' be the scalar '-', as in PyYAML."""
     if not continued:
         if text[0] in _NOT_PLAIN_START:
             raise error("{!r} cannot start a plain scalar in the subset".format(text[0]))
+        if text == "-" and flow_next and flow_next not in " \t":
+            return
         if text[0] in "-?:" and (len(text) == 1 or text[1] in " \t"):
             raise error("{!r} followed by a blank cannot start a scalar".format(text[0]))
     if re.search(r":[ \t]", text) or text.endswith(":"):

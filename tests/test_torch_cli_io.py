@@ -67,7 +67,7 @@ def test_option_file_loads_as_pyyaml(name):
     ("1e-3", "1e-3"), ("5.e-4", 5e-4), ("yes", True), ("off", False), ("~", None),
     ("", None), ("010", 8), ("0x10", 16), ("1_000", 1000), ("1:30", 90), (".inf", math.inf),
     ("[null, null]", [None, None]), ("{}", {}), ("[0.1,0.5]", [0.1, 0.5]),
-    ("'a # b' # c", "a # b"), ("http://x:1", "http://x:1")])
+    ("'a # b' # c", "a # b"), ("http://x:1", "http://x:1"), ("[-, 1]", ["-", 1])])
 def test_cli_values_resolve_as_pyyaml(text, value):
     """The table of PyYAML 6's YAML 1.1 resolution the CLI depends on."""
     assert same(options_yaml.load_scalar(text), value)

@@ -160,11 +160,12 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
     """The port's slice modules and chip_smoke.py, imported and driven up to
     building the system, and ``train.main`` / ``evaluate.main`` of the flagship
-    (``--device=cpu``, a tiny width, a validation with its tensorboard images)
-    on an LLFF tree of PNGs written at twice the trained size, all with jax,
-    yaml, PIL, imageio, matplotlib and cv2 blocked by a meta-path finder that
-    raises: both finish, and none of those nor the JAX package is loaded (the
-    card's machine has none of the first six)."""
+    (``--device=cpu``, a tiny width, a validation whose tensorboard images are
+    skipped with a warning, since they need PIL and matplotlib) on an LLFF
+    tree of PNGs written at twice the trained size, all with jax, yaml, PIL,
+    imageio, matplotlib and cv2 blocked by a meta-path finder that raises:
+    both finish, and none of those nor the JAX package is loaded (the card's
+    machine has none of the first six)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     env["OMP_NUM_THREADS"] = "1"

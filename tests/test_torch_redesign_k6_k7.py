@@ -12,7 +12,8 @@ units, times the column's chain factor, per coordinate in column order, then
 the butterfly), and the weight gradients (a 16-point tile in point order, a
 CTA's tiles in order; then over the CTAs of each image and of all images,
 each lane every 32nd CTA in order and the butterfly; the latent rows and db0
-from the per-image sums, the images in order). At the
+from the per-image sums, the images in order; the output-bias gradients db1
+in that order in double, rounded to fp32 once). At the
 flagship warp shape [18,226,3] x 128 latent dims with the smoke's
 perturbation (0.05 randn on every leaf), against the kernel's plain version
 ``fused_deform_plain`` under sum(sin(3 out)) and under sum(out), with the
@@ -40,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from neural_invertible_warp_tpu_torch.ops import correlation as plain_corr
 from neural_invertible_warp_tpu_torch.ops import inn
 from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn as fi
@@ -144,7 +146,7 @@ def _branch_backward(saved, rw, W, w1, dout, cpi):
     dW = _tree(e[..., None, :] * dE[..., :, None], cpi)[1]
     dcb = _tree(dh, cpi)[0]
     dw1 = _tree(h[..., None, :] * dout[..., :, None], cpi)[1]
-    db1 = _tree(dout, cpi)[1]
+    db1 = _tree(dout.double(), cpi)[1].to(dout.dtype)
     return dcoord, dW, dcb, dw1, db1, dout.abs().sum((0, 1))
 
 
@@ -281,6 +283,46 @@ def test_k6_tree_adds_every_point_once():
         x = torch.arange(B * N, dtype=torch.float64).reshape(B, N)
         per_image, total = _tree(x, cpi)
         assert torch.equal(per_image, x.sum(1)) and float(total) == float(x.sum())
+
+
+def _cancelling_terms(B, N, seed):
+    """fp32 terms [B,N] (multiples of 2^-INN_SUM_BITS) whose sum is
+    INN_SUM_CANCEL of the sum of their |terms| (``chip_smoke.
+    inn_bias_sum_check``'s cotangent columns), and that sum, exact."""
+    rng = np.random.default_rng(seed)
+    units = np.round(rng.standard_normal(B * N) * 2.0 ** chip_smoke.INN_SUM_BITS)
+    units -= np.floor(units.mean())
+    units += np.round(chip_smoke.INN_SUM_CANCEL * np.abs(units).mean())
+    terms = torch.from_numpy((units / 2.0 ** chip_smoke.INN_SUM_BITS).reshape(B, N)).float()
+    return terms, units.sum() / 2.0 ** chip_smoke.INN_SUM_BITS
+
+
+def _ulps(got, exact):
+    ref = np.float32(exact)
+    assert float(ref) == exact          # the exact sum is an fp32 number here
+    return abs(float(got) - exact) / float(np.spacing(np.abs(ref)))
+
+
+@pytest.mark.parametrize("B, N", [(18, 226), (1, 4096), (1, 7)])
+def test_k6_output_bias_sums_are_the_exact_sum_rounded_once(B, N):
+    """db1 in K6's order, added in double and rounded once, is the exact sum
+    of cancelling terms at each shape of the smoke's K6 cases, as
+    ``chip_smoke.inn_bias_sum_check`` holds the kernel on the card."""
+    for seed in range(3):
+        terms, exact = _cancelling_terms(B, N, seed)
+        got = _tree(terms.double(), _ctas_per_image(B, N))[1].float()
+        assert _ulps(got, exact) == 0
+
+
+def test_k6_output_bias_sums_in_fp32_miss_the_cancelled_sum():
+    """The same order in fp32 (K6's db1 before it was taken to double)
+    misses the exact sum at the flagship warp shape by 2 ulps or more at
+    every seed."""
+    misses = []
+    for seed in range(3):
+        terms, exact = _cancelling_terms(18, 226, seed)
+        misses.append(_ulps(_tree(terms, _ctas_per_image(18, 226))[1], exact))
+    assert min(misses) >= 2, misses
 
 
 class _FakeInnLibrary:
