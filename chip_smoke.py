@@ -184,6 +184,21 @@ Phases, one or more lines each:
      100)", every test-view PNG decodes at 480x640; then K2 at the step after
      the last and K3 at the first validation chunk against their plain
      versions (hold_evidence).
+ 19. cli_data: JPEG and DTU files through the same entry points. (a) The
+     JPEG decoder (csrc/jpeg_decode.cpp, built with g++ by utils/jpeg.py)
+     decodes every fixture of tests/data/jpeg to its manifest's shape and
+     PIL hash and equals decode_plain; the progressive, CMYK, arithmetic
+     and 12-bit fixtures raise naming file and mode; host ms per megapixel
+     of both. (b) The flagship's train.main / evaluate.main (40 steps) on
+     the committed 19-view LLFF tree of JPEGs at 240x320. (c) A DTU tree of
+     9 views written at DTU's raw 1200x1600 on the card
+     (scenes.write_dtu_tree), then barf_inn_dtu's train.main (100 steps) and
+     evaluate.main (test-view refinement, depth errors, masked PSNR and
+     SSIM, all finite); the DTU loader reads the PNGs and PFMs, decomposes
+     the projection matrices and resizes to 300x400 through utils/cv_ops,
+     and its cameras equal the in-memory scene's to CLI_DATA_CAMERA_TOL. In
+     (b) and (c): every logged loss finite, K2 once per step, K3 and K4
+     launched, then hold_evidence.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -542,6 +557,20 @@ CLI_VIEWS = 19
 CLI_WRITE_HW = (960, 1280)
 CLI_STEPS = 100
 CLI_SUBPROCESS_TIMEOUT = 300
+# path cli_data: JPEG and DTU files through the CLI. The JPEG fixtures and
+# their manifest (tests/data/jpeg/make_fixtures.py: PIL's decode hashed, the
+# card has no encoder), the flagship 40 steps on their 19-view LLFF tree at
+# its 240x320, and barf_inn_dtu 100 steps on a DTU tree of 9 views (views 0
+# and 8 held out by dtuhold 8) written at DTU's raw 1200x1600 on the card
+CLI_DATA_JPEG_DIR = os.path.join(HERE, "tests", "data", "jpeg")
+CLI_DATA_LLFF_STEPS = 40
+CLI_DATA_LLFF_HW = (240, 320)
+CLI_DATA_DTU_VIEWS = 9
+CLI_DATA_DTU_STEPS = 100
+CLI_DATA_DECODE_REPEATS = 5
+# the loader's parse of the written cameras against the in-memory scene's
+# (float64 decomposition of float64 matrices, then float32)
+CLI_DATA_CAMERA_TOL = 1e-5
 
 
 def check(ok, msg):
@@ -3752,17 +3781,17 @@ def phase_evidence_dtu():
     return launches
 
 
-def cli_flags(root, out):
+def cli_flags(root, out, steps=CLI_STEPS):
     """The flagship's command line on the tree under ``root``, writing under
     ``out``, and the same overrides as typed values."""
     flags = ["--model=barf_inn_llff", "--yaml=barf_inn_llff", "--barf_c2f=[0.1,0.5]",
              "--loss_weight.global_alignment=4", "--data.root={}".format(root),
-             "--data.scene=blobfern", "--max_iter={}".format(CLI_STEPS),
-             "--freq.scalar=20", "--freq.val={}".format(CLI_STEPS),
-             "--freq.ckpt={}".format(CLI_STEPS), "--output_root={}".format(out),
+             "--data.scene=blobfern", "--max_iter={}".format(steps),
+             "--freq.scalar=20", "--freq.val={}".format(steps),
+             "--freq.ckpt={}".format(steps), "--output_root={}".format(out),
              "--novel_view_video!"]
-    typed = {"data": {"root": root, "scene": "blobfern"}, "max_iter": CLI_STEPS,
-             "freq": {"scalar": 20, "val": CLI_STEPS, "ckpt": CLI_STEPS},
+    typed = {"data": {"root": root, "scene": "blobfern"}, "max_iter": steps,
+             "freq": {"scalar": 20, "val": steps, "ckpt": steps},
              "output_root": out, "novel_view_video": False}
     return flags, typed
 
@@ -3882,6 +3911,159 @@ def phase_cli(device):
     return launches
 
 
+def decoder_check():
+    """Part (a) of path cli_data: every JPEG fixture through the C++ decoder
+    (built here by utils/jpeg.load) to its manifest's shape and PIL hash,
+    and equal to decode_plain; the modes not decoded raise naming the file
+    and the mode; prints host ms per megapixel of both decoders."""
+    import hashlib
+    from neural_invertible_warp_tpu_torch.utils import jpeg
+    built = not os.path.isfile(jpeg.library_path())
+    t0 = time.time()
+    jpeg.load()
+    t_build = time.time() - t0
+    with open(os.path.join(CLI_DATA_JPEG_DIR, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    blobs, pixels, plain_s, raised = [], 0, 0.0, 0
+    for entry in manifest:
+        path = os.path.join(CLI_DATA_JPEG_DIR, entry["file"])
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if "raises" in entry:
+            for fn in (jpeg.decode, jpeg.decode_plain):
+                try:
+                    fn(data, path)
+                    msg = "decoded"
+                except ValueError as err:
+                    msg = str(err)
+                check(path in msg and entry["raises"] in msg,
+                      "cli_data: {} through {}: {}".format(entry["file"], fn.__name__, msg))
+            raised += 1
+            continue
+        img = jpeg.decode(data, path)
+        check(list(img.shape) == entry["shape"]
+              and hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"],
+              "cli_data: {} does not decode to its manifest's hash".format(entry["file"]))
+        t1 = time.perf_counter()
+        plain = jpeg.decode_plain(data, path)
+        plain_s += time.perf_counter() - t1
+        check(np.array_equal(img, plain),
+              "cli_data: {}: the decoder and decode_plain differ".format(entry["file"]))
+        blobs.append(data)
+        pixels += img.shape[0] * img.shape[1]
+    largest = max(blobs, key=len)
+    shape = jpeg.decode(largest).shape
+    rates = []
+    for group, mp in ((blobs, pixels / 1e6), ([largest], shape[0] * shape[1] / 1e6)):
+        t1 = time.perf_counter()
+        for _ in range(CLI_DATA_DECODE_REPEATS):
+            for data in group:
+                jpeg.decode(data)
+        rates.append(1e3 * (time.perf_counter() - t1) / (CLI_DATA_DECODE_REPEATS * mp))
+    plain_ms = 1e3 * plain_s / (pixels / 1e6)
+    print("cli_data: JPEG decoder {} in {:.1f} s; {} fixtures ({:.3f} MP) decode to their "
+          "PIL hashes and equal decode_plain, {} modes raise; host ms/MP: decoder {:.2f} over "
+          "the fixtures, {:.2f} on the {}x{} one; decode_plain {:.1f}".format(
+              "built" if built else "loaded", t_build, len(blobs), pixels / 1e6, raised,
+              rates[0], rates[1], shape[0], shape[1], plain_ms))
+
+
+def cli_data_run(label, flags, steps, failures):
+    """train.main and evaluate.main on ``flags`` with every counter from 0;
+    the run's checks. Returns (launch counts, trainer, evaluation results,
+    seconds of each)."""
+    from neural_invertible_warp_tpu_torch import evaluate, train
+    reset_counts()
+    t0 = time.time()
+    trainer = train.main(flags)
+    t_train = time.time() - t0
+    counts_train = field_counts()
+    t1 = time.time()
+    results = evaluate.main(flags)
+    t_eval = time.time() - t1
+    launches = field_counts()
+    losses = [float(v) for m in trainer.history for k, v in m.items() if k.startswith("loss")]
+    check(len(trainer.history) == steps and all(math.isfinite(v) for v in losses),
+          "cli_data {}: {} steps logged, a loss not finite".format(label, len(trainer.history)))
+    check(launches["k2"] == steps, "cli_data {}: K2 launched {} times in {} steps".format(
+        label, launches["k2"], steps))
+    check(counts_train["k3"] > 0 and launches["k3"] > counts_train["k3"] and launches["k4"] > 0,
+          "cli_data {}: K3 {} in training, {} in all; K4 {}".format(
+              label, counts_train["k3"], launches["k3"], launches["k4"]))
+    print("cli_data {}: train {:.1f} s ({:.2f} ms/step median), evaluate {:.1f} s; losses "
+          "{:.4f} -> {:.4f}; K2 {}, K3 {} ({} in training), K4 {}; evaluation {}".format(
+              label, t_train, 1e3 * statistics.median(trainer.step_seconds[5:]
+                                                      or trainer.step_seconds), t_eval,
+              float(trainer.history[0]["loss_all"]), float(trainer.history[-1]["loss_all"]),
+              launches["k2"], launches["k3"], counts_train["k3"], launches["k4"],
+              {k: round(float(v), 5) for k, v in results.items()
+               if isinstance(v, (int, float)) and v is not None}))
+    hold_evidence(trainer.system, failures)
+    return launches, trainer, results
+
+
+def phase_cli_data(device):
+    """Path cli_data: (a) decoder_check; (b) the flagship's train and
+    evaluate entry points on the committed LLFF tree of JPEGs; (c)
+    barf_inn_dtu's on a DTU tree written here at 1200x1600 (cameras.npz,
+    PNG images and masks, PFM depth), read and resized to 300x400 by the
+    DTU loader on utils/cv_ops and image_io. Returns the launch counts of
+    the path (both runs' train and in-process evaluation)."""
+    import shutil
+    from neural_invertible_warp_tpu_torch.evidence import scenes
+    out = os.path.join(HERE, "build", "chip_smoke_cli_data")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.time()
+    decoder_check()
+    failures = []
+    flags = cli_flags(os.path.join(CLI_DATA_JPEG_DIR, "llff"), os.path.join(out, "llff"),
+                      CLI_DATA_LLFF_STEPS)[0] + [
+        "--data.image_size=[{},{}]".format(*CLI_DATA_LLFF_HW)]
+    launches_llff, trainer, _ = cli_data_run("LLFF (JPEG)", flags, CLI_DATA_LLFF_STEPS,
+                                             failures)
+    check(tuple(trainer.system.train_data["image"].shape[1:3]) == CLI_DATA_LLFF_HW,
+          "cli_data: the JPEG tree trained at {}".format(
+              tuple(trainer.system.train_data["image"].shape)))
+    del trainer
+    torch.cuda.empty_cache()
+
+    root = os.path.join(out, "dtu")
+    t1 = time.time()
+    scene = scenes.write_dtu_tree(root, n_images=CLI_DATA_DTU_VIEWS, device=device,
+                                  max_elems=1 << 26)
+    t_write = time.time() - t1
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    print("cli_data: DTU tree of {} views at {}x{} written in {:.1f} s ({} files, {:.1f} MB)"
+          .format(CLI_DATA_DTU_VIEWS, *scenes.DTU_RAW_HW, t_write, len(files),
+                  sum(os.path.getsize(f) for f in files) / 1e6))
+    flags = ["--model=barf_inn_dtu", "--yaml=barf_inn_dtu", "--data.root={}".format(root),
+             "--data.scene=scan1", "--max_iter={}".format(CLI_DATA_DTU_STEPS),
+             "--freq.scalar=20", "--freq.val={}".format(CLI_DATA_DTU_STEPS),
+             "--freq.ckpt={}".format(CLI_DATA_DTU_STEPS),
+             "--output_root={}".format(os.path.join(out, "dtu_run")), "--novel_view_video!"]
+    launches_dtu, trainer, results = cli_data_run("DTU (files)", flags, CLI_DATA_DTU_STEPS,
+                                                  failures)
+    keys = ("depth_abs", "depth_rms", "PSNR_masked", "SSIM_masked")
+    check(all(math.isfinite(float(results.get(k, math.nan))) for k in keys),
+          "cli_data: the DTU evaluation gave {}".format({k: results.get(k) for k in keys}))
+    data = trainer.system.train_data
+    views = [i for i in range(CLI_DATA_DTU_VIEWS) if i % 8]      # dtuhold 8
+    check(tuple(data["image"].shape[1:3]) == (300, 400) and len(data["image"]) == len(views),
+          "cli_data: DTU trained on {}".format(tuple(data["image"].shape)))
+    pose_err = float(np.abs(data["pose"].cpu().numpy() - scene["pose"][views]).max())
+    intr_ref = scene["intr"][views].copy()
+    intr_ref[:, :2] *= 0.25
+    intr_err = float(np.abs(data["intr"].cpu().numpy() - intr_ref).max() / intr_ref.max())
+    print("cli_data: DTU cameras parsed from the files against the in-memory scene's: pose "
+          "{:.3e}, intr {:.3e} relative; training views {}".format(pose_err, intr_err, views))
+    check(pose_err <= CLI_DATA_CAMERA_TOL and intr_err <= CLI_DATA_CAMERA_TOL,
+          "cli_data: the DTU cameras parsed from the files differ from the scene's")
+    launches = {k: launches_llff[k] + launches_dtu[k] for k in launches_llff}
+    print("cli_data: {:.1f} s in all; {}".format(time.time() - t0, card_line()))
+    check(not failures, "cli_data path failed: {}".format(failures))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3931,6 +4113,8 @@ def main():
     launches_evidence_dtu = phase_evidence_dtu()
     torch.cuda.empty_cache()
     launches_cli = phase_cli(device)
+    torch.cuda.empty_cache()
+    launches_cli_data = phase_cli_data(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
@@ -3938,7 +4122,7 @@ def main():
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
              "pose_init_sfm": launches_sfm, "sharded": launches_sharded,
              "evidence": launches_evidence, "evidence_dtu": launches_evidence_dtu,
-             "cli": launches_cli}
+             "cli": launches_cli, "cli_data": launches_cli_data}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 

@@ -1,10 +1,15 @@
 """DTU dataset loader (pixelNeRF-processed DVR format). The port's own copy
-of neural_invertible_warp_tpu/data/dtu.py (numpy, PIL, imageio and cv2;
-cv2 is imported inside the two functions that call it).
+of neural_invertible_warp_tpu/data/dtu.py, on numpy alone: images through
+``utils/image_io`` (PNG, and JPEG through ``utils/jpeg``), the mask as
+PIL's ``Image.open`` gives it (a palette PNG as its indices), and cv2's
+projection-matrix decomposition and resizes through ``utils/cv_ops``
+(OpenCV's own arithmetic, not its IPP path: the resized image can differ
+from a cv2 built with IPP by an ulp or so, and a mask pixel at exactly 1 by
+one ulp under it, which ``np.floor`` then drops).
 
 Format parity with reference data/dtu.py:
 * ``rs_dtu_4/DTU/<scan>/cameras.npz`` holds projection matrices
-  ``world_mat_i`` = K [R|t]; decomposed with cv2.decomposeProjectionMatrix,
+  ``world_mat_i`` = K [R|t]; decomposed as cv2.decomposeProjectionMatrix does,
   translations recentered by ``scale_mat_i`` and rescaled by 1/300
   (data/dtu.py:212-248); the removed recentering is kept as ``norm_trans``
   so that ``evaluate --export_dtu_cameras`` can write poses back in the
@@ -25,6 +30,7 @@ import re
 import numpy as np
 
 from . import base
+from ..utils import cv_ops, image_io
 
 NEAR_DEPTH = 1.2
 FAR_DEPTH = 5.2
@@ -113,7 +119,6 @@ class Dataset(base.Dataset):
         """(image files, intrinsics [3,3] each, normalized c2w [4,4] each);
         sets ``norm_trans`` [3,1], the scale_mat translation removed from
         every camera center before the 1/300 scaling."""
-        import cv2
         img_dir = os.path.join(scene_path, "image")
         if not os.path.isdir(img_dir):
             raise FileNotFoundError(img_dir)
@@ -124,7 +129,7 @@ class Dataset(base.Dataset):
         self.norm_trans = np.zeros((3, 1), dtype=np.float32)
         for p in pose_indices:
             P = cam["world_mat_{}".format(p)][:3]
-            K, R, t = cv2.decomposeProjectionMatrix(P)[:3]
+            K, R, t = cv_ops.decompose_projection_matrix(P)
             K = K / K[2, 2]
             pose_c2w = np.eye(4, dtype=np.float32)
             pose_c2w[:3, :3] = R.transpose()
@@ -159,18 +164,18 @@ class Dataset(base.Dataset):
         return w2c[:, :3].astype(np.float32)
 
     def __getitem__(self, idx):
-        import cv2
-        import imageio.v2 as imageio
-        import PIL.Image
         opt = self.opt
-        rgb = imageio.imread(self.rgb_files[idx])
+        rgb = image_io.read_image(self.rgb_files[idx])
         h, w = rgb.shape[:2]
         pose_w2c = np.linalg.inv(self.poses_c2w[idx])[:3].astype(np.float32)
         intr = self.intrinsics[idx][:3, :3].astype(np.float32).copy()
 
         mask_file = self.mask_files[idx]
         if os.path.exists(mask_file):
-            m = np.asarray(PIL.Image.open(mask_file), dtype=np.float32)[..., :3] / 255.0
+            # [..., :3] as the reference slices PIL's array: a gray mask
+            # [H,W] loses its width here, as it does there
+            m = np.asarray(image_io.read_image(mask_file, expand_palette=False),
+                           dtype=np.float32)[..., :3] / 255.0
             mask = (m[..., 0] == 1)
         else:
             mask = np.ones((h, w), bool)
@@ -185,10 +190,10 @@ class Dataset(base.Dataset):
         # resize image + intrinsics + depth + mask to opt.H/W
         image = np.asarray(rgb, np.float32) / 255.0
         if (opt.H, opt.W) != (h, w):
-            image = cv2.resize(image, (opt.W, opt.H), interpolation=cv2.INTER_LINEAR)
-            depth_gt = cv2.resize(depth_gt, (opt.W, opt.H), interpolation=cv2.INTER_NEAREST)
-            mask = np.floor(cv2.resize(mask.astype(np.float32), (opt.W, opt.H),
-                                       interpolation=cv2.INTER_LINEAR)).astype(bool)
+            image = cv_ops.resize_linear(image, (opt.W, opt.H))
+            depth_gt = cv_ops.resize_nearest(depth_gt, (opt.W, opt.H))
+            mask = np.floor(cv_ops.resize_linear(mask.astype(np.float32),
+                                                 (opt.W, opt.H))).astype(bool)
             intr[0] *= opt.W / w
             intr[1] *= opt.H / h
         valid_depth_gt = depth_gt > 0

@@ -19,7 +19,7 @@ files those write (image [B,H,W,3] float32 in [0,1], intr [B,3,3], pose
 
 Poses come from the loaders' own parses (``data.llff.parse_poses_bounds``,
 ``data.blender.raw_to_w2c``, ``data.tandt.spherify_poses``; the DTU
-loader's cv2 parse of the projection matrices is reproduced without cv2
+loader's parse of the projection matrices is reproduced from the cameras
 by ``dtu_loader_w2c``), so they equal what the loaders read. Images
 are rendered in torch on ``device`` (the blob field composited over
 unjittered samples, as ``analytic_blob_render``) and quantized through
@@ -28,8 +28,10 @@ a copy. ``render_blobs`` also renders chip_smoke.py's SfM scene (a wall
 with colour spots; its depth and opacity maps). ``dtu_scene``,
 ``iphone_scene`` and ``tandt_scene`` hold the cameras and content of the
 last three without rendering them, ``blob_llff_scene`` those of the first,
-which ``write_llff_tree`` writes as an LLFF tree of PNGs; ``render_views`` renders any of their
-views alone. ``PROBE_SCENES`` names the five scenes of the quality probes.
+which ``write_llff_tree`` writes as an LLFF tree of PNGs, and
+``write_dtu_tree`` writes ``dtu_scene`` in DTU's file layout at DTU's raw
+1200x1600; ``render_views`` renders any of their views alone.
+``PROBE_SCENES`` names the five scenes of the quality probes.
 """
 
 from __future__ import annotations
@@ -363,6 +365,7 @@ def blob_blender_arrays(n_train=100, n_val=4, img_size=128, seed=0,
 
 DTU_SCALE = 300.0
 DTU_TRANS_OFFSET = np.array([3.0, -2.0, 5.0])
+DTU_RAW_HW = (1200, 1600)
 
 
 def dtu_ring_poses(n_views=49, seed=0, radius=3.2, theta_span=80.0):
@@ -445,7 +448,7 @@ def dtu_scene(n_images=49, img_size=(150, 200), seed=0):
                 n_samples=256, depth_range=(1.2, 6.2))
 
 
-def render_views(scene, img_size, views, device="cpu"):
+def render_views(scene, img_size, views, device="cpu", max_elems=1 << 23):
     """(rgb, depth, opacity) of the views ``views`` (indices into its
     cameras) of a scene of ``dtu_scene``, ``iphone_scene`` or
     ``tandt_scene``, as its maker renders them. Each view is rendered on
@@ -454,7 +457,7 @@ def render_views(scene, img_size, views, device="cpu"):
     return render_blobs(scene["render_pose"][views], scene["intr"][views], *img_size,
                         scene["blob"], n_samples=scene["n_samples"],
                         depth_range=scene["depth_range"], backdrop=scene["backdrop"],
-                        device=device)
+                        device=device, max_elems=max_elems)
 
 
 def dtu_maps(depth, opacity):
@@ -465,6 +468,64 @@ def dtu_maps(depth, opacity):
         * np.float32(dtu.SCALING_FACTOR)
     return dict(depth_gt=depth_gt, valid_depth_gt=(depth_gt > 0).astype(np.float32),
                 fg_mask=(opacity > 0.5).astype(np.float32))
+
+
+def write_pfm(path, depth):
+    """``depth`` [H,W] as a grayscale little-endian PFM, bottom row first
+    (what ``dtu.read_pfm`` reads back)."""
+    depth = np.asarray(depth, np.float32)
+    with open(path, "wb") as fh:
+        fh.write(b"Pf\n")
+        fh.write("{} {} \n".format(depth.shape[1], depth.shape[0]).encode())
+        fh.write(b"-1.0\n")
+        np.flipud(depth).astype("<f4").tofile(fh)
+
+
+def write_dtu_tree(root, n_images=17, size=DTU_RAW_HW, seed=0, scan="scan1", device="cpu",
+                   max_elems=1 << 23):
+    """Write ``dtu_scene(n_images, size, seed)`` in DTU's file layout, as
+    tests/synth_data.py's ``make_dtu_scene`` lays it out, for the DTU
+    loader (``data.root=<root> data.scene=<scan>``):
+
+    * ``rs_dtu_4/DTU/<scan>/cameras.npz``: ``world_mat_i`` = [K [R|t]; 0 0 0 1]
+      of each camera at DTU's raw scale (its centre x300 plus
+      ``DTU_TRANS_OFFSET``) and ``scale_mat_i`` (diag 300 and the offset);
+    * ``rs_dtu_4/DTU/<scan>/image/NNNNNN.png``: the view, through uint8 as
+      ``quantize`` has it;
+    * ``submission_data/idrmasks/<scan>/NNN.png``: the IDR mask (opacity >
+      0.5) as RGB 0 / 255;
+    * ``Depths/<scan>/depth_map_NNNN.pfm``: the z-depth x300.
+
+    Each view is rendered at ``size`` (H, W; DTU's raw 1200x1600 by default)
+    on ``device`` and written before the next. Returns the scene."""
+    scene = dtu_scene(n_images, size, seed)
+    K = scene["intr"][0].astype(np.float64)
+    scan_dir = os.path.join(root, "rs_dtu_4", "DTU", scan)
+    dirs = dict(image=os.path.join(scan_dir, "image"),
+                mask=os.path.join(root, "submission_data", "idrmasks", scan),
+                depth=os.path.join(root, "Depths", scan))
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    cams = {}
+    scale_mat = np.diag([DTU_SCALE, DTU_SCALE, DTU_SCALE, 1.0])
+    scale_mat[:3, 3] = DTU_TRANS_OFFSET
+    for i, c2w in enumerate(dtu_ring_poses(n_views=n_images, seed=seed)):
+        c2w_raw = np.concatenate([c2w, [[0.0, 0, 0, 1]]], 0)
+        c2w_raw[:3, 3] = DTU_SCALE * c2w[:, 3] + DTU_TRANS_OFFSET
+        cams["world_mat_{}".format(i)] = np.concatenate(
+            [K @ np.linalg.inv(c2w_raw)[:3], [[0.0, 0, 0, 1]]], 0)
+        cams["scale_mat_{}".format(i)] = scale_mat
+    np.savez(os.path.join(scan_dir, "cameras.npz"), **cams)
+    for i in range(n_images):
+        rgb, depth, opacity = render_views(scene, size, [i], device, max_elems)
+        image_io.write_png(os.path.join(dirs["image"], "{:06d}.png".format(i)),
+                           (np.clip(rgb[0], 0, 1) * 255).astype(np.uint8))
+        mask = np.where(opacity[0] > 0.5, 255, 0).astype(np.uint8)
+        image_io.write_png(os.path.join(dirs["mask"], "{:03d}.png".format(i)),
+                           np.repeat(mask[..., None], 3, -1))
+        write_pfm(os.path.join(dirs["depth"], "depth_map_{:04d}.pfm".format(i)),
+                  depth[0].astype(np.float32) * np.float32(DTU_SCALE))
+    return scene
 
 
 def blob_dtu_arrays(n_images=49, img_size=(150, 200), seed=0, widen=0.15, dtuhold=8,

@@ -1,16 +1,19 @@
-"""PNG reading and writing and Pillow's resampling, on ``zlib`` and numpy
-(the card's machine has no PIL, imageio or cv2).
+"""PNG reading and writing and Pillow's resampling, on ``zlib`` and numpy,
+and JPEG reading through ``utils/jpeg`` (the card's machine has no PIL,
+imageio or cv2).
 
 * ``read_png(path)`` -> uint8 [H,W] (gray) or [H,W,C] (gray+alpha, RGB,
   RGBA; a palette image expands to RGB, its ``tRNS`` alpha dropped), as
   ``imageio.imread`` gives it. Bit depth 8, and 1, 2 or 4 for a palette
-  image (as PIL writes one of up to 16 colours); every filter, any number
-  of ``IDAT`` chunks, each chunk's CRC checked. An interlaced or 16-bit
-  file, a gray image under 8 bits (imageio gives bools), a ``tRNS`` key
-  colour of a gray or RGB image and an unknown critical chunk raise
-  ``ValueError``; a JPEG raises one that says decoding it needs PIL.
-* ``read_image(path)``: ``read_png``, or for a JPEG PIL's decoder, which the
-  card's machine does not have (it raises there, naming the file).
+  image (as PIL writes one of up to 16 colours); with
+  ``expand_palette=False`` a palette image gives its indices [H,W], as
+  PIL's ``Image.open`` does); every filter, any number of ``IDAT`` chunks,
+  each chunk's CRC checked. An interlaced or 16-bit file, a gray image
+  under 8 bits (imageio gives bools), a ``tRNS`` key colour of a gray or
+  RGB image, an unknown critical chunk and a JPEG raise ``ValueError``.
+* ``read_image(path)``: ``read_png``, or for a JPEG ``jpeg.read_jpeg``
+  (PIL's decode, bit for bit; a progressive or arithmetic-coded JPEG
+  raises ``ValueError`` naming the file and the mode).
 * ``write_png(path, array)``: uint8 [H,W], [H,W,1], [H,W,2], [H,W,3] or
   [H,W,4]; each row filtered by None, Sub or Up, whichever gives the
   smallest sum of |filtered bytes| (those decode as cumulative sums).
@@ -31,16 +34,12 @@ import zlib
 
 import numpy as np
 
+from . import jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _IDAT_BYTES = 1 << 20          # the most image data ``write_png`` puts in one chunk
-
-
-def _jpeg_error(path):
-    return ValueError("{} is a JPEG: decoding it needs PIL, which this machine does not "
-                      "have; convert the images to PNG".format(path))
 
 
 def _chunks(data, path):
@@ -104,12 +103,12 @@ def _unfilter(raw, height, row_bytes, bpp):
     return rec[1:, 1:].astype(np.uint8).reshape(height, row_bytes)
 
 
-def read_png(path):
+def read_png(path, expand_palette=True):
     """uint8 [H,W] or [H,W,C] of the PNG at ``path`` (see the module docstring)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    if data.startswith(JPEG_SIGNATURE):
-        raise _jpeg_error(path)
+    if data.startswith(jpeg.SIGNATURE):
+        raise ValueError("{} is a JPEG: read it with read_image".format(path))
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("{} is not a PNG".format(path))
     header, palette, trns, idat = None, None, None, []
@@ -156,22 +155,15 @@ def read_png(path):
         idx = img[..., 0]
         if idx.max(initial=0) >= len(palette):
             raise ValueError("{}: a palette index past PLTE".format(path))
-        return palette[idx]
+        return palette[idx] if expand_palette else idx
     return img[..., 0] if channels == 1 else img
 
 
-def read_image(path):
-    """uint8 [H,W] or [H,W,C] of a PNG (``read_png``) or, through PIL, a JPEG."""
+def read_image(path, expand_palette=True):
+    """uint8 [H,W] or [H,W,C] of a PNG (``read_png``) or a JPEG (``jpeg.read_jpeg``)."""
     with open(path, "rb") as fh:
-        jpeg = fh.read(len(JPEG_SIGNATURE)) == JPEG_SIGNATURE
-    if not jpeg:
-        return read_png(path)
-    try:
-        import PIL.Image
-    except ImportError:
-        raise _jpeg_error(path) from None
-    with PIL.Image.open(path) as im:
-        return np.asarray(im)
+        is_jpeg = fh.read(len(jpeg.SIGNATURE)) == jpeg.SIGNATURE
+    return jpeg.read_jpeg(path) if is_jpeg else read_png(path, expand_palette)
 
 
 def _chunk(ctype, payload):

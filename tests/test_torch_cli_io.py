@@ -245,8 +245,9 @@ def test_pil_reads_back_what_write_png_wrote(tmp_path, channels):
 
 
 def test_unread_pngs_and_jpegs_raise(tmp_path):
-    """Interlaced and 16-bit files, a bad CRC and a JPEG raise ValueError;
-    ``read_image`` decodes the JPEG through PIL where PIL is installed."""
+    """Interlaced and 16-bit files, a bad CRC and a JPEG raise ValueError in
+    ``read_png``; ``read_image`` decodes the JPEG without PIL (``utils/jpeg``)
+    to what imageio gives."""
     arr = _image((6, 7, 3), 1)
     cases = {"interlaced": _encode(arr, (0,), interlace=1),
              "16bit": _encode(arr, (0,), depth=16)}
@@ -261,7 +262,7 @@ def test_unread_pngs_and_jpegs_raise(tmp_path):
             image_io.read_png(path)
     path = str(tmp_path / "photo.jpg")
     PIL.Image.fromarray(_image((16, 24, 3), 2)).save(path)
-    with pytest.raises(ValueError, match="needs PIL"):
+    with pytest.raises(ValueError, match="is a JPEG"):
         image_io.read_png(path)
     assert np.array_equal(image_io.read_image(path), imageio.imread(path))
 

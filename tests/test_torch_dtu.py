@@ -26,6 +26,7 @@ evaluation metrics rtol 1e-4; the copied numpy alignment to 1e-6.
 
 import os
 
+import cv2
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -104,11 +105,22 @@ def dtu49_root(tmp_path_factory):
     ("pixelnerf_reduced_testset", 49, (6, 8), False)])
 def test_loader_matches_jax(split_type, n_images, size, mask_img, dtu_root, dtu49_root):
     """Every array of both splits bit for bit, the split indices, the poses
-    and ``norm_trans``."""
+    and ``norm_trans``. The JAX loader runs with cv2's IPP off: the port
+    resizes as OpenCV's own code does (``utils/cv_ops.py``; against IPP's
+    results: tests/test_torch_cv_ops.py)."""
     opt = synth_data.dtu_opt(dtu_root if n_images == N_IMAGES else dtu49_root, *size)
     opt.data.dtu.split_type = split_type
     opt.data.dtu.mask_img = mask_img
     popt = DotDict(opt.to_plain())
+    ipp = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        _loaders_agree(opt, popt, size)
+    finally:
+        cv2.ipp.setUseIPP(ipp)
+
+
+def _loaders_agree(opt, popt, size):
     for split in ("train", "val"):
         ref = jdtu.Dataset(opt, split=split)
         got = get_dataset("dtu").Dataset(popt, split=split)

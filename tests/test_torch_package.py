@@ -69,10 +69,13 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.evidence.shadow_k6",
     "neural_invertible_warp_tpu_torch.utils.options_yaml",
     "neural_invertible_warp_tpu_torch.utils.image_io",
+    "neural_invertible_warp_tpu_torch.utils.jpeg",
+    "neural_invertible_warp_tpu_torch.utils.cv_ops",
+    "neural_invertible_warp_tpu_torch.data.dtu",
     "chip_smoke",
 ]
 
-PROBE = """
+BLOCKER = """
 import importlib, sys
 
 
@@ -87,6 +90,9 @@ class Blocked:
 
 
 sys.meta_path.insert(0, Blocked())
+"""
+
+PROBE = BLOCKER + """
 for m in {mods!r}:
     importlib.import_module(m)
 import chip_smoke
@@ -173,6 +179,68 @@ def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
         "--data.image_size=[12,16]", "--freq.val=4", "--device=cpu"]
     out = subprocess.run(
         [sys.executable, "-c", PROBE.format(mods=SLICE_MODULES, out=str(tmp_path), cli=cli)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+PROBE_FILES = BLOCKER + """
+import os
+from neural_invertible_warp_tpu_torch import evaluate, train
+from neural_invertible_warp_tpu_torch.evidence import scenes
+out = {out!r}
+# DTU from files: PNG images and masks, PFM depth, cameras.npz
+root = os.path.join(out, "dtu")
+scenes.write_dtu_tree(root, n_images=9, size=(24, 32))
+flags = {dtu!r} + ["--data.root=" + root, "--output_root=" + os.path.join(out, "dtu_run")]
+assert train.main(flags).system.step == 4
+results = evaluate.main(flags)
+assert all(results[k] == results[k] for k in ("depth_abs", "depth_rms", "PSNR_masked")), results
+# LLFF from the committed JPEG tree
+flags = {llff!r} + ["--output_root=" + os.path.join(out, "llff_run")]
+assert train.main(flags).system.step == 4
+assert evaluate.main(flags)["PSNR"] > 0
+# homography on a JPEG
+system = train.main({homography!r} + ["--output_root=" + os.path.join(out, "planar")])
+assert system.step == 3 and tuple(system.image.shape) == (24, 32, 3)
+banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2",
+          "neural_invertible_warp_tpu")
+print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
+"""
+
+
+def test_gpu_path_reads_jpeg_and_dtu_files_without_pil_imageio_cv2(tmp_path):
+    """With the same libraries blocked: ``train.main`` / ``evaluate.main`` of
+    barf_inn_dtu on a DTU tree of files (``scenes.write_dtu_tree``: PNG
+    images and masks, PFM depth, the cameras decomposed and the images
+    resized by ``utils/cv_ops``) and of the flagship on the committed LLFF
+    tree of JPEGs (``utils/jpeg``), and three homography steps on a fixture
+    JPEG, all at a tiny width on the CPU; none of those libraries nor the
+    JAX package is loaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"
+    jpegs = os.path.join(ROOT, "tests", "data", "jpeg")
+    tiny = ["--arch.layers_feat=[null,16,16,16]", "--arch.layers_rgb=[null,8,3]",
+            "--arch.skip=[1]", "--inn.real_nvp.d_hidden=8", "--nerf.sample_intvs=8",
+            "--max_iter=4", "--freq.scalar=2", "--freq.val=4", "--freq.ckpt=2",
+            "--optim.test_iter=2", "--device=cpu", "--novel_view_video!"]
+    dtu = ["--model=barf_inn_dtu", "--yaml=barf_inn_dtu", "--data.scene=scan1",
+           "--data.image_size=[12,16]", "--inn.real_nvp.latent_dim=8",
+           "--nerf.rand_rays=64"] + tiny
+    llff = [f for f in CLI_FLAGS if not f.startswith((
+        "--data.scene", "--data.val_ratio", "--freq.val", "--arch.", "--inn.",
+        "--nerf.sample_intvs", "--max_iter", "--freq.", "--optim.test_iter"))] + [
+        "--data.root=" + os.path.join(jpegs, "llff"), "--data.scene=blobfern",
+        "--data.val_ratio=0.1"] + tiny
+    homography = ["--model=homography", "--yaml=homography", "--device=cpu",
+                  "--data.image_fname=" + os.path.join(jpegs, "q95_48x64.jpg"),
+                  "--data.image_size=[24,32]", "--data.patch_crop=[12,12]",
+                  "--arch.layers=[null,16,16,3]", "--batch_size=3", "--max_iter=3",
+                  "--freq.scalar=2"]
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE_FILES.format(out=str(tmp_path), dtu=dtu, llff=llff,
+                                                  homography=homography)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
@@ -422,10 +490,11 @@ def _imported_roots(path):
 # import PIL: the augmentation branch (no option file sets data.augment) and
 # the JPEG branch (the card's machine has no JPEG decoder)
 CLI_PATH_MODULES = ("config.py", "train.py", "evaluate.py", "data/base.py", "data/llff.py",
-                    "data/blender.py", "data/iphone.py", "data/tandt.py", "models/system.py",
-                    "models/planar.py", "utils/image_io.py", "utils/options_yaml.py")
+                    "data/blender.py", "data/iphone.py", "data/tandt.py", "data/dtu.py",
+                    "models/system.py", "models/planar.py", "utils/image_io.py",
+                    "utils/jpeg.py", "utils/cv_ops.py", "utils/options_yaml.py")
 PIL_BRANCHES = {("data/base.py", "apply_color_jitter"), ("data/base.py", "apply_augmentation"),
-                ("data/base.py", "preprocess_image"), ("utils/image_io.py", "read_image")}
+                ("data/base.py", "preprocess_image")}
 
 
 def _imported_roots_by_function(path):
@@ -499,8 +568,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     found = ["{}:{}".format(os.path.relpath(path, ROOT), line) for path in sources
              for root, line in _imported_roots(path) if root == "yaml"]
     assert not found, found
-    # on the CLI path, PIL only in the augmentation branch and the JPEG
-    # branch, imageio nowhere; the walker sees imports inside functions
+    # on the CLI path, PIL only in the augmentation branch, imageio and cv2
+    # nowhere (JPEG: utils/jpeg.py; DTU: utils/cv_ops.py); the walker sees
+    # imports inside functions
     found, seen = [], set()
     for rel in CLI_PATH_MODULES:
         path = os.path.join(ROOT, "neural_invertible_warp_tpu_torch", *rel.split("/"))
