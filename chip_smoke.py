@@ -187,18 +187,32 @@ Phases, one or more lines each:
  19. cli_data: JPEG and DTU files through the same entry points. (a) The
      JPEG decoder (csrc/jpeg_decode.cpp, built with g++ by utils/jpeg.py)
      decodes every fixture of tests/data/jpeg to its manifest's shape and
-     PIL hash and equals decode_plain; the progressive, CMYK, arithmetic
-     and 12-bit fixtures raise naming file and mode; host ms per megapixel
-     of both. (b) The flagship's train.main / evaluate.main (40 steps) on
+     PIL hash and equals decode_plain (progressive files included); the
+     block-smoothed progressive, CMYK, 2-component, arithmetic, lossless,
+     hierarchical and 12-bit fixtures raise naming file and mode; host ms
+     per megapixel of both. (b) The flagship's train.main / evaluate.main (40 steps) on
      the committed 19-view LLFF tree of JPEGs at 240x320. (c) A DTU tree of
      9 views written at DTU's raw 1200x1600 on the card
      (scenes.write_dtu_tree), then barf_inn_dtu's train.main (100 steps) and
      evaluate.main (test-view refinement, depth errors, masked PSNR and
      SSIM, all finite); the DTU loader reads the PNGs and PFMs, decomposes
      the projection matrices and resizes to 300x400 through utils/cv_ops,
-     and its cameras equal the in-memory scene's to CLI_DATA_CAMERA_TOL. In
-     (b) and (c): every logged loss finite, K2 once per step, K3 and K4
-     launched, then hold_evidence.
+     and its cameras equal the in-memory scene's to CLI_DATA_CAMERA_TOL.
+     (d) The flagship's train.main (40 steps) / evaluate.main on the
+     progressive copy of the tree (tests/data/jpeg/llff_progressive) with
+     data.augment from an options file (brightness, contrast, saturation,
+     hue, hflip, rotate: utils/pil_ops), 3 held-out views and one
+     validation with its tensorboard images: the writer the machine has
+     is printed; the event file holds val/rgb, val/invdepth and their
+     grids, each decoding (utils/image_io) to the uint8 the engine
+     encoded; all training views differ from an unaugmented load, the
+     validation views equal it; host ms per 240x320 image of the
+     progressive and baseline decodes and of the augmentation. In (b),
+     (c) and (d): every logged loss finite, K2 once per step, K3 and K4
+     launched, then hold_evidence. On an NVIDIA H100 80GB HBM3 at 700.00
+     W: (d) 38.70 ms/step, K2 40, K3 528 (114 in training), K4 300;
+     writer torch.utils.tensorboard; decode 1.395 / 1.277 ms per image
+     progressive / baseline, augmentation 69.122; the path 86.1 s.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -212,6 +226,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -571,6 +586,16 @@ CLI_DATA_DECODE_REPEATS = 5
 # the loader's parse of the written cameras against the in-memory scene's
 # (float64 decomposition of float64 matrices, then float32)
 CLI_DATA_CAMERA_TOL = 1e-5
+# (d): the flagship 40 steps on the progressive copy of the tree, with
+# data.augment from an options file (every jitter, hflip, rotate), three
+# held-out views (data.val_ratio 0.2, so the grids are written too) and
+# one validation's tensorboard images
+CLI_DATA_PROG_DIR = os.path.join(CLI_DATA_JPEG_DIR, "llff_progressive")
+CLI_DATA_AUG_STEPS = 40
+CLI_DATA_AUGMENT = dict(brightness=0.2, contrast=0.2, saturation=0.2, hue=0.05, hflip=True,
+                        rotate=5.0)
+CLI_DATA_AUG_VAL_RATIO = 0.2
+CLI_DATA_TB_TAGS = ("val/rgb", "val/invdepth", "val/rgb_grid", "val/invdepth_grid")
 
 
 def check(ok, msg):
@@ -4002,6 +4027,131 @@ def cli_data_run(label, flags, steps, failures):
     return launches, trainer, results
 
 
+def augment_options(out):
+    """Write an options file under ``out``: the flagship's with
+    CLI_DATA_AUGMENT under ``data.augment`` (the CLI takes no flag for a key
+    its options files lack). Returns its ``--yaml`` value, relative to the
+    options directory."""
+    from neural_invertible_warp_tpu_torch import config
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "barf_inn_llff_augment.yaml")
+    with open(path, "w") as fh:
+        fh.write("\n".join(["_parent_: options/barf_inn_llff.yaml", "data:", "    augment:"] + [
+            "        {}: {}".format(k, json.dumps(v)) for k, v in CLI_DATA_AUGMENT.items()])
+            + "\n")
+    return os.path.relpath(path[:-len(".yaml")], os.path.join(config.OPTIONS_ROOT, "options"))
+
+
+def event_images(run_dir, writer):
+    """tag -> (step, height, width, colorspace, PNG bytes) of the image
+    summaries in the event files of ``run_dir``, read with the Event message
+    of the writer's package (``writer``: the trainer's ``tb_writer``) from
+    TFRecord framing (length, its CRC, the record, its CRC)."""
+    if writer == "tensorboardX":
+        from tensorboardX.proto.event_pb2 import Event
+    else:
+        from tensorboard.compat.proto.event_pb2 import Event
+    found = {}
+    for name in sorted(os.listdir(run_dir)):
+        if not name.startswith("events.out.tfevents"):
+            continue
+        with open(os.path.join(run_dir, name), "rb") as fh:
+            data = fh.read()
+        pos = 0
+        while pos + 12 <= len(data):
+            length, = struct.unpack("<Q", data[pos:pos + 8])
+            event = Event.FromString(data[pos + 12:pos + 12 + length])
+            pos += 16 + length
+            for value in event.summary.value:
+                if value.HasField("image"):
+                    image = value.image
+                    found[value.tag] = (event.step, image.height, image.width,
+                                        image.colorspace, image.encoded_image_string)
+    return found
+
+
+def hold_tb_images(trainer, failures):
+    """The run's event file holds CLI_DATA_TB_TAGS, each a PNG that decodes
+    (utils/image_io) to the uint8 the engine encoded, at its step. Returns
+    the writer's package, or None where the machine has no writer."""
+    from neural_invertible_warp_tpu_torch.utils import image_io
+    if trainer.tb is None:
+        return None
+    trainer.tb.close()      # tensorboardX's flush leaves queued events to its writer thread
+    found = event_images(trainer.opt.output_path, trainer.tb_writer)
+    for tag in CLI_DATA_TB_TAGS:
+        if tag not in found or tag not in trainer.tb_images:
+            failures.append("cli_data: no {} image summary (event file: {}, engine: {})".format(
+                tag, sorted(found), sorted(trainer.tb_images)))
+            continue
+        step, h, w, c, png = found[tag]
+        ref_step, pixels = trainer.tb_images[tag]
+        img = image_io.decode_png(png, tag)
+        if not (step == ref_step and (h, w, c) == pixels.shape and img.shape == pixels.shape
+                and np.array_equal(img, pixels)):
+            failures.append("cli_data: the {} summary (step {}, {}x{}x{}) is not the engine's "
+                            "image (step {}, {})".format(tag, step, h, w, c, ref_step,
+                                                         pixels.shape))
+    print("cli_data: tensorboard images {} read back from the event file: {}".format(
+        ", ".join("{} {}x{}".format(t, *found[t][1:3]) for t in CLI_DATA_TB_TAGS if t in found),
+        "equal to the engine's uint8" if not failures else "FAILED"))
+    return trainer.tb_writer
+
+
+def hold_augmentation(trainer, failures):
+    """The augmented run's training images all differ from an unaugmented
+    load of the same tree and its validation images equal it."""
+    from neural_invertible_warp_tpu_torch.data import llff
+    from neural_invertible_warp_tpu_torch.dotdict import DotDict
+    opt = copy.deepcopy(trainer.opt)
+    opt.data.augment = DotDict()
+    plain = {split: llff.Dataset(opt, split).all_arrays(opt)["image"] for split in ("train", "val")}
+    got = {"train": trainer.system.train_data["image"].cpu().numpy(),
+           "val": trainer.system.test_data["image"].cpu().numpy()}
+    changed = [not np.array_equal(a, b) for a, b in zip(got["train"], plain["train"])]
+    print("cli_data: augmented training views differing from an unaugmented load: {} of {}; "
+          "validation views equal to it: {}".format(sum(changed), len(changed),
+                                                   np.array_equal(got["val"], plain["val"])))
+    if not (all(changed) and len(changed) == len(plain["train"])
+            and np.array_equal(got["val"], plain["val"])):
+        failures.append("cli_data: data.augment changed {} of {} training views; validation "
+                        "equal: {}".format(sum(changed), len(changed),
+                                           np.array_equal(got["val"], plain["val"])))
+
+
+def host_image_ms(trainer):
+    """Host ms per image of the decode (the progressive and the baseline
+    tree) and of the augmentation (the run's options) at the tree's
+    240x320, printed."""
+    from neural_invertible_warp_tpu_torch.data import llff
+    from neural_invertible_warp_tpu_torch.utils import jpeg
+    rates = {}
+    for label, root in (("progressive", CLI_DATA_PROG_DIR),
+                        ("baseline", os.path.join(CLI_DATA_JPEG_DIR, "llff"))):
+        folder = os.path.join(root, "blobfern", "images")
+        blobs = []
+        for name in sorted(os.listdir(folder)):
+            with open(os.path.join(folder, name), "rb") as fh:
+                blobs.append(fh.read())
+        t0 = time.perf_counter()
+        for _ in range(CLI_DATA_DECODE_REPEATS):
+            for data in blobs:
+                jpeg.decode(data)
+        rates[label] = 1e3 * (time.perf_counter() - t0) / (CLI_DATA_DECODE_REPEATS * len(blobs))
+    aug_opt = copy.deepcopy(trainer.opt)
+    dataset = llff.Dataset(aug_opt, "train")
+    rng = np.random.RandomState(0)
+    raw = [dataset.get_image(aug_opt, i) for i in range(len(dataset))]
+    augs = [dataset.generate_augmentation(aug_opt, rng) for _ in raw]
+    t0 = time.perf_counter()
+    for image, aug in zip(raw, augs):
+        dataset.apply_augmentation(image, aug)
+    aug_ms = 1e3 * (time.perf_counter() - t0) / len(raw)
+    print("cli_data: host ms per {}x{} image: progressive decode {:.3f}, baseline decode {:.3f}, "
+          "augmentation {:.3f} (jitter, hflip, bicubic rotation over {} views)".format(
+              *raw[0].shape[:2], rates["progressive"], rates["baseline"], aug_ms, len(raw)))
+
+
 def phase_cli_data(device):
     """Path cli_data: (a) decoder_check; (b) the flagship's train and
     evaluate entry points on the committed LLFF tree of JPEGs; (c)
@@ -4024,6 +4174,21 @@ def phase_cli_data(device):
     check(tuple(trainer.system.train_data["image"].shape[1:3]) == CLI_DATA_LLFF_HW,
           "cli_data: the JPEG tree trained at {}".format(
               tuple(trainer.system.train_data["image"].shape)))
+    del trainer
+    torch.cuda.empty_cache()
+
+    flags = [f for f in cli_flags(CLI_DATA_PROG_DIR, os.path.join(out, "llff_progressive"),
+                                  CLI_DATA_AUG_STEPS)[0] if not f.startswith("--yaml=")] + [
+        "--yaml=" + augment_options(out), "--data.val_ratio={}".format(CLI_DATA_AUG_VAL_RATIO),
+        "--data.image_size=[{},{}]".format(*CLI_DATA_LLFF_HW)]
+    launches_prog, trainer, _ = cli_data_run("LLFF (progressive JPEG, data.augment)", flags,
+                                             CLI_DATA_AUG_STEPS, failures)
+    print("cli_data: tensorboard writer: {}".format(
+        trainer.tb_writer or "none on this machine (the image summaries are checked by the "
+        "CPU tests only)"))
+    hold_tb_images(trainer, failures)
+    hold_augmentation(trainer, failures)
+    host_image_ms(trainer)
     del trainer
     torch.cuda.empty_cache()
 
@@ -4058,7 +4223,7 @@ def phase_cli_data(device):
           "{:.3e}, intr {:.3e} relative; training views {}".format(pose_err, intr_err, views))
     check(pose_err <= CLI_DATA_CAMERA_TOL and intr_err <= CLI_DATA_CAMERA_TOL,
           "cli_data: the DTU cameras parsed from the files differ from the scene's")
-    launches = {k: launches_llff[k] + launches_dtu[k] for k in launches_llff}
+    launches = {k: launches_llff[k] + launches_prog[k] + launches_dtu[k] for k in launches_llff}
     print("cli_data: {:.1f} s in all; {}".format(time.time() - t0, card_line()))
     check(not failures, "cli_data path failed: {}".format(failures))
     return launches

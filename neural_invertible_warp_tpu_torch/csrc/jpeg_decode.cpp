@@ -1,16 +1,23 @@
-// Baseline JPEG decoder for the host: what libjpeg(-turbo) gives under its
-// defaults (the "islow" integer IDCT, fancy upsampling, no block smoothing),
-// which is what Pillow's decoder asks of it, bit for bit.
+// JPEG decoder for the host: what libjpeg(-turbo) gives under its defaults
+// (the "islow" integer IDCT, fancy upsampling, block smoothing on), which is
+// what Pillow's decoder asks of it, bit for bit.
 //
-// Covered: sequential Huffman (SOF0 and SOF1) with 8-bit samples, 1 or 3
-// components, any integral sampling factors (fancy h2v1, h1v2 and h2v2 as
-// jdsample.c has them, box replication otherwise), interleaved and
-// non-interleaved scans, restart intervals, DHT / DQT / DRI anywhere before
-// the scan that needs them, APPn and COM segments skipped (APP0 "JFIF" and
-// APP14 "Adobe" read for the colour space, as jdapimin.c guesses it).
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples and 2 or 4 components are refused with status 1 and a message
-// naming the mode.
+// Covered: sequential Huffman (SOF0 and SOF1) and progressive Huffman (SOF2)
+// with 8-bit samples, 1 or 3 components, any integral sampling factors
+// (fancy h2v1, h1v2 and h2v2 as jdsample.c has them, box replication
+// otherwise), interleaved and non-interleaved scans, restart intervals,
+// DHT / DQT / DRI anywhere before the scan that needs them, APPn and COM
+// segments skipped (APP0 "JFIF" and APP14 "Adobe" read for the colour space,
+// as jdapimin.c guesses it). A progressive frame keeps every component's
+// coefficients across its scans (jdphuff.c: DC first and refine, AC first
+// and refine with EOB runs and correction bits, any scan script) and runs
+// the IDCT once after the last; each component's quantization table is the
+// one defined at its first scan, as libjpeg latches it. libjpeg smooths the
+// blocks of a progressive image whose AC coefficients 1-9 were not all sent
+// to their last bit (jdcoefct.c's smoothing_ok); such a file is refused
+// rather than decoded without the smoothing. Lossless, hierarchical and
+// arithmetic-coded files, 12-bit samples and 2 or 4 components are refused
+// too, with status 1 and a message naming the mode.
 //
 // C interface (ctypes; no global state, so calls may run on many threads):
 //   int niw_jpeg_info(const uint8_t* data, size_t n, int* hwc, char* msg, int msg_len)
@@ -86,6 +93,9 @@ void build_huffman(Huffman& h, const uint8_t* counts, const uint8_t* vals, int n
   h.defined = true;
 }
 
+const char kSmoothedMode[] =
+    "block-smoothed progressive (SOF2: AC coefficients 1-9 not all fully sent)";
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;
@@ -94,6 +104,14 @@ struct Component {
   int stride = 0, rows = 0;
   std::vector<uint8_t> plane;
   bool decoded = false;
+  // progressive: the coefficients of every block of the padded MCU area
+  // (stride / 8 blocks a row), the quantization table latched at the
+  // component's first scan, and the successive-approximation bit last sent
+  // of each coefficient (-1 for none), as libjpeg's coef_bits
+  std::vector<int16_t> coef;
+  int16_t qt[64] = {};
+  bool latched = false;
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -101,6 +119,7 @@ struct Decoder {
   size_t n;
   size_t pos = 0;
   int height = 0, width = 0, ncomp = 0;
+  bool progressive = false;
   int max_h = 1, max_v = 1, mcus_per_row = 0, mcu_rows = 0;
   bool have_frame = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
@@ -229,6 +248,8 @@ struct Decoder {
       c.stride = mcus_per_row * c.h * 8;
       c.rows = mcu_rows * c.v * 8;
       c.plane.assign(static_cast<size_t>(c.stride) * c.rows, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      if (progressive) c.coef.assign(static_cast<size_t>(c.stride) / 8 * c.rows / 8 * 64, 0);
     }
     have_frame = true;
   }
@@ -258,6 +279,14 @@ struct Decoder {
       buf |= static_cast<uint64_t>(b) << (56 - bits);
       bits += 8;
     }
+  }
+
+  int get_bit() {
+    if (bits < 1) fill();
+    int v = static_cast<int>(buf >> 63);
+    buf <<= 1;
+    bits -= 1;
+    return v;
   }
 
   int get_bits(int s) {
@@ -325,7 +354,7 @@ struct Decoder {
         k += 15;
       }
     }
-    idct_islow(coef, quant[c.tq],
+    idct_islow(coef, c.qt,
                c.plane.data() + static_cast<size_t>(block_row) * 8 * c.stride + block_col * 8,
                c.stride);
   }
@@ -341,19 +370,43 @@ struct Decoder {
       Component* c = nullptr;
       for (int j = 0; j < ncomp; j++)
         if (comp[j].id == id) c = &comp[j];
-      if (!c || c->decoded) fail(kCorrupt, "bad scan component");
+      if (!c || (c->decoded && !progressive)) fail(kCorrupt, "bad scan component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        fail(kCorrupt, "a scan without its Huffman tables");
+      if (c->td > 3 || c->ta > 3) fail(kCorrupt, "bad scan Huffman table");
       if (!quant_defined[c->tq]) fail(kCorrupt, "a scan without its quantization table");
+      if (!c->latched) {
+        std::memcpy(c->qt, quant[c->tq], sizeof(c->qt));
+        c->latched = true;
+      }
       scan[i] = c;
     }
     int ss = byte(), se = byte(), a = byte();
-    if (ss != 0 || se != 63 || a != 0) fail(kCorrupt, "bad spectral selection in a sequential scan");
+    int ah = a >> 4, al = a & 15;
+    if (progressive) {
+      bool dc_band = ss == 0;
+      if ((dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah && al != ah - 1) ||
+          al > 13)
+        fail(kCorrupt, "bad progression (Ss=" + std::to_string(ss) + " Se=" +
+                           std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
+                           std::to_string(al) + ")");
+      for (int i = 0; i < ns; i++) {
+        Component& c = *scan[i];
+        if (dc_band ? !ah && !dc[c.td].defined : !ac[c.ta].defined)
+          fail(kCorrupt, "a scan without its Huffman tables");
+        for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+      }
+    } else {
+      for (int i = 0; i < ns; i++)
+        if (!dc[scan[i]->td].defined || !ac[scan[i]->ta].defined)
+          fail(kCorrupt, "a scan without its Huffman tables");
+      if (ss != 0 || se != 63 || a != 0)
+        fail(kCorrupt, "bad spectral selection in a sequential scan");
+    }
 
     reset_reader();
     int preds[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int64_t n_mcus;
     int per_row;
     if (ns == 1) {
@@ -369,26 +422,130 @@ struct Decoder {
         restart(next_rst);
         next_rst = (next_rst + 1) & 7;
         std::fill(preds, preds + 4, 0);
+        eobrun = 0;
       }
       int mrow = static_cast<int>(m / per_row), mcol = static_cast<int>(m % per_row);
       for (int i = 0; i < ns; i++) {
         Component& c = *scan[i];
-        if (ns == 1) {
-          decode_block(c, dc[c.td], ac[c.ta], preds[i], mrow, mcol);
-        } else {
-          for (int y = 0; y < c.v; y++)
-            for (int x = 0; x < c.h; x++)
-              decode_block(c, dc[c.td], ac[c.ta], preds[i], mrow * c.v + y, mcol * c.h + x);
-        }
+        int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+        for (int y = 0; y < nv; y++)
+          for (int x = 0; x < nh; x++) {
+            int by = ns == 1 ? mrow : mrow * c.v + y, bx = ns == 1 ? mcol : mcol * c.h + x;
+            if (!progressive) {
+              decode_block(c, dc[c.td], ac[c.ta], preds[i], by, bx);
+              continue;
+            }
+            int16_t* block = c.coef.data() + (static_cast<size_t>(by) * (c.stride / 8) + bx) * 64;
+            if (ss == 0 && !ah)
+              dc_first(block, dc[c.td], preds[i], al);
+            else if (ss == 0)
+              dc_refine(block, al);
+            else if (!ah)
+              ac_first(block, ac[c.ta], ss, se, al, eobrun);
+            else
+              ac_refine(block, ac[c.ta], ss, se, al, eobrun);
+          }
       }
     }
     if (truncated) fail(kCorrupt, "the scan runs past the end of the file");
-    for (int i = 0; i < ns; i++) scan[i]->decoded = true;
+    if (ss == 0)
+      for (int i = 0; i < ns; i++) scan[i]->decoded = true;
     // past the scan's padding bits to the next marker
     reset_reader();
     while (pos + 1 < n && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
                             !(data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7)))
       pos++;
+  }
+
+  // ------------------------------------------- progressive scans (jdphuff.c)
+
+  void dc_first(int16_t* block, const Huffman& h, int& pred, int al) {
+    int s = decode(h);
+    pred += s ? extend(get_bits(s), s) : 0;
+    block[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(pred) << al));
+  }
+
+  void dc_refine(int16_t* block, int al) {
+    if (get_bit()) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+  }
+
+  void ac_first(int16_t* block, const Huffman& h, int ss, int se, int al, int& eobrun) {
+    if (eobrun) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = decode(h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        block[kNatural[k]] = static_cast<int16_t>(
+            static_cast<int>(static_cast<unsigned>(extend(get_bits(s), s)) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += get_bits(r);
+        eobrun--;
+        return;
+      }
+    }
+  }
+
+  // a correction bit for a nonzero coefficient: 1 adds the bit being coded
+  // to its magnitude, unless it is already there
+  void refine(int16_t& coef, int p1, int m1) {
+    if (get_bit() && !(coef & p1)) coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+  }
+
+  void ac_refine(int16_t* block, const Huffman& h, int ss, int se, int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = static_cast<int>(~0u << al);
+    int k = ss;
+    if (!eobrun) {
+      for (; k <= se; k++) {
+        int rs = decode(h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = get_bit() ? p1 : m1;   // a newly nonzero coefficient is +-1 in this bit
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += get_bits(r);
+          break;
+        }
+        // past the nonzero coefficients (refined) and r zero ones
+        do {
+          int16_t& coef = block[kNatural[k]];
+          if (coef) {
+            refine(coef, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun) {
+      for (; k <= se; k++)
+        if (block[kNatural[k]]) refine(block[kNatural[k]], p1, m1);
+      eobrun--;
+    }
+  }
+
+  // after the last scan of a progressive frame: refuse what libjpeg would
+  // smooth, then the IDCT of every block
+  void finish_progressive() {
+    for (int i = 0; i < ncomp; i++)
+      for (int k = 1; k < 10; k++)
+        if (comp[i].coef_bits[k] != 0) fail(kUnsupported, kSmoothedMode);
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      int bw = c.stride / 8, bh = c.rows / 8;
+      for (int by = 0; by < bh; by++)
+        for (int bx = 0; bx < bw; bx++)
+          idct_islow(c.coef.data() + (static_cast<size_t>(by) * bw + bx) * 64, c.qt,
+                     c.plane.data() + static_cast<size_t>(by) * 8 * c.stride + bx * 8, c.stride);
+    }
   }
 
   // ---------------------------------------------------------------- IDCT
@@ -522,10 +679,11 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
+          progressive = m == 0xC2;
           read_sof(m);
           if (headers_only) return;
           break;
-        case 0xC2: fail(kUnsupported, "progressive (SOF2)");
         case 0xC3: fail(kUnsupported, "lossless (SOF3)");
         case 0xC5: case 0xC6: case 0xC7:
           fail(kUnsupported, "hierarchical (SOF" + std::to_string(m - 0xC0) + ")");
@@ -680,6 +838,7 @@ extern "C" int niw_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char
     d.parse(false);
     for (int i = 0; i < d.ncomp; i++)
       if (!d.comp[i].decoded) fail(kCorrupt, "a component in no scan");
+    if (d.progressive) d.finish_progressive();
     d.write(out);
     return kOk;
   } catch (const Failure& f) {

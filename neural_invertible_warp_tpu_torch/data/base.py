@@ -2,8 +2,9 @@
 threaded preloading, whole-split collation. The port's own copy of
 neural_invertible_warp_tpu/data/base.py. Images are uint8 numpy arrays
 (``utils/image_io.read_image``), center-cropped by slicing and resized by
-``image_io.resize``, Pillow's BICUBIC bit for bit; only the augmentation
-branch (``data.augment``, which no option file sets) goes through PIL.
+``image_io.resize``, Pillow's BICUBIC bit for bit; the augmentation branch
+(``data.augment``) runs Pillow's jitter, mirror and bicubic rotation on the
+arrays through ``utils/pil_ops``, bit for bit.
 
 Parity with reference data/base.py:16-130; images come out as float32
 [H,W,C] in [0,1], intrinsics are adjusted for center-crop and resize
@@ -16,7 +17,7 @@ import concurrent.futures as futures
 
 import numpy as np
 
-from ..utils import image_io, log
+from ..utils import image_io, log, pil_ops
 
 
 class Dataset:
@@ -60,7 +61,8 @@ class Dataset:
         """Sample one augmentation: color-jitter factors (brightness /
         contrast / saturation multiplicative, hue additive) in the same
         ranges as torchvision ColorJitter.get_params, plus optional hflip
-        and rotation. torchvision-free (PIL ImageEnhance + HSV)."""
+        and rotation. torchvision-free (Pillow's ImageEnhance + HSV, in
+        ``utils/pil_ops``)."""
         rng = rng or np.random
         a = opt.data.augment
         jitter_order = rng.permutation(4)   # ColorJitter randomizes order
@@ -79,52 +81,45 @@ class Dataset:
 
     @staticmethod
     def apply_color_jitter(image, jitter, order):
-        """PIL color jitter matching torchvision adjust_* semantics."""
-        import PIL.Image
-        import PIL.ImageEnhance
-        mode = image.mode
-        if mode != "RGB":
-            chans = image.split()
-            image = PIL.Image.merge("RGB", chans[:3])
+        """The colour jitter of the JAX package's PIL branch on uint8 [H,W,3]
+        or [H,W,4] (the alpha channel carried through), bit for bit
+        (``utils/pil_ops``)."""
+        image = np.asarray(image)
+        if image.ndim != 3 or image.shape[2] not in (3, 4):
+            # PIL.Image.merge("RGB", ...) of the image's bands refuses it there
+            raise ValueError("colour jitter of a {} image: wrong number of bands".format(
+                image.shape))
+        rgb = image[..., :3]
         for op in order:
             if op == 0 and jitter["brightness"] != 1:
-                image = PIL.ImageEnhance.Brightness(image).enhance(
-                    jitter["brightness"])
+                rgb = pil_ops.enhance_brightness(rgb, jitter["brightness"])
             elif op == 1 and jitter["contrast"] != 1:
-                image = PIL.ImageEnhance.Contrast(image).enhance(
-                    jitter["contrast"])
+                rgb = pil_ops.enhance_contrast(rgb, jitter["contrast"])
             elif op == 2 and jitter["saturation"] != 1:
-                image = PIL.ImageEnhance.Color(image).enhance(
-                    jitter["saturation"])
+                rgb = pil_ops.enhance_color(rgb, jitter["saturation"])
             elif op == 3 and jitter["hue"] != 0:
-                h, s, v = image.convert("HSV").split()
-                h = h.point(lambda x: (x + int(jitter["hue"] * 255)) % 256)
-                image = PIL.Image.merge("HSV", (h, s, v)).convert("RGB")
-        if mode != "RGB" and len(chans) == 4:
-            image = PIL.Image.merge("RGBA", (*image.split(), chans[3]))
-        return image
+                rgb = pil_ops.shift_hue(rgb, jitter["hue"])
+        if image.shape[2] == 4:
+            return np.concatenate([rgb, image[..., 3:]], axis=-1)
+        return np.ascontiguousarray(rgb)
 
     def apply_augmentation(self, image, aug):
-        import PIL.Image
-        image = self.apply_color_jitter(image, aug["jitter"],
-                                        aug["jitter_order"])
+        image = self.apply_color_jitter(image, aug["jitter"], aug["jitter_order"])
         if aug["flip"]:
-            image = image.transpose(PIL.Image.FLIP_LEFT_RIGHT)
+            image = pil_ops.flip_lr(image)
         if aug["rot_angle"]:
-            image = image.rotate(aug["rot_angle"],
-                                 resample=PIL.Image.BICUBIC)
+            image = pil_ops.rotate_bicubic(image, aug["rot_angle"])
         return image
 
     # -- preprocessing ------------------------------------------------------
 
     def preprocess_image(self, opt, image, aug=None):
         """uint8 [H,W(,C)] -> float32 [H,W,C] in [0,1], with optional
-        photometric augmentation (through PIL), then center-crop + resize."""
+        photometric augmentation, then center-crop + resize."""
         if aug is None and self.augment:
             aug = self.generate_augmentation(opt)
         if aug is not None:
-            import PIL.Image
-            image = np.asarray(self.apply_augmentation(PIL.Image.fromarray(image), aug))
+            image = self.apply_augmentation(image, aug)
         if opt.data.get("center_crop") is not None:
             left = (self.raw_W - self.crop_W) // 2
             top = (self.raw_H - self.crop_H) // 2

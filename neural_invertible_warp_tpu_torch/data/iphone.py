@@ -1,6 +1,6 @@
 """iPhone unposed-video loader. The port's own copy of
 neural_invertible_warp_tpu/data/iphone.py (numpy; images through
-``utils/image_io``: PNG and baseline JPEG without PIL).
+``utils/image_io``: PNG and baseline or progressive JPEG without PIL).
 
 Format parity with reference data/iphone.py: numbered frames under
 ``<root>/<scene>/images``, sorted by number; the last ``val_ratio`` of them

@@ -1,6 +1,7 @@
 """LLFF forward-facing dataset loader. The port's own copy of
 neural_invertible_warp_tpu/data/llff.py (numpy; images through
-``utils/image_io``: PNG and baseline JPEG read and resized without PIL).
+``utils/image_io``: PNG and baseline or progressive JPEG read and resized
+without PIL).
 
 Format parity with reference data/llff.py:17-134:
 * ``poses_bounds.npy``: [N,17] rows = 3x5 camera matrix (c2w OpenGL

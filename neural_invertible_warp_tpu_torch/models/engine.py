@@ -1,7 +1,7 @@
 """Training engine (port of neural_invertible_warp_tpu/models/engine.py):
 dataset loading, a plain Python train loop, logging (to the console and,
 where ``tb`` is set and a writer is importable, to tensorboard, with the
-validation images where PIL and matplotlib are importable), validation, the
+validation images, encoded here without PIL or matplotlib), validation, the
 live pose view ``poses.html`` every ``freq.vis`` steps, and checkpoints.
 One ``train_step`` per iteration (the JAX package's ``lax.scan`` step
 batching has no counterpart here).
@@ -14,7 +14,6 @@ writes a ``torch.profiler`` trace of the loop there.
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import os
 import time
 
@@ -24,16 +23,22 @@ import torch
 from . import get_system_class
 from ..data import get_dataset
 from ..utils import ckpt as ckpt_util
+from ..utils import image_io
 from ..utils.log import info as log
 from ..utils.log import warn
 
 
-def _importable(name):
-    """Whether ``import name`` would find a module, without importing it."""
-    try:
-        return importlib.util.find_spec(name) is not None
-    except ImportError:
-        return False
+def image_summary(summary_cls, tag, image):
+    """(the ``Summary`` of one image, the uint8 it encodes) for float
+    [H,W,C] ``image`` in [0, 1], as tensorboardX's ``summary.image`` makes
+    it: ``(x * 255.0).astype(np.uint8)`` (no clip), PNG-encoded (here by
+    ``image_io.encode_png``, without PIL); ``summary_cls`` is the
+    ``Summary`` message of the writer's own proto module."""
+    pixels = (np.asarray(image) * 255.0).astype(np.uint8)
+    height, width, channels = pixels.shape
+    encoded = summary_cls.Image(height=height, width=width, colorspace=channels,
+                                encoded_image_string=image_io.encode_png(pixels))
+    return summary_cls(value=[summary_cls.Value(tag=tag, image=encoded)]), pixels
 
 
 class Trainer:
@@ -47,7 +52,9 @@ class Trainer:
         self.step_seconds = []     # wall time of each step (device-synced)
         self.history = []          # per-step metrics, 0-d device tensors
         self.tb = None             # tensorboard writer (setup_visualizer)
-        self.tb_images = False     # whether validation images go to tensorboard
+        self.tb_writer = None      # the writer's package, its Summary message
+        self.tb_summary = None
+        self.tb_images = {}        # tag -> (step, uint8) of the last validation's images
         self.live_pose_frames = []     # (step, aligned poses) of poses.html
 
     def load_dataset(self, eval_split="val"):
@@ -87,26 +94,28 @@ class Trainer:
 
     def setup_visualizer(self):
         """A tensorboard writer into the run directory where ``tb`` is set:
-        tensorboardX's, else torch.utils.tensorboard's; without either the
-        run goes on without one, with a warning, as the JAX engine's does."""
+        tensorboardX's, else torch.utils.tensorboard's, with the ``Summary``
+        message of that writer's proto module (the validation images are
+        encoded here, ``image_summary``); without either the run goes on
+        without one, with a warning, as the JAX engine's does."""
         if self.opt.get("tb") is None:
             return
         try:
             from tensorboardX import SummaryWriter
+            from tensorboardX.proto.summary_pb2 import Summary
             self.tb = SummaryWriter(logdir=self.opt.output_path, flush_secs=10)
+            self.tb_writer = "tensorboardX"
         except ImportError:
             try:
                 from torch.utils.tensorboard import SummaryWriter
+                from tensorboard.compat.proto.summary_pb2 import Summary
                 self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
+                self.tb_writer = "torch.utils.tensorboard"
             except ImportError as e:
                 warn("tensorboard writer unavailable: {}".format(e))
                 return
-        # the writers encode images with PIL, and depth is coloured by matplotlib
-        missing = [name for name in ("PIL", "matplotlib") if not _importable(name)]
-        self.tb_images = not missing
-        if missing:
-            warn("no validation images in tensorboard: {} not importable".format(
-                " and ".join(missing)))
+        self.tb_summary = Summary
+        log("tensorboard writer: {}".format(self.tb_writer))
 
     def train(self):
         opt = self.opt
@@ -189,7 +198,7 @@ class Trainer:
         res = self.system.validate(max_views=self.opt.data.get("val_sub"))
         self.log_scalars({k: v for k, v in res.items() if np.isscalar(v)}, step,
                          split="val")
-        if self.tb_images and res.get("vis"):
+        if self.tb and res.get("vis"):
             self._write_val_images(res, step)
         return res
 
@@ -209,16 +218,18 @@ class Trainer:
             return colorize_depth(inv.numpy().reshape(opt.H, opt.W))
 
         vis_all = res.get("vis_all") or [res["vis"]]
-        self.tb.add_image("val/rgb", to_rgb(vis_all[0]), step, dataformats="HWC")
-        self.tb.add_image("val/invdepth", to_invdepth(vis_all[0]), step, dataformats="HWC")
+        images = [("val/rgb", to_rgb(vis_all[0])), ("val/invdepth", to_invdepth(vis_all[0]))]
         if len(vis_all) > 1 and opt.get("tb") and opt.tb.get("num_images"):
             rows, cols = (int(x) for x in opt.tb.num_images)
-            self.tb.add_image("val/rgb_grid", tile_images([to_rgb(v) for v in vis_all],
-                                                          rows, cols),
-                              step, dataformats="HWC")
-            self.tb.add_image("val/invdepth_grid",
-                              tile_images([to_invdepth(v) for v in vis_all], rows, cols),
-                              step, dataformats="HWC")
+            images += [("val/rgb_grid", tile_images([to_rgb(v) for v in vis_all], rows, cols)),
+                       ("val/invdepth_grid",
+                        tile_images([to_invdepth(v) for v in vis_all], rows, cols))]
+        writer = self.tb._get_file_writer()
+        self.tb_images = {}
+        for tag, image in images:
+            summary, pixels = image_summary(self.tb_summary, tag, image)
+            writer.add_summary(summary, step)
+            self.tb_images[tag] = (step, pixels)
 
     def update_live_pose_view(self, step):
         """Rewrite ``<output_path>/poses.html``, the interactive viewer of

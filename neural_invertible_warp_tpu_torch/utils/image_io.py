@@ -1,9 +1,9 @@
 """PNG reading and writing and Pillow's resampling, on ``zlib`` and numpy,
-and JPEG reading through ``utils/jpeg`` (the card's machine has no PIL,
-imageio or cv2).
+and JPEG reading through ``utils/jpeg``, without PIL, imageio or cv2.
 
-* ``read_png(path)`` -> uint8 [H,W] (gray) or [H,W,C] (gray+alpha, RGB,
-  RGBA; a palette image expands to RGB, its ``tRNS`` alpha dropped), as
+* ``read_png(path)`` (``decode_png(data)`` of bytes) -> uint8 [H,W]
+  (gray) or [H,W,C] (gray+alpha, RGB, RGBA; a palette image expands to
+  RGB, its ``tRNS`` alpha dropped), as
   ``imageio.imread`` gives it. Bit depth 8, and 1, 2 or 4 for a palette
   image (as PIL writes one of up to 16 colours); with
   ``expand_palette=False`` a palette image gives its indices [H,W], as
@@ -12,11 +12,13 @@ imageio or cv2).
   under 8 bits (imageio gives bools), a ``tRNS`` key colour of a gray or
   RGB image, an unknown critical chunk and a JPEG raise ``ValueError``.
 * ``read_image(path)``: ``read_png``, or for a JPEG ``jpeg.read_jpeg``
-  (PIL's decode, bit for bit; a progressive or arithmetic-coded JPEG
-  raises ``ValueError`` naming the file and the mode).
-* ``write_png(path, array)``: uint8 [H,W], [H,W,1], [H,W,2], [H,W,3] or
-  [H,W,4]; each row filtered by None, Sub or Up, whichever gives the
-  smallest sum of |filtered bytes| (those decode as cumulative sums).
+  (PIL's decode, bit for bit, baseline or progressive; an arithmetic-coded
+  JPEG, or another mode it does not read, raises ``ValueError`` naming the
+  file and the mode).
+* ``encode_png(array)`` -> the bytes of an 8-bit PNG of uint8 [H,W],
+  [H,W,1], [H,W,2], [H,W,3] or [H,W,4]; each row filtered by None, Sub or
+  Up, whichever gives the smallest sum of |filtered bytes| (those decode
+  as cumulative sums); ``write_png(path, array)`` writes them to a file.
 * ``resize(array, (W, H), "bicubic" | "bilinear")``: Pillow's
   ``Image.resize`` on uint8 L, LA, RGB and RGBA images, bit for bit
   (libImaging/Resample.c): separable, the horizontal pass first; filter
@@ -106,7 +108,11 @@ def _unfilter(raw, height, row_bytes, bpp):
 def read_png(path, expand_palette=True):
     """uint8 [H,W] or [H,W,C] of the PNG at ``path`` (see the module docstring)."""
     with open(path, "rb") as fh:
-        data = fh.read()
+        return decode_png(fh.read(), path, expand_palette)
+
+
+def decode_png(data, path="<bytes>", expand_palette=True):
+    """``read_png`` of the bytes ``data``; ``path`` names them in errors."""
     if data.startswith(jpeg.SIGNATURE):
         raise ValueError("{} is a JPEG: read it with read_image".format(path))
     if not data.startswith(PNG_SIGNATURE):
@@ -171,15 +177,15 @@ def _chunk(ctype, payload):
             + struct.pack(">I", zlib.crc32(ctype + payload)))
 
 
-def write_png(path, array):
-    """Write uint8 ``array`` ([H,W] or [H,W,C], C 1-4) as an 8-bit PNG."""
+def encode_png(array):
+    """The bytes of uint8 ``array`` ([H,W] or [H,W,C], C 1-4) as an 8-bit PNG."""
     arr = np.asarray(array)
     if arr.dtype != np.uint8:
-        raise ValueError("write_png takes uint8, not {}".format(arr.dtype))
+        raise ValueError("encode_png takes uint8, not {}".format(arr.dtype))
     if arr.ndim == 2:
         arr = arr[..., None]
     if arr.ndim != 3 or not 1 <= arr.shape[2] <= 4:
-        raise ValueError("write_png takes [H,W] or [H,W,1-4], not {}".format(arr.shape))
+        raise ValueError("encode_png takes [H,W] or [H,W,1-4], not {}".format(arr.shape))
     height, width, channels = arr.shape
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
     x = arr.reshape(height, width * channels).astype(np.int16)
@@ -198,8 +204,14 @@ def write_png(path, array):
     parts += [_chunk(b"IDAT", comp[i:i + _IDAT_BYTES])
               for i in range(0, max(len(comp), 1), _IDAT_BYTES)]
     parts.append(_chunk(b"IEND", b""))
+    return b"".join(parts)
+
+
+def write_png(path, array):
+    """Write ``encode_png(array)`` to ``path``."""
+    data = encode_png(array)
     with open(path, "wb") as fh:
-        fh.write(b"".join(parts))
+        fh.write(data)
 
 
 # ------------------------------------------------------------- resampling

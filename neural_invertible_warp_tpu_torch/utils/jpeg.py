@@ -1,6 +1,7 @@
-"""Baseline JPEG decoding without PIL: what Pillow's ``np.asarray(Image.open(f))``
+"""JPEG decoding without PIL: what Pillow's ``np.asarray(Image.open(f))``
 gives (libjpeg-turbo under Pillow's defaults: the islow IDCT, fancy
-upsampling; EXIF orientation not applied), bit for bit.
+upsampling, block smoothing; EXIF orientation not applied), bit for bit,
+for baseline, extended sequential and progressive Huffman files.
 
 * ``decode(data, name)`` / ``read_jpeg(path)``: the hand-written decoder of
   ``csrc/jpeg_decode.cpp`` through ctypes (which drops the GIL, so threads
@@ -15,9 +16,14 @@ upsampling; EXIF orientation not applied), bit for bit.
   hold the two against each other.
 
 Both give uint8 [H,W] (grayscale) or [H,W,3] (RGB), and raise ValueError
-naming the file and the mode for what they do not decode: progressive,
-lossless, hierarchical and arithmetic-coded files, 12-bit samples, and 2
-or 4 components (CMYK, YCCK).
+naming the file and the mode for what they do not decode: lossless,
+hierarchical and arithmetic-coded files, 12-bit samples, 2 or 4
+components (CMYK, YCCK), and a progressive file whose AC coefficients 1-9
+were not all sent to their last bit (libjpeg smooths its blocks, which is
+not reproduced: ``SMOOTHED_MODE``). A progressive frame keeps each
+component's coefficients over all its scans (any scan script, restarts
+inside them) and then takes the baseline's IDCT, upsampling and colour
+path.
 """
 
 from __future__ import annotations
@@ -87,9 +93,9 @@ def load():
 
 def _error(status, name, msg):
     if status == _UNSUPPORTED:
-        return ValueError("{}: a {} JPEG is not supported (the decoder reads baseline and "
-                          "extended sequential Huffman, 8-bit, 1 or 3 components)".format(
-                              name, msg))
+        return ValueError("{}: a {} JPEG is not supported (the decoder reads baseline, "
+                          "extended sequential and progressive Huffman, 8-bit, 1 or 3 "
+                          "components)".format(name, msg))
     return ValueError("{}: corrupt JPEG: {}".format(name, msg))
 
 
@@ -123,12 +129,18 @@ _NATURAL = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
     27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
     51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63] + [63] * 16)
-_SOF_MODES = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+_SOF_MODES = {0xC3: "lossless (SOF3)",
               0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
               0xC7: "hierarchical (SOF7)", 0xC9: "arithmetic-coded (SOF9)",
               0xCA: "arithmetic-coded (SOF10)", 0xCB: "arithmetic-coded (SOF11)",
               0xCD: "arithmetic-coded (SOF13)", 0xCE: "arithmetic-coded (SOF14)",
               0xCF: "arithmetic-coded (SOF15)", 0xCC: "arithmetic-coded (DAC)"}
+
+
+# libjpeg smooths the blocks of a progressive image whose AC coefficients
+# 1-9 were not all sent to their last bit (jdcoefct.c's smoothing_ok, on by
+# default and so under Pillow); that smoothing is not reproduced here
+SMOOTHED_MODE = "block-smoothed progressive (SOF2: AC coefficients 1-9 not all fully sent)"
 
 
 class _Corrupt(Exception):
@@ -194,6 +206,19 @@ class _Bits:
         self.p = p + (e >> 8)
         return e & 0xFF
 
+    def raw(self, s):
+        """The next ``s`` bits as an unsigned number."""
+        p = self.p
+        q = p >> 3
+        v = (int.from_bytes(self.data[q:q + 4], "big") >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+        self.p = p + s
+        return v
+
+    def receive_bit(self):
+        p = self.p
+        self.p = p + 1
+        return (self.data[p >> 3] >> (7 - (p & 7))) & 1
+
     def receive(self, s):
         p = self.p
         q = p >> 3
@@ -226,7 +251,7 @@ def _parse(data):
             raise NotImplementedError(_SOF_MODES[m])
         length = int.from_bytes(data[pos:pos + 2], "big")
         seg, end = data[pos + 2:pos + length], pos + length
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             if seg[0] != 8:
                 raise NotImplementedError("{}-bit samples (SOF{})".format(seg[0], m - 0xC0))
             H, W, nc = int.from_bytes(seg[1:3], "big"), int.from_bytes(seg[3:5], "big"), seg[5]
@@ -237,7 +262,7 @@ def _parse(data):
             comps = [dict(id=seg[6 + 3 * i], h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
                           tq=seg[8 + 3 * i]) for i in range(nc)]
             fr.update(H=H, W=W, comps=comps, max_h=max(c["h"] for c in comps),
-                      max_v=max(c["v"] for c in comps))
+                      max_v=max(c["v"] for c in comps), progressive=m == 0xC2)
             for c in comps:
                 if fr["max_h"] % c["h"] or fr["max_v"] % c["v"]:
                     raise NotImplementedError("fractional sampling factors")
@@ -246,6 +271,7 @@ def _parse(data):
                 mcus_w = -(-W // (8 * fr["max_h"]))
                 mcus_h = -(-H // (8 * fr["max_v"]))
                 c["coef"] = np.zeros((mcus_h * c["v"], mcus_w * c["h"], 64), np.int16)
+                c["coef_bits"] = [-1] * 64
         elif m == 0xC4:
             k = 0
             while k < len(seg):
@@ -274,26 +300,27 @@ def _parse(data):
             if fr["comps"] is None:
                 raise _Corrupt("a scan before the frame")
             ns = seg[0]
-            scan = []
-            for i in range(ns):
-                c = next(c for c in fr["comps"] if c["id"] == seg[1 + 2 * i])
-                scan.append((c, fr["dc"][seg[2 + 2 * i] >> 4], fr["ac"][seg[2 + 2 * i] & 15]))
+            scan = [(next(c for c in fr["comps"] if c["id"] == seg[1 + 2 * i]),
+                     seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15) for i in range(ns)]
+            ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, \
+                seg[3 + 2 * ns] & 15
+            for c, _, _ in scan:      # libjpeg latches the table at a component's first scan
+                c.setdefault("qt", fr["quant"][c["tq"]])
             segs, end = _segments(data, end)
-            _decode_scan(fr, scan, segs)
+            if fr["progressive"]:
+                _decode_progressive_scan(fr, scan, segs, ss, se, ah, al)
+            else:
+                _decode_scan(fr, [(c, fr["dc"][td], fr["ac"][ta]) for c, td, ta in scan], segs)
         pos = end
     if fr["comps"] is None:
         raise _Corrupt("no frame")
+    if fr["progressive"] and any(b != 0 for c in fr["comps"] for b in c["coef_bits"][1:10]):
+        raise NotImplementedError(SMOOTHED_MODE)
     return fr
 
 
 def _decode_scan(fr, scan, segs):
-    if len(scan) == 1:
-        c = scan[0][0]
-        per_row = -(-c["dw"] // 8)
-        n_mcus = per_row * -(-c["dh"] // 8)
-    else:
-        per_row = -(-fr["W"] // (8 * fr["max_h"]))
-        n_mcus = per_row * -(-fr["H"] // (8 * fr["max_v"]))
+    per_row, n_mcus, blocks_of = _scan_mcus(fr, scan)
     interval = fr["restart"] or n_mcus
     for m0 in range(0, n_mcus, interval):
         seg, rst = segs[m0 // interval]
@@ -302,30 +329,150 @@ def _decode_scan(fr, scan, segs):
         bits = _Bits(seg)
         preds = [0] * len(scan)
         for m in range(m0, min(m0 + interval, n_mcus)):
-            mrow, mcol = divmod(m, per_row)
-            for i, (c, dc, ac) in enumerate(scan):
-                blocks = ([(mrow, mcol)] if len(scan) == 1 else
-                          [(mrow * c["v"] + y, mcol * c["h"] + x)
-                           for y in range(c["v"]) for x in range(c["h"])])
-                for by, bx in blocks:
-                    block = c["coef"][by, bx]
-                    s = bits.huff(dc)
-                    preds[i] += bits.receive(s) if s else 0
-                    block[0] = np.int64(preds[i]).astype(np.int16)
-                    k = 1
-                    while k < 64:
-                        rs = bits.huff(ac)
-                        r, s = rs >> 4, rs & 15
-                        if s:
-                            k += r
-                            block[_NATURAL[k]] = bits.receive(s)
-                        elif r != 15:
-                            break
-                        else:
-                            k += 15
-                        k += 1
+            for i, by, bx in blocks_of(*divmod(m, per_row)):
+                c, dc, ac = scan[i]
+                block = c["coef"][by, bx]
+                s = bits.huff(dc)
+                preds[i] += bits.receive(s) if s else 0
+                block[0] = np.int64(preds[i]).astype(np.int16)
+                k = 1
+                while k < 64:
+                    rs = bits.huff(ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        block[_NATURAL[k]] = bits.receive(s)
+                    elif r != 15:
+                        break
+                    else:
+                        k += 15
+                    k += 1
     for c, _, _ in scan:
         c["decoded"] = True
+
+
+def _scan_mcus(fr, scan):
+    """(blocks per MCU row, MCU count, each MCU's blocks as [(component
+    index in the scan, block row, block col)] of MCU (row, col))."""
+    if len(scan) == 1:
+        c = scan[0][0]
+        per_row = -(-c["dw"] // 8)
+        return per_row, per_row * -(-c["dh"] // 8), lambda mrow, mcol: [(0, mrow, mcol)]
+    per_row = -(-fr["W"] // (8 * fr["max_h"]))
+
+    def blocks(mrow, mcol):
+        return [(i, mrow * c["v"] + y, mcol * c["h"] + x) for i, (c, _, _) in enumerate(scan)
+                for y in range(c["v"]) for x in range(c["h"])]
+    return per_row, per_row * -(-fr["H"] // (8 * fr["max_v"])), blocks
+
+
+def _decode_progressive_scan(fr, scan, segs, ss, se, ah, al):
+    """One scan of a progressive frame into the components' coefficients
+    (jdphuff.c: DC first and refine, AC first and refine with EOB runs and
+    correction bits; every count restarts at a restart marker)."""
+    dc_band = ss == 0
+    if ((se != 0) if dc_band else (ss > se or se > 63 or len(scan) != 1)) \
+            or (ah and al != ah - 1) or al > 13:
+        raise _Corrupt("bad progression (Ss={} Se={} Ah={} Al={})".format(ss, se, ah, al))
+    for c, _, _ in scan:
+        for k in range(ss, se + 1):
+            c["coef_bits"][k] = al
+        if dc_band:
+            c["decoded"] = True
+    tables = [fr["dc"][td] if dc_band else fr["ac"][ta] for _, td, ta in scan] \
+        if not (dc_band and ah) else None
+    p1, m1 = 1 << al, -1 << al
+    per_row, n_mcus, blocks_of = _scan_mcus(fr, scan)
+    interval = fr["restart"] or n_mcus
+    for m0 in range(0, n_mcus, interval):
+        seg, rst = segs[m0 // interval]
+        if m0 + interval < n_mcus and rst != (m0 // interval) % 8:
+            raise _Corrupt("bad restart marker")
+        bits = _Bits(seg)
+        preds = [0] * len(scan)
+        eobrun = 0
+        for m in range(m0, min(m0 + interval, n_mcus)):
+            for i, by, bx in blocks_of(*divmod(m, per_row)):
+                block = scan[i][0]["coef"][by, bx]
+                if dc_band and not ah:
+                    s = bits.huff(tables[i])
+                    preds[i] += bits.receive(s) if s else 0
+                    block[0] = _wrap16(preds[i] << al)
+                elif dc_band:
+                    if bits.receive_bit():
+                        block[0] = _wrap16(int(block[0]) | p1)
+                elif not ah:
+                    eobrun = _ac_first(bits, tables[i], block, ss, se, al, eobrun)
+                else:
+                    eobrun = _ac_refine(bits, tables[i], block, ss, se, p1, m1, eobrun)
+
+
+def _wrap16(v):
+    return (v + 0x8000) % 0x10000 - 0x8000
+
+
+def _ac_first(bits, table, block, ss, se, al, eobrun):
+    if eobrun:
+        return eobrun - 1
+    k = ss
+    while k <= se:
+        rs = bits.huff(table)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            block[_NATURAL[k]] = _wrap16(bits.receive(s) << al)
+        elif r == 15:
+            k += 15
+        else:
+            eobrun = 1 << r
+            if r:
+                eobrun += bits.raw(r)
+            return eobrun - 1
+        k += 1
+    return 0
+
+
+def _refine(bits, block, pos, p1, m1):
+    """A correction bit for the nonzero coefficient at ``pos``."""
+    if bits.receive_bit():
+        v = int(block[pos])
+        if not v & p1:
+            block[pos] = _wrap16(v + (p1 if v >= 0 else m1))
+
+
+def _ac_refine(bits, table, block, ss, se, p1, m1, eobrun):
+    k = ss
+    if not eobrun:
+        while k <= se:
+            rs = bits.huff(table)
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if bits.receive_bit() else m1
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += bits.raw(r)
+                break
+            while k <= se:     # past nonzero coefficients (refined) and r zero ones
+                pos = _NATURAL[k]
+                if block[pos]:
+                    _refine(bits, block, pos, p1, m1)
+                else:
+                    if r == 0:
+                        break
+                    r -= 1
+                k += 1
+            if s:
+                block[_NATURAL[k]] = s
+            k += 1
+    if eobrun:
+        while k <= se:
+            pos = _NATURAL[k]
+            if block[pos]:
+                _refine(bits, block, pos, p1, m1)
+            k += 1
+        eobrun -= 1
+    return eobrun
 
 
 def _idct_1d(x, pass1):
@@ -357,10 +504,10 @@ def _range_limit(v):
     return np.select([x < 128, x < 512, x < 896], [x + 128, 255, 0], x - 896).astype(np.uint8)
 
 
-def _plane(c, quant):
+def _plane(c):
     """The component's decoded samples [rows, cols] (the padded MCU area)."""
     coef = c["coef"].astype(np.int64).reshape(*c["coef"].shape[:2], 8, 8)
-    deq = coef * quant[c["tq"]].reshape(8, 8)
+    deq = coef * c["qt"].reshape(8, 8)
     cols = _idct_1d([deq[..., k, :] for k in range(8)], True)        # columns: over rows k
     ws = np.stack(cols, axis=-2)                                      # [..., 8 rows, 8 cols]
     rows = _idct_1d([ws[..., k] for k in range(8)], False)            # rows: over columns k
@@ -415,7 +562,7 @@ def decode_plain(data, name="<bytes>"):
     if not all(c.get("decoded") for c in comps):
         raise _error(_CORRUPT, name, "a component in no scan")
     H, W = fr["H"], fr["W"]
-    chans = [_upsample(c, _plane(c, fr["quant"]), H, W, fr["max_h"], fr["max_v"])
+    chans = [_upsample(c, _plane(c), H, W, fr["max_h"], fr["max_v"])
              for c in comps]
     if len(chans) == 1:
         return chans[0].astype(np.uint8)

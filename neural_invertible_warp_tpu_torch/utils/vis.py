@@ -1,7 +1,8 @@
 """Visualization: pose-evolution plots, depth colorization, video export
-(port of neural_invertible_warp_tpu/utils/vis.py). matplotlib is imported
-inside the functions that draw, so importing this module (and the
-evaluation entry point) does not need it.
+(port of neural_invertible_warp_tpu/utils/vis.py). The pose plots need
+matplotlib, imported inside the functions that draw, so importing this
+module (and the evaluation entry point) does not; ``colorize_depth`` needs
+no matplotlib (viridis is carried as a table, ``utils/viridis.py``).
 
 Capability parity with reference util_vis.py (matplotlib pose plots
 :195-403, depth colorization :404-563) and the pose-evolution video replay
@@ -16,6 +17,8 @@ import os
 import shutil
 
 import numpy as np
+
+from .viridis import VIRIDIS
 
 
 def _pyplot():
@@ -86,8 +89,31 @@ plot_save_poses_blender = plot_save_poses
 plot_save_poses_dtu = plot_save_poses
 
 
+def _viridis(x):
+    """matplotlib's viridis of float ``x`` in [0, 1] as float32 RGB, as
+    ``Colormap.__call__`` indexes its table: ``x * N`` in ``x``'s dtype, 1.0
+    to the last colour, truncated to an index; NaN gives black."""
+    lut = np.array(VIRIDIS, np.float64)
+    n = len(lut)
+    xa = np.array(x, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    bad = np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = xa.astype(int)
+    idx[xa < 0] = 0
+    idx[(xa >= n) | bad] = n - 1
+    rgb = lut[idx].astype(np.float32)
+    rgb[bad] = 0
+    return rgb
+
+
 def colorize_depth(depth, valid=None, cmap="viridis"):
-    """[H,W] depth -> [H,W,3] colormapped float image (util_vis.py:404-563)."""
+    """[H,W] depth -> [H,W,3] colormapped float image (util_vis.py:404-563):
+    the JAX package's matplotlib colouring, bit for bit, without matplotlib
+    (viridis only)."""
+    if cmap != "viridis":
+        raise ValueError("colorize_depth carries viridis only, not {!r}".format(cmap))
     depth = np.asarray(depth, np.float32)
     if valid is None:
         valid = np.isfinite(depth)
@@ -95,7 +121,7 @@ def colorize_depth(depth, valid=None, cmap="viridis"):
     lo = np.percentile(vals, 1) if vals.size else 0.0
     hi = np.percentile(vals, 99) if vals.size else 1.0
     norm = np.clip((depth - lo) / max(hi - lo, 1e-8), 0, 1)
-    rgb = _pyplot().get_cmap(cmap)(norm)[..., :3].astype(np.float32)
+    rgb = _viridis(norm)
     rgb[~valid] = 0
     return rgb
 

@@ -9,8 +9,10 @@ and that decode's sha256 (``np.asarray(PIL.Image.open(f))``, unrotated), or,
 for a mode the port does not decode, the mode its ValueError names. Also
 writes ``llff/blobfern/``: the blob LLFF scene of chip_smoke.py's path
 ``cli`` (19 views, ``backdrop=True``) rendered at 240x320 and saved by PIL
-at quality 90, beside its ``poses_bounds.npy``, and ``large_1008x1344.jpg``
-(its first view upscaled) to time the decoder on.
+at quality 90, beside its ``poses_bounds.npy``; ``llff_progressive/blobfern/``,
+the same rendered views saved by PIL at quality 90 with
+``progressive=True`` beside a copy of that ``poses_bounds.npy``; and
+``large_1008x1344.jpg`` (the first view upscaled) to time the decoder on.
 """
 
 from __future__ import annotations
@@ -102,14 +104,41 @@ CASES = {
     "icc_30x40": ((30, 40, 3), 18, "pil", "quality=90, icc_profile=bytes(range(256)) * 8"),
     "comment_30x40": ((30, 40, 3), 19, "pil", "quality=90, comment=b'fixture'"),
     "adobe_rgb_30x40": ((30, 40, 3), 20, "pil", "quality=90, keep_rgb=True"),
-    # modes the port does not decode
+    # progressive (SOF2): libjpeg's standard scan scripts, with and without
+    # optimized tables and restart intervals
     "progressive_30x40": ((30, 40, 3), 21, "pil", "quality=90, progressive=True"),
+    "prog_444_37x53": ((37, 53, 3), 25, "pil", "quality=90, subsampling=0, progressive=True"),
+    "prog_422_37x53": ((37, 53, 3), 26, "pil", "quality=90, subsampling=1, progressive=True"),
+    "prog_420_37x53": ((37, 53, 3), 27, "pil", "quality=90, subsampling=2, progressive=True, "
+                       "optimize=True"),
+    "prog_gray_37x53": ((37, 53, 1), 28, "pil", "quality=90, progressive=True, optimize=True"),
+    "prog_q50_9x17": ((9, 17, 3), 29, "pil", "quality=50, progressive=True, optimize=True"),
+    "prog_q100_1x1": ((1, 1, 3), 30, "pil", "quality=100, progressive=True"),
+    "prog_rst1_40x56": ((40, 56, 3), 31, "cv2", "[cv2.IMWRITE_JPEG_QUALITY, 80, "
+                        "cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 1]"),
+    "prog_rst3_gray_40x56": ((40, 56, 1), 32, "cv2", "[cv2.IMWRITE_JPEG_QUALITY, 80, "
+                             "cv2.IMWRITE_JPEG_PROGRESSIVE, 1, "
+                             "cv2.IMWRITE_JPEG_RST_INTERVAL, 3]"),
+    "prog_rst2_411_40x56": ((40, 56, 3), 33, "cv2", "[cv2.IMWRITE_JPEG_QUALITY, 95, "
+                            "cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 2, "
+                            "cv2.IMWRITE_JPEG_SAMPLING_FACTOR, "
+                            "cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]"),
+    # modes the port does not decode
+    "progressive_partial_30x40": ((30, 40, 3), 34, "patch", "progressive s420 with its last "
+                                  "scan (luma AC 1-63, bit 0) cut"),
     "cmyk_30x40": ((30, 40, 3), 22, "pil-cmyk", "quality=90"),
     "arithmetic_30x40": ((30, 40, 3), 23, "patch", "s420 baseline with SOF0 rewritten as SOF9"),
     "12bit_30x40": ((30, 40, 3), 24, "patch", "s420 baseline with its SOF0 precision set to 12"),
+    "lossless_30x40": ((30, 40, 3), 35, "patch", "s420 baseline with SOF0 rewritten as SOF3"),
+    "hierarchical_30x40": ((30, 40, 3), 36, "patch", "s420 baseline with SOF0 rewritten as SOF5"),
+    "2comp_30x40": ((30, 40, 3), 37, "patch", "s420 baseline with its third SOF0 component "
+                    "dropped"),
 }
-RAISES = {"progressive_30x40": "progressive (SOF2)", "cmyk_30x40": "4-component",
-          "arithmetic_30x40": "arithmetic-coded (SOF9)", "12bit_30x40": "12-bit samples (SOF0)"}
+RAISES = {"cmyk_30x40": "4-component", "arithmetic_30x40": "arithmetic-coded (SOF9)",
+          "12bit_30x40": "12-bit samples (SOF0)",
+          "progressive_partial_30x40": "block-smoothed progressive (SOF2",
+          "lossless_30x40": "lossless (SOF3)", "hierarchical_30x40": "hierarchical (SOF5)",
+          "2comp_30x40": "2-component"}
 
 
 def encode(name):
@@ -124,10 +153,18 @@ def encode(name):
         return buf.getvalue(), "PIL.Image.fromarray(a).convert('CMYK').save(f, 'JPEG', quality=90)"
     if how == "cv2":
         return cv2_jpeg(arr, eval(args)), "cv2.imencode('.jpg', a[..., ::-1], {})".format(args)
+    if name.startswith("progressive_partial"):
+        data = pil_jpeg(arr, quality=90, progressive=True)
+        return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9", args
     base = pil_jpeg(arr, quality=90)
-    if name.startswith("arithmetic"):
-        return patched(base, b"\xff\xc0", b"\xff\xc9"), args
+    for prefix, sof in (("arithmetic", b"\xc9"), ("lossless", b"\xc3"), ("hierarchical", b"\xc5")):
+        if name.startswith(prefix):
+            return patched(base, b"\xff\xc0", b"\xff" + sof), args
     sof = base.index(b"\xff\xc0")
+    if name.startswith("2comp"):
+        # length 8 + 3 * 2, two components, the third's 3 bytes dropped
+        return (base[:sof + 2] + (14).to_bytes(2, "big") + base[sof + 4:sof + 9] + b"\x02"
+                + base[sof + 10:sof + 16] + base[sof + 19:]), args
     return base[:sof + 4] + bytes([12]) + base[sof + 5:], args
 
 
@@ -152,15 +189,21 @@ def write_llff(manifest):
     with tempfile.TemporaryDirectory() as tmp:
         imgs = scenes.write_llff_tree(scene, tmp, LLFF_HW)
         shutil.copy(os.path.join(tmp, "blobfern", "poses_bounds.npy"), out)
-    for i, img in enumerate(imgs):
-        path = os.path.join(out, "images", "{:03d}.jpg".format(i))
-        data = pil_jpeg(img, quality=90)
-        with open(path, "wb") as fh:
-            fh.write(data)
-        manifest.append(record(path, data, "scenes.write_llff_tree(scenes.blob_llff_scene("
-                               "n_images=19, val_ratio=0.1, backdrop=True), root, (240, 320)) "
-                               "view {}, then PIL.Image.fromarray(a).save(f, 'JPEG', "
-                               "quality=90)".format(i)))
+    out_prog = os.path.join(HERE, "llff_progressive", "blobfern")
+    shutil.rmtree(out_prog, ignore_errors=True)
+    os.makedirs(os.path.join(out_prog, "images"))
+    shutil.copy(os.path.join(out, "poses_bounds.npy"), out_prog)
+    for folder, kw, args in ((out, {}, "quality=90"),
+                             (out_prog, dict(progressive=True), "quality=90, progressive=True")):
+        for i, img in enumerate(imgs):
+            path = os.path.join(folder, "images", "{:03d}.jpg".format(i))
+            data = pil_jpeg(img, quality=90, **kw)
+            with open(path, "wb") as fh:
+                fh.write(data)
+            manifest.append(record(path, data, "scenes.write_llff_tree(scenes.blob_llff_scene("
+                                   "n_images=19, val_ratio=0.1, backdrop=True), root, (240, "
+                                   "320)) view {}, then PIL.Image.fromarray(a).save(f, 'JPEG', "
+                                   "{})".format(i, args)))
 
 
 def write_large(manifest):

@@ -41,7 +41,7 @@ from neural_invertible_warp_tpu_torch.models.engine import Trainer
 from neural_invertible_warp_tpu_torch.ops import inn, lie, rays, sampling
 from neural_invertible_warp_tpu_torch.ops.cuda import fused_inn
 from neural_invertible_warp_tpu_torch.parallel import audit
-from neural_invertible_warp_tpu_torch.utils import ckpt, weights
+from neural_invertible_warp_tpu_torch.utils import ckpt, image_io, weights
 from neural_invertible_warp_tpu_torch.utils.optim import MultiAdam
 
 # the test workers share the cores: one intra-op thread each (ROADMAP, test time)
@@ -401,8 +401,14 @@ class FakeWriter:
     def add_scalar(self, tag, value, step):
         self.scalars.append((tag, float(value), int(step)))
 
-    def add_image(self, tag, image, step, dataformats=None):
-        self.images.append((tag, np.asarray(image).shape, int(step), dataformats))
+    def _get_file_writer(self):
+        return self
+
+    def add_summary(self, summary, step):
+        for value in summary.value:
+            image = value.image
+            self.images.append((value.tag, (image.height, image.width, image.colorspace),
+                                int(step), image_io.decode_png(image.encoded_image_string)))
 
     def flush(self):
         self.flushed += 1
@@ -419,10 +425,13 @@ def _trainer(tmp_path, flags, steps=2):
 
 
 def test_tensorboard_scalars_and_validation_images(tmp_path, monkeypatch):
-    """Through a stand-in tensorboardX: the JAX engine's tags for the same
-    metrics, and the validation rgb and inverse depth with their grids."""
+    """Through a stand-in tensorboardX (its writer, the real Summary
+    message): the JAX engine's tags for the same metrics, and the validation
+    rgb and inverse depth with their grids, as PNGs of the encoded pixels."""
+    from tensorboardX.proto import summary_pb2
     monkeypatch.setitem(sys.modules, "tensorboardX",
                         types.SimpleNamespace(SummaryWriter=FakeWriter))
+    monkeypatch.setitem(sys.modules, "tensorboardX.proto.summary_pb2", summary_pb2)
     trainer = _trainer(tmp_path, [])
     trainer.setup_visualizer()
     assert isinstance(trainer.tb, FakeWriter) and trainer.tb.logdir == str(tmp_path)
@@ -435,6 +444,9 @@ def test_tensorboard_scalars_and_validation_images(tmp_path, monkeypatch):
     assert [(t, shape) for t, shape, _, _ in tb.images] == [
         ("val/rgb", (H, W, 3)), ("val/invdepth", (H, W, 3)),
         ("val/rgb_grid", (H, 2 * W, 3)), ("val/invdepth_grid", (H, 2 * W, 3))]
+    for tag, _, step, pixels in tb.images:
+        assert trainer.tb_images[tag][0] == step
+        assert np.array_equal(trainer.tb_images[tag][1], pixels), tag
     assert tb.flushed == 1
 
 

@@ -71,6 +71,8 @@ SLICE_MODULES = [
     "neural_invertible_warp_tpu_torch.utils.image_io",
     "neural_invertible_warp_tpu_torch.utils.jpeg",
     "neural_invertible_warp_tpu_torch.utils.cv_ops",
+    "neural_invertible_warp_tpu_torch.utils.pil_ops",
+    "neural_invertible_warp_tpu_torch.utils.viridis",
     "neural_invertible_warp_tpu_torch.data.dtu",
     "chip_smoke",
 ]
@@ -80,7 +82,7 @@ import importlib, sys
 
 
 class Blocked:
-    # the card's machine has none of these: importing one raises here too
+    # the port needs none of these on the card: importing one raises here
     names = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2")
 
     def find_spec(self, name, path=None, target=None):
@@ -91,6 +93,36 @@ class Blocked:
 
 sys.meta_path.insert(0, Blocked())
 """
+
+# train.main with data.augment (every jitter, hflip, rotate; from an options
+# file, as the CLI takes no flag for a key the option files lack) on the
+# committed progressive JPEG tree, three held-out views, one validation with
+# its tensorboard images: chip_smoke's checks of path cli_data, on the CPU
+AUGMENT_RUN = """
+import os
+import chip_smoke
+from neural_invertible_warp_tpu_torch import train
+out_aug = os.path.join({out!r}, "augment")
+flags = {aug!r} + ["--yaml=" + chip_smoke.augment_options(out_aug), "--output_root=" + out_aug]
+trainer = train.main(flags)
+assert trainer.system.step == 4
+failures = []
+assert chip_smoke.hold_tb_images(trainer, failures) == "tensorboardX" and not failures, failures
+assert set(trainer.tb_images) == set(chip_smoke.CLI_DATA_TB_TAGS)
+chip_smoke.hold_augmentation(trainer, failures)
+assert not failures, failures
+"""
+
+
+def augment_flags():
+    """The tiny flagship's flags for AUGMENT_RUN (its --yaml and
+    --output_root are added there)."""
+    prog = os.path.join(ROOT, "tests", "data", "jpeg", "llff_progressive")
+    return [f for f in CLI_FLAGS if not f.startswith((
+        "--yaml", "--data.scene", "--data.image_size", "--data.val_ratio", "--freq.val"))] + [
+        "--data.root=" + prog, "--data.scene=blobfern", "--data.image_size=[12,16]",
+        "--data.val_ratio=0.2", "--freq.val=4", "--device=cpu"]
+
 
 PROBE = BLOCKER + """
 for m in {mods!r}:
@@ -157,6 +189,8 @@ assert train.main(flags).system.step == 4
 results = evaluate.main(flags)
 assert results["PSNR"] > 0 and os.listdir(os.path.join({out!r}, "cli", "cli", "run0",
                                                        "novel_view"))
+""" + AUGMENT_RUN + """
+assert evaluate.main(flags)["PSNR"] > 0
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
@@ -166,19 +200,21 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 def test_gpu_path_imports_no_jax_yaml_pil_imageio(tmp_path):
     """The port's slice modules and chip_smoke.py, imported and driven up to
     building the system, and ``train.main`` / ``evaluate.main`` of the flagship
-    (``--device=cpu``, a tiny width, a validation whose tensorboard images are
-    skipped with a warning, since they need PIL and matplotlib) on an LLFF
-    tree of PNGs written at twice the trained size, all with jax, yaml, PIL,
-    imageio, matplotlib and cv2 blocked by a meta-path finder that raises:
-    both finish, and none of those nor the JAX package is loaded (the card's
-    machine has none of the first six)."""
+    (``--device=cpu``, a tiny width, a validation with its tensorboard
+    images) on an LLFF tree of PNGs written at twice the trained size, then
+    ``AUGMENT_RUN`` (``data.augment`` and the validation's tensorboard
+    images on the progressive JPEG tree) and its evaluation, all with jax,
+    yaml, PIL, imageio, matplotlib and cv2 blocked by a meta-path finder
+    that raises: all finish, and none of those nor the JAX package is
+    loaded (the port needs none of the first six)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     env["OMP_NUM_THREADS"] = "1"
     cli = [f for f in CLI_FLAGS if not f.startswith(("--data.image_size", "--freq.val"))] + [
         "--data.image_size=[12,16]", "--freq.val=4", "--device=cpu"]
     out = subprocess.run(
-        [sys.executable, "-c", PROBE.format(mods=SLICE_MODULES, out=str(tmp_path), cli=cli)],
+        [sys.executable, "-c", PROBE.format(mods=SLICE_MODULES, out=str(tmp_path), cli=cli,
+                                            aug=augment_flags())],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
@@ -203,6 +239,7 @@ assert evaluate.main(flags)["PSNR"] > 0
 # homography on a JPEG
 system = train.main({homography!r} + ["--output_root=" + os.path.join(out, "planar")])
 assert system.step == 3 and tuple(system.image.shape) == (24, 32, 3)
+""" + AUGMENT_RUN + """
 banned = ("jax", "jaxlib", "yaml", "PIL", "imageio", "matplotlib", "cv2",
           "neural_invertible_warp_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
@@ -215,8 +252,9 @@ def test_gpu_path_reads_jpeg_and_dtu_files_without_pil_imageio_cv2(tmp_path):
     images and masks, PFM depth, the cameras decomposed and the images
     resized by ``utils/cv_ops``) and of the flagship on the committed LLFF
     tree of JPEGs (``utils/jpeg``), and three homography steps on a fixture
-    JPEG, all at a tiny width on the CPU; none of those libraries nor the
-    JAX package is loaded."""
+    JPEG, then ``AUGMENT_RUN`` on the progressive JPEG tree, all at a tiny
+    width on the CPU; none of those libraries nor the JAX package is
+    loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     env["OMP_NUM_THREADS"] = "1"
@@ -240,7 +278,7 @@ def test_gpu_path_reads_jpeg_and_dtu_files_without_pil_imageio_cv2(tmp_path):
                   "--freq.scalar=2"]
     out = subprocess.run(
         [sys.executable, "-c", PROBE_FILES.format(out=str(tmp_path), dtu=dtu, llff=llff,
-                                                  homography=homography)],
+                                                  homography=homography, aug=augment_flags())],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
@@ -485,16 +523,18 @@ def _imported_roots(path):
     return roots
 
 
-# the modules the CLI runs (train, evaluate, the loaders it reads PNG trees
-# through, the systems that write PNGs), and the functions of theirs that may
-# import PIL: the augmentation branch (no option file sets data.augment) and
-# the JPEG branch (the card's machine has no JPEG decoder)
+# the modules the CLI runs (train, evaluate, the loaders it reads PNG and
+# JPEG trees through, the augmentation, the systems that write PNGs, the
+# engine's tensorboard images)
 CLI_PATH_MODULES = ("config.py", "train.py", "evaluate.py", "data/base.py", "data/llff.py",
                     "data/blender.py", "data/iphone.py", "data/tandt.py", "data/dtu.py",
-                    "models/system.py", "models/planar.py", "utils/image_io.py",
-                    "utils/jpeg.py", "utils/cv_ops.py", "utils/options_yaml.py")
-PIL_BRANCHES = {("data/base.py", "apply_color_jitter"), ("data/base.py", "apply_augmentation"),
-                ("data/base.py", "preprocess_image")}
+                    "models/system.py", "models/planar.py", "models/engine.py",
+                    "utils/image_io.py", "utils/jpeg.py", "utils/cv_ops.py",
+                    "utils/options_yaml.py", "utils/pil_ops.py", "utils/vis.py",
+                    "utils/viridis.py")
+# the one function of the port that imports matplotlib: the pose plots
+# (matplotlib's 3D axes; not ported, ROADMAP)
+POSE_PLOT_BRANCH = ("utils/vis.py", "_pyplot")
 
 
 def _imported_roots_by_function(path):
@@ -568,19 +608,22 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     found = ["{}:{}".format(os.path.relpath(path, ROOT), line) for path in sources
              for root, line in _imported_roots(path) if root == "yaml"]
     assert not found, found
-    # on the CLI path, PIL only in the augmentation branch, imageio and cv2
-    # nowhere (JPEG: utils/jpeg.py; DTU: utils/cv_ops.py); the walker sees
-    # imports inside functions
+    # no port source imports PIL, imageio or cv2, and matplotlib only the
+    # pose plots do (the walker sees imports inside functions); every
+    # module of the CLI path is among the sources walked
+    pkg_rel = {os.path.relpath(p, pkg).replace(os.sep, "/") for p in sources
+               if p.startswith(pkg + os.sep)}
+    assert set(CLI_PATH_MODULES) <= pkg_rel, set(CLI_PATH_MODULES) - pkg_rel
     found, seen = [], set()
-    for rel in CLI_PATH_MODULES:
-        path = os.path.join(ROOT, "neural_invertible_warp_tpu_torch", *rel.split("/"))
+    for path in sources:
+        rel = os.path.relpath(path, pkg).replace(os.sep, "/")
         for root, line, func in _imported_roots_by_function(path):
             if root in ("PIL", "imageio", "matplotlib", "cv2"):
                 seen.add((rel, func))
-                if (rel, func) not in PIL_BRANCHES:
+                if (rel, func) != POSE_PLOT_BRANCH or root != "matplotlib":
                     found.append("{}:{} imports {} in {}".format(rel, line, root, func))
     assert not found, found
-    assert seen == PIL_BRANCHES, seen
+    assert seen == {POSE_PLOT_BRANCH}, seen
 
 
 # ------------------------------------------------------ the port's own copies
