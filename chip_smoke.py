@@ -21,6 +21,15 @@ Phases, one or more lines each:
      kernel and plain timed with CUDA events (median of 20 runs after 3
      warm-up runs), beside the least time the card could take on the
      kernel's route and all in fp32;
+ 3b. kernels bf16: K2, K3 and K4 under tpu.compute_dtype: bfloat16 through
+     the same wrappers at the same shapes, against their bf16 plain versions
+     and a float64 evaluation of the same bf16 math (operands rounded to
+     bf16 from their float64 values, float64 sums): each value and gradient
+     within TOL or no farther from float64 than TOL_BF16_VS_F64 times the
+     plain version; the pack kernel's bf16 plane bit for bit; two launches
+     giving the same bits; the bf16 results apart from the fp32 ones; each
+     kernel timed beside its fp32 twin in this call, with its bound at the
+     dense bf16 rate;
   4. slice: the flagship model (barf_inn_llff at full width) trains 100
      steps through the port's Trainer on an in-memory synthetic scene, then
      renders the validation view and writes a checkpoint. Checks that every
@@ -213,6 +222,15 @@ Phases, one or more lines each:
      W: (d) 38.70 ms/step, K2 40, K3 528 (114 in training), K4 300;
      writer torch.utils.tensorboard; decode 1.395 / 1.277 ms per image
      progressive / baseline, augmentation 69.122; the path 86.1 s.
+ 20. flagship_bf16: the flagship's train.main (100 steps) and evaluate.main
+     (2 held-out views, test-time refinement) with
+     --tpu.compute_dtype=bfloat16 on path cli's tree: the option arrives as
+     the string "bfloat16", every logged loss finite, the render loss falls,
+     K2 once per step and K3 and K4 launched only in bf16, no fp32 or K5/K1
+     launch; then each configuration that would reach K5 or K1 (fine
+     sampling, tpu.fused_raymarch: false, density noise outside K2, the
+     MLP-only tier) refuses the option before a step, and the plain chain
+     ignores it; then hold_evidence.
 Then a JSON line of kernel results, the card line, and the result line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 then non-zero and no result line is printed. Without a CUDA device it exits
@@ -290,6 +308,18 @@ PEAK_BYTES_PER_S = 3.35e12
 # take that route; K2's forward and the forwards under autograd of K3, K5
 # and K1 stay fp32 FMAs on the CUDA cores
 TF32_PASSES = 3
+# tpu.compute_dtype: bfloat16 (phase 3b, path flagship_bf16): the H100 SXM
+# data sheet's dense bf16 tensor-core rate at 700 W. The bf16 backward and
+# render sum in another order than the plain version, and the PE's sin/cos
+# may differ from PyTorch's by an ulp; rounding to bf16 turns such an ulp
+# into 2^-8 of the element next to a rounding midpoint, so a value or
+# gradient that misses TOL passes if it lies no farther from a float64
+# evaluation of the same bf16 math than this factor times the plain
+# version's distance (TOL_SFM_K2_VS_F64's rule). On an H100 the kept K3
+# forward read 6.5e-7 of max at progress 0.3 and 5.8e-5 with all bands
+# open, both as far from float64 as the plain version (PERF.md)
+PEAK_BF16_FLOPS = 989e12
+TOL_BF16_VS_F64 = 1.5
 # test-time refinement of training view 0 turned by this rotation (rad, about
 # an axis in the image plane): against the field's own render the rotation
 # error must fall below MAX_REFINED_ROTATION_SHARE of it, and against either
@@ -569,6 +599,18 @@ EVIDENCE_EXTRA_RUNS = ("iphone_narrow", "tandt_narrow")
 # path cli: the flagship's CLI on an LLFF tree of PNGs, 18 train + 1 val views
 # (data.val_ratio 0.1) written at twice the flagship's 480x640
 CLI_VIEWS = 19
+# path flagship_bf16: the flagship's CLI on path cli's tree under
+# tpu.compute_dtype: bfloat16; 0.15 holds out the last 2 of the 19 views.
+# BF16_REFUSED: the configurations that would reach K5 or K1 (no bf16 variant)
+BF16_STEPS = 100
+BF16_VAL_RATIO = 0.15
+BF16_REFUSED = [
+    ("fine sampling (K5)", ["--model=nerf", "--yaml=nerf_llff_repr"]),
+    ("tpu.fused_raymarch: false (K5)", ["--tpu.fused_raymarch!"]),
+    ("density noise outside the one-call kernel (K5)",
+     ["--tpu.fused_train!", "--nerf.density_noise_reg=1.0"]),
+    ("the MLP-only tier (K1)", ["--tpu.fused_pe!"]),
+]
 CLI_WRITE_HW = (960, 1280)
 CLI_STEPS = 100
 CLI_SUBPROCESS_TIMEOUT = 300
@@ -730,41 +772,52 @@ def k2_plain(mlp, center, ray, depth, target, kw, weight):
     bg = float(kw["bgcolor"]) if kw["setbg_opaque"] else None
     sq, out8 = fp.render_rays_train_plain(
         mlp, c.reshape(B * R, 3), r.reshape(B * R, 3), depth.reshape(B * R, K),
-        target8, kw["progress"], kw["barf_c2f"], bg)
+        target8, kw["progress"], kw["barf_c2f"], bg,
+        compute_dtype=kw.get("compute_dtype", "float32"))
     grads = torch.autograd.grad(weight * sq / (B * R * 3),
                                 [c, r] + list(mlp.parameters()))
     return sq.detach(), split_plain(out8, B, R, bg), grads
 
 
-def k2_f64(mlp, center, ray, depth, target, kw, weight):
-    """k2_plain's (sq_sum, render, gradients) with everything after the PE in
-    float64. The points, the unit rays and the PE's sin/cos are taken in
-    fp32, as the kernel and the plain version take them: at depths up to 1e6
-    the PE's arguments differ between fp32 and float64 by whole periods."""
+def render_f64(mlp, center, ray, depth, kw):
+    """(mlp64, c, r, (rgb, depth, opacity)): the render of kw's options with
+    everything after the PE in float64, differentiable in c and r (copies
+    of center and ray) and mlp64's parameters (a float64 copy of mlp). The
+    points, the unit rays and the PE's sin/cos are taken in fp32, as the
+    kernels and the plain versions take them: at depths up to 1e6 the PE's
+    arguments differ between fp32 and float64 by whole periods. Under kw's
+    compute_dtype bfloat16 every layer product's operands are rounded to
+    bf16 from their float64 values (the same bf16 math, summed in float64)."""
     from neural_invertible_warp_tpu_torch.ops import nerf_mlp, render
-    B, R = depth.shape[:2]
     mlp64 = copy.deepcopy(mlp).double()
     pe32 = nerf_mlp.positional_encoding_c2f
-
-    def pe_fp32(x, *args):
-        return pe32(x.float(), *args).double()
     c = center.clone().requires_grad_(True)
     r = ray.clone().requires_grad_(True)
     points = c[..., None, :] + r[..., None, :] * depth
     ray_unit = r / torch.clamp(torch.linalg.norm(r, dim=-1, keepdim=True), min=1e-12)
-    nerf_mlp.positional_encoding_c2f = pe_fp32
+    nerf_mlp.positional_encoding_c2f = lambda x, *args: pe32(x.float(), *args).double()
     try:
         rgb_s, dens = mlp64(points.double(), ray_unit[..., None, :].expand(points.shape).double(),
-                            progress=kw["progress"], barf_c2f=kw["barf_c2f"])
+                            progress=kw["progress"], barf_c2f=kw["barf_c2f"],
+                            compute_dtype=kw.get("compute_dtype"))
     finally:
         nerf_mlp.positional_encoding_c2f = pe32
     rgb, d, op, _ = render.composite(r.double(), rgb_s, dens, depth.double())
     if kw["setbg_opaque"]:
         rgb = rgb + kw["bgcolor"] * (1 - op)
+    return mlp64, c, r, (rgb, d, op)
+
+
+def k2_f64(mlp, center, ray, depth, target, kw, weight):
+    """k2_plain's (sq_sum, render, gradients) in float64 after the PE
+    (render_f64); the gradients are those of sq_sum, scaled afterwards, as
+    K2 takes them."""
+    B, R = depth.shape[:2]
+    mlp64, c, r, (rgb, d, op) = render_f64(mlp, center, ray, depth, kw)
     sq = torch.sum((rgb - target.double()) ** 2)
-    grads = torch.autograd.grad(weight * sq / (B * R * 3),
-                                [c, r] + list(mlp64.parameters()))
-    return sq.detach(), dict(rgb=rgb, depth=d, opacity=op), grads
+    grads = torch.autograd.grad(sq, [c, r] + list(mlp64.parameters()))
+    return sq.detach(), dict(rgb=rgb, depth=d, opacity=op), [
+        g * (weight / (B * R * 3)) for g in grads]
 
 
 def k2_same_bits(mlp, center, ray, depth, target, kw, density_activ="softplus",
@@ -783,7 +836,8 @@ def k2_same_bits(mlp, center, ray, depth, target, kw, density_activ="softplus",
             None if noise is None else noise.reshape(B * R, K_).contiguous(), True)
     runs = []
     for _ in range(2):
-        out, dcenter, dray, grads, prob = fp.launch_rm_train(*args)
+        out, dcenter, dray, grads, prob = fp.launch_rm_train(
+            *args, compute_dtype=kw.get("compute_dtype", "float32"))
         runs.append([out, dcenter, dray, prob] + list(grads))
     names = ["out", "dcenter", "dray", "prob"] + [
         "d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
@@ -850,7 +904,8 @@ def k4_render(mlp, center, ray, depth, kw, plain):
     if not plain:
         return c, r, fp.fused_render_rays_pe(mlp, c, r, depth, **kw)
     out8 = fp.render_rays_plain(mlp, c.reshape(B * R, 3), r.reshape(B * R, 3),
-                                depth.reshape(B * R, K), kw["progress"], kw["barf_c2f"])
+                                depth.reshape(B * R, K), kw["progress"], kw["barf_c2f"],
+                                compute_dtype=kw.get("compute_dtype", "float32"))
     out = split_plain(out8, B, R, float(kw["bgcolor"]) if kw["setbg_opaque"] else None)
     return c, r, (out["rgb"], out["depth"], out["opacity"])
 
@@ -866,33 +921,17 @@ def k4_grads(mlp, center, ray, depth, coeffs, kw, frozen=False, plain=False):
     return loss.detach(), grads
 
 
+def k4_grads_f64(mlp, center, ray, depth, coeffs, kw):
+    """[dcenter, dray] + weight gradients of K4's test loss in float64 after
+    the PE (render_f64)."""
+    mlp64, c, r, out = render_f64(mlp, center, ray, depth, kw)
+    loss = k4_loss(*out, [t.double() for t in coeffs])
+    return torch.autograd.grad(loss, [c, r] + list(mlp64.parameters()))
+
+
 def k4_weight_grads_f64(mlp, center, ray, depth, coeffs, kw):
-    """Weight gradients of K4's test loss with everything after the PE in
-    float64. The points, the unit rays and the PE's sin/cos are taken in fp32,
-    as the kernel and the plain version take them: at depths up to 1e6 the
-    PE's arguments differ between fp32 and float64 by whole periods."""
-    import copy
-    from neural_invertible_warp_tpu_torch.ops import nerf_mlp, render
-    B, R = depth.shape[:2]
-    mlp64 = copy.deepcopy(mlp).double()
-    pe32 = nerf_mlp.positional_encoding_c2f
-
-    def pe_fp32(x, *args):
-        return pe32(x.float(), *args).double()
-
-    points = center[..., None, :] + ray[..., None, :] * depth
-    ray_unit = ray / torch.clamp(torch.linalg.norm(ray, dim=-1, keepdim=True), min=1e-12)
-    nerf_mlp.positional_encoding_c2f = pe_fp32
-    try:
-        rgb_s, dens = mlp64(points.double(), ray_unit[..., None, :].expand(points.shape).double(),
-                            progress=kw["progress"], barf_c2f=kw["barf_c2f"])
-    finally:
-        nerf_mlp.positional_encoding_c2f = pe32
-    rgb, d, op, _ = render.composite(ray.double(), rgb_s, dens, depth.double())
-    if kw["setbg_opaque"]:
-        rgb = rgb + kw["bgcolor"] * (1 - op)
-    loss = k4_loss(rgb, d, op, [t.double() for t in coeffs])
-    return torch.autograd.grad(loss, list(mlp64.parameters()))
+    """k4_grads_f64's weight gradients."""
+    return k4_grads_f64(mlp, center, ray, depth, coeffs, kw)[2:]
 
 
 def k4_backward_ms(mlp, center, ray, depth, coeffs, kw, frozen, plain):
@@ -931,10 +970,11 @@ def k3_k4_same_bits(mlp, center, ray, depth, coeffs, kw):
     names = ["K3 render out", "K3 kept out", "K3 kept activations", "K4 frozen dcenter",
              "K4 frozen dray", "K4 dcenter", "K4 dray"] + [
         "K4 d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    dtype = kw.get("compute_dtype", "float32")
     runs = []
     for _ in range(2):
-        out = fp.launch_rm_fwd(mlp, c, r, d, w3, wv)
-        out_kept, cache, packed = fp._rm_fwd(mlp, c, r, d, w3, wv, "softplus", keep=True)
+        out = fp.launch_rm_fwd(mlp, c, r, d, w3, wv, compute_dtype=dtype)
+        out_kept, cache, packed = fp._rm_fwd(mlp, c, r, d, w3, wv, "softplus", True, dtype)
         frozen = fp.launch_rm_bwd(mlp, c, r, d, g8, w3, wv, cache, packed, want_dw=False)
         dcenter, dray, grads = fp.launch_rm_bwd(mlp, c, r, d, g8, w3, wv, cache, packed)
         runs.append([out, out_kept, cache] + list(frozen[:2]) + [dcenter, dray] + grads)
@@ -1135,6 +1175,189 @@ def phase_kernels(mlp, device):
               k4["k3_k4_ms_with_dw"], k4["k3_k4_plain_ms_with_dw"], K, k4["route_ms"],
               k2["ms"], card_line()))
     check(not failures, "kernel and plain version disagree: {}".format(failures))
+    return records
+
+
+def bf16_apart(name, bf16, fp32, failures):
+    """tpu.compute_dtype: bfloat16 must not compute what float32 does: the
+    bf16 result must lie farther from the fp32 one than the value gate."""
+    err = float((bf16.float() - fp32.float()).abs().max())
+    scale = max(float(fp32.abs().max()), 1e-30)
+    ok = err > TOL["value"] * scale
+    print("  bf16 apart from fp32, {}: {:.3e} of max (gate > {:.0e}) {}".format(
+        name, err / scale, TOL["value"], "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("bf16 = fp32 in " + name)
+
+
+def bf16_bound(n_samples, passes, tensors_in, tensors_out):
+    """(bound_ms, bound_by) of a bf16 kernel: ``passes`` passes over the
+    field's layer products at the dense bf16 rate, against the bytes of its
+    inputs and outputs."""
+    return bound(passes * 2 * MACS_PER_SAMPLE * n_samples, tensors_in, tensors_out,
+                 peak=PEAK_BF16_FLOPS)
+
+
+def phase_kernels_bf16(mlp, device):
+    """Phase 3b: K2, K3 and K4 under tpu.compute_dtype: bfloat16, through the
+    wrappers the slice calls, against their bf16 plain versions at the shapes
+    of phase_kernels, each output also against a float64 evaluation of the
+    same bf16 math (k2_f64, k4_grads_f64); each timed beside its fp32 twin.
+    Returns the JSON records."""
+    from neural_invertible_warp_tpu_torch.flagship import flagship_options
+    from neural_invertible_warp_tpu_torch.ops.cuda import build
+    from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
+    weight = 10.0 ** float(flagship_options().loss_weight.render)
+    names = ["d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
+    failures = []
+    records = {key: dict(max_abs_err=0.0, library_ms=None)
+               for key in ("k2_bf16", "k3_bf16", "k4_bf16")}
+    weights = fp.pack_weights(mlp)
+    planes, planes_ref = fp.k2_planes(mlp, "bfloat16"), fp.k2_planes_plain(mlp, "bfloat16")
+    same = torch.equal(planes.view(torch.int32), planes_ref.view(torch.int32))
+    print("kernels bf16: weight planes with the bf16 plane ({} floats) against the pack's "
+          "plain version: {}".format(planes.numel(), "the same bits" if same else "bits differ"))
+    if not same:
+        failures.append("bf16 weight planes")
+    for i, (case, B, R, progress, bg, _) in enumerate(K2_CASES):
+        kw = dict(progress=progress, barf_c2f=C2F, setbg_opaque=bg, bgcolor=1.0 if bg else None,
+                  compute_dtype="bfloat16")
+        inputs = ray_batch(B, R, seed=10 + i, device=device)
+        print("kernels bf16: K2 train wrapper, {}: [{},{}] rays x {} samples, progress {}, "
+              "setbg_opaque {}".format(case, B, R, K, progress, bg))
+        sq, out, grads = k2_wrapper(mlp, *inputs, kw, weight)
+        sq_ref, out_ref, grads_ref = k2_plain(mlp, *inputs, kw, weight)
+        sq64, out64, grads64 = k2_f64(mlp, *inputs, kw, weight)
+        # the forward sums in the plain version's order (Fp32Gemm on rounded
+        # operands) but its PE's sin/cos may differ from PyTorch's by an ulp
+        # (all bands open: arguments to 1e9), and the backward (Bf16Gemm)
+        # sums in another order; rounding to bf16 turns such an ulp into 2^-8
+        # of the element next to a rounding midpoint. So values and
+        # gradients pass at TOL or by the float64 rule
+        for key in ("rgb", "depth", "opacity"):
+            err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key],
+                          TOL_BF16_VS_F64)
+            if key == "rgb":
+                records["k2_bf16"]["max_abs_err"] = max(records["k2_bf16"]["max_abs_err"], err)
+        compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+        for name, gk, gr, g64 in zip(["dcenter", "dray"] + names, grads, grads_ref, grads64):
+            compare(name, gk, gr, TOL["grad"], failures, g64, TOL_BF16_VS_F64)
+        differ = k2_same_bits(mlp, *inputs, kw)
+        print("  two launches on the same inputs: {}".format(
+            "the same bits in every output" if not differ else "bits differ in " + str(differ)))
+        if differ:
+            failures.append("K2 bf16 determinism")
+        if i == 0:
+            kw32 = dict(kw, compute_dtype="float32")
+            sq32, out32, grads32 = k2_wrapper(mlp, *inputs, kw32, weight)
+            bf16_apart("K2 rgb", out["rgb"], out32["rgb"], failures)
+            bf16_apart("K2 dW0", grads[2], grads32[2], failures)
+            rec = records["k2_bf16"]
+            rec["ms"] = time_ms(fresh_k2_weights(lambda: k2_wrapper(mlp, *inputs, kw, weight)))
+            rec["ms_fp32"] = time_ms(fresh_k2_weights(
+                lambda: k2_wrapper(mlp, *inputs, kw32, weight)))
+            rec["plain_ms"] = time_ms(lambda: k2_plain(mlp, *inputs, kw, weight))
+            io = (inputs + weights, [out["rgb"], out["depth"], out["opacity"]] + list(grads))
+            rec["bound_ms"], rec["bound_by"] = bf16_bound(B * R * K, 3, *io)
+            # on its route: the forward in fp32 on the CUDA cores
+            flops = 2 * MACS_PER_SAMPLE * B * R * K
+            rec["bound_ms_route"] = max(
+                (flops / PEAK_FP32_FLOPS + 2 * flops / PEAK_BF16_FLOPS) * 1e3,
+                bound(0, *io)[0])
+    for i, (case, B, R, progress, bg) in enumerate(K3_CASES):
+        kw = dict(progress=progress, barf_c2f=C2F, setbg_opaque=bg, bgcolor=1.0 if bg else None,
+                  compute_dtype="bfloat16")
+        center, ray, depth, _ = ray_batch(B, R, seed=20 + i, device=device)
+        coeffs = k4_coefficients(B, R, seed=40 + i, device=device)
+        print("kernels bf16: K3 forward wrapper, {}: [{},{}] rays x {} samples, progress {}, "
+              "setbg_opaque {}".format(case, B, R, K, progress, bg))
+
+        def k3(kw=kw):
+            return fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
+
+        def k3_kept():
+            c = center.clone().requires_grad_(True)
+            with torch.enable_grad():
+                return [t.detach() for t in fp.fused_render_rays_pe(mlp, c, ray, depth, **kw)]
+
+        def k3_plain():
+            with torch.no_grad():
+                return k4_render(mlp, center, ray, depth, kw, plain=True)[2]
+        ref = k3_plain()
+        c64 = [t.detach() for t in render_f64(mlp, center, ray, depth, kw)[3]]
+        with torch.no_grad():
+            rendered = k3()
+            for mode, got in (("render", rendered), ("kept", k3_kept())):
+                print("  {} (products {}):".format(
+                    mode, "one bf16 pass on the tensor cores" if mode == "render"
+                    else "fp32 on the CUDA cores, operands rounded to bf16"))
+                for key, g, r, g64 in zip(("rgb", "depth", "opacity"), got, ref, c64):
+                    err = compare(key, g, r, TOL["value"], failures, g64, TOL_BF16_VS_F64)
+                    if key == "rgb":
+                        records["k3_bf16"]["max_abs_err"] = max(
+                            records["k3_bf16"]["max_abs_err"], err)
+            if i == 0:
+                bf16_apart("K3 render rgb", rendered[0],
+                           k3(dict(kw, compute_dtype="float32"))[0], failures)
+                rec = records["k3_bf16"]
+                rec["ms"] = time_ms(k3)
+                rec["ms_fp32"] = time_ms(lambda: k3(dict(kw, compute_dtype="float32")))
+                rec["ms_kept"] = time_ms(k3_kept)
+                rec["plain_ms"] = time_ms(k3_plain)
+                rec["bound_ms"], rec["bound_by"] = bf16_bound(
+                    B * R * K, 1, [center, ray, depth] + weights, list(rendered))
+        # K4 through the forward wrapper under autograd (K3 kept), against the
+        # plain version and float64
+        print("kernels bf16: K4 backward through the forward wrapper, {}".format(case))
+        args = (mlp, center, ray, depth, coeffs, kw)
+        loss, grads = k4_grads(*args)
+        loss_ref, grads_ref = k4_grads(*args, plain=True)
+        grads64 = k4_grads_f64(*args)
+        compare("loss", loss, loss_ref, TOL["value"], failures)
+        for name, gk, gr, g64 in zip(["dcenter", "dray"] + names, grads, grads_ref, grads64):
+            err = compare(name, gk, gr, TOL["grad"], failures, g64, TOL_BF16_VS_F64)
+            if i == 0 and name in ("dcenter", "dray"):
+                records["k4_bf16"]["max_abs_err"] = max(records["k4_bf16"]["max_abs_err"], err)
+        print("  weights frozen (no weight gradients):")
+        _, grads_frozen = k4_grads(*args, frozen=True)
+        for name, gk, gr, g64 in zip(["dcenter", "dray"], grads_frozen, grads_ref, grads64):
+            compare(name, gk, gr, TOL["grad"], failures, g64, TOL_BF16_VS_F64)
+        if i == 0:
+            differ = k3_k4_same_bits(*args)
+            print("  two launches each of K3 (render, kept) and K4 (frozen, with weight "
+                  "gradients) on the same inputs: {}".format(
+                      "the same bits in every output" if not differ
+                      else "bits differ in " + str(differ)))
+            if differ:
+                failures.append("K3/K4 bf16 determinism")
+            _, grads32 = k4_grads(mlp, center, ray, depth, coeffs,
+                                  dict(kw, compute_dtype="float32"), frozen=True)
+            bf16_apart("K4 dray", grads_frozen[1], grads32[1], failures)
+            rec = records["k4_bf16"]
+            rec["ms"] = k4_backward_ms(*args, frozen=True, plain=False)
+            rec["ms_fp32"] = k4_backward_ms(mlp, center, ray, depth, coeffs,
+                                            dict(kw, compute_dtype="float32"), True, False)
+            rec["plain_ms"] = k4_backward_ms(*args, frozen=True, plain=True)
+            rec["ms_with_dw"] = k4_backward_ms(*args, frozen=False, plain=False)
+            rec["plain_ms_with_dw"] = k4_backward_ms(*args, frozen=False, plain=True)
+            n_samples = B * R * K
+            cache = torch.empty(build.load_library().lib.niw_rm_fwd_workspace_floats(
+                n_samples, 1), device="meta")
+            g8 = torch.empty(B * R, 8, device="meta")
+            io_in = [center, ray, depth, g8, cache] + weights
+            rec["bound_ms"], rec["bound_by"] = bf16_bound(n_samples, 1, io_in, list(grads[:2]))
+            rec["bound_ms_with_dw"], _ = bf16_bound(n_samples, 2, io_in, list(grads))
+    k2, k3, k4 = records["k2_bf16"], records["k3_bf16"], records["k4_bf16"]
+    print("kernels bf16: K2 {:.3f} ms (fp32 {:.3f} in this call; plain {:.3f}; bound {:.3f} "
+          "at the bf16 rate, {:.3f} on its route with the forward in fp32) at [18,113]x{}; "
+          "K3 at [1,2048]x{}: render {:.3f} ms (fp32 {:.3f}; bound {:.3f}), kept {:.3f}, plain "
+          "{:.3f}; K4 frozen {:.3f} ms (fp32 {:.3f}; plain {:.3f}; bound {:.3f}), with weight "
+          "gradients {:.3f} (plain {:.3f}; bound {:.3f}); card: {}".format(
+              k2["ms"], k2["ms_fp32"], k2["plain_ms"], k2["bound_ms"], k2["bound_ms_route"], K,
+              K, k3["ms"], k3["ms_fp32"], k3["bound_ms"], k3["ms_kept"], k3["plain_ms"],
+              k4["ms"], k4["ms_fp32"], k4["plain_ms"], k4["bound_ms"], k4["ms_with_dw"],
+              k4["plain_ms_with_dw"], k4["bound_ms_with_dw"], card_line()))
+    check(not failures, "bf16 kernel and plain version disagree: {}".format(failures))
     return records
 
 
@@ -1940,6 +2163,9 @@ def field_counts():
             "k2": fp.fused_render_rays_pe_train.launches,
             "k3": fp.fused_render_rays_pe.launches,
             "k4": fp.fused_render_rays_pe.backward_launches,
+            "k2_bf16": fp.fused_render_rays_pe_train.bf16_launches,
+            "k3_bf16": fp.fused_render_rays_pe.bf16_launches,
+            "k4_bf16": fp.fused_render_rays_pe.bf16_backward_launches,
             "k5_fwd": fp.fused_apply_nerf_samples_pe.launches,
             "k5_bwd": fp.fused_apply_nerf_samples_pe.backward_launches,
             "k1_fwd": ff.fused_mlp.launches, "k1_bwd": ff.fused_mlp.backward_launches}
@@ -1959,6 +2185,9 @@ def reset_counts():
     fp.fused_render_rays_pe_train.packs = 0
     fp.fused_render_rays_pe.launches = 0
     fp.fused_render_rays_pe.backward_launches = 0
+    fp.fused_render_rays_pe_train.bf16_launches = 0
+    fp.fused_render_rays_pe.bf16_launches = 0
+    fp.fused_render_rays_pe.bf16_backward_launches = 0
     fp.fused_apply_nerf_samples_pe.launches = 0
     fp.fused_apply_nerf_samples_pe.backward_launches = 0
     ff.fused_mlp.launches = 0
@@ -3523,11 +3752,15 @@ def hold_evidence(system, failures, render=None):
     dcenter/dray to TOL_INPUT_GRAD_ALL_BANDS; a gradient that misses passes
     if it is no farther from float64 than TOL_SFM_K2_VS_F64 times the plain
     version is). The arguments are captured from the probe's own system
-    (``capture_call``: nothing launches, nothing is counted). Returns the
-    largest rgb error of K2 and K3."""
+    (``capture_call``: nothing launches, nothing is counted), its compute
+    dtype with them; under bfloat16 values too pass by the float64 rule
+    (TOL_BF16_VS_F64), K3's against render_f64. Returns the largest rgb
+    error of K2 and K3."""
     from neural_invertible_warp_tpu_torch.ops.cuda import fused_pe as fp
     errs = {}
     targs, kw = capture_call(fp, "fused_render_rays_pe_train", system.train_step)
+    bf16 = kw.get("compute_dtype", "float32") != "float32"
+    f64_values = TOL_BF16_VS_F64 if bf16 else None
     check(kw.get("noise") is None and kw.get("density_activ") == "softplus", kw)
     mlp = targs[0]
     names = ["d" + n.replace("mlp_", "") for n, _ in mlp.named_parameters()]
@@ -3541,10 +3774,11 @@ def hold_evidence(system, failures, render=None):
     sq_ref, out_ref, grads_ref = k2_plain(mlp, center, ray, depth, target, kw, weight)
     sq64, out64, grads64 = k2_f64(mlp, center, ray, depth, target, kw, weight)
     for key in ("rgb", "depth", "opacity"):
-        err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key])
+        err = compare(key, out[key], out_ref[key], TOL["value"], failures, out64[key],
+                      f64_values)
         if key == "rgb":
             errs["k2"] = err
-    compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64)
+    compare("sq_sum", sq, sq_ref, TOL["value"], failures, sq64, f64_values)
     for i, (name, gk, gr, g64) in enumerate(zip(["dcenter", "dray"] + names, grads,
                                                 grads_ref, grads64)):
         compare(name, gk, gr, TOL_INPUT_GRAD_ALL_BANDS if i < 2 else TOL["grad"], failures,
@@ -3559,10 +3793,13 @@ def hold_evidence(system, failures, render=None):
         got = fp.fused_render_rays_pe(mlp, center, ray, depth, **kw)
         out8 = fp.render_rays_plain(mlp, center.reshape(B * R, 3), ray.reshape(B * R, 3),
                                     depth.reshape(B * R, K_), kw["progress"],
-                                    kw["barf_c2f"], kw["density_activ"])
+                                    kw["barf_c2f"], kw["density_activ"],
+                                    kw.get("compute_dtype", "float32"))
         ref = split_plain(out8, B, R, kw["bgcolor"] if kw["setbg_opaque"] else None)
-    for key, g in zip(("rgb", "depth", "opacity"), got):
-        err = compare(key, g, ref[key], TOL["value"], failures)
+        ref64 = ([t.detach() for t in render_f64(mlp, center, ray, depth, kw)[3]] if bf16
+                 else [None] * 3)
+    for key, g, g64 in zip(("rgb", "depth", "opacity"), got, ref64):
+        err = compare(key, g, ref[key], TOL["value"], failures, g64, f64_values)
         if key == "rgb":
             errs["k3"] = err
     return errs
@@ -3846,6 +4083,93 @@ def same_typed(a, b, where="options"):
     return None if a == b else "{}: {!r} against {!r}".format(where, a, b)
 
 
+def write_cli_tree(root, device):
+    """Path cli's scene, the B3-class blob scene as an LLFF tree of CLI_VIEWS
+    PNGs at CLI_WRITE_HW under ``root``; returns the arrays written."""
+    from neural_invertible_warp_tpu_torch.evidence import scenes
+    scene = scenes.blob_llff_scene(n_images=CLI_VIEWS, val_ratio=0.1, backdrop=True)
+    return scenes.write_llff_tree(scene, root, CLI_WRITE_HW, device=device, max_elems=1 << 26)
+
+
+def phase_flagship_bf16(device):
+    """Path flagship_bf16: the flagship's train.main and evaluate.main with
+    --tpu.compute_dtype=bfloat16 on path cli's tree (written if absent), 2
+    held-out views refined and rendered; then every configuration that
+    would reach K5 or K1 under bfloat16 must refuse it. Returns the launch
+    counts of the path."""
+    from neural_invertible_warp_tpu_torch import config, evaluate, train
+    from neural_invertible_warp_tpu_torch.models import get_system_class
+    root = os.path.join(HERE, "build", "chip_smoke_cli", "data")
+    if not os.path.isdir(os.path.join(root, "blobfern")):
+        write_cli_tree(root, device)
+    out = os.path.join(HERE, "build", "chip_smoke_bf16")
+    flags = cli_flags(root, out, BF16_STEPS)[0] + [
+        "--tpu.compute_dtype=bfloat16", "--data.val_ratio={}".format(BF16_VAL_RATIO)]
+    opt = config.set_options(flags, makedirs=False)
+    check(opt.tpu.compute_dtype == "bfloat16" and type(opt.tpu.compute_dtype) is str,
+          "flagship_bf16: the CLI read tpu.compute_dtype as {!r}".format(opt.tpu.compute_dtype))
+    reset_counts()
+    t0 = time.time()
+    trainer = train.main(flags)
+    t_train = time.time() - t0
+    counts_train = field_counts()
+    t1 = time.time()
+    results = evaluate.main(flags)
+    t_eval = time.time() - t1
+    launches = field_counts()
+    losses = [float(v) for m in trainer.history for k, v in m.items() if k.startswith("loss")]
+    check(len(trainer.history) == BF16_STEPS and all(math.isfinite(v) for v in losses),
+          "flagship_bf16: {} steps logged, a loss not finite".format(len(trainer.history)))
+    l_first = float(trainer.history[0]["loss_render"])
+    l_last = float(trainer.history[-1]["loss_render"])
+    check(l_last < l_first, "flagship_bf16: loss_render {} -> {}".format(l_first, l_last))
+    check(launches["k2_bf16"] == BF16_STEPS, "flagship_bf16: K2 bf16 launched {} times in {} "
+          "steps".format(launches["k2_bf16"], BF16_STEPS))
+    check(counts_train["k3_bf16"] > 0 and launches["k3_bf16"] > counts_train["k3_bf16"]
+          and launches["k4_bf16"] > 0, "flagship_bf16: K3 bf16 {} in training, {} in all; "
+          "K4 bf16 {}".format(counts_train["k3_bf16"], launches["k3_bf16"],
+                               launches["k4_bf16"]))
+    fp32_launches = {k: v for k, v in launches.items() if not k.endswith("_bf16") and v}
+    check(not fp32_launches, "flagship_bf16: fp32 kernels launched: {}".format(fp32_launches))
+    n_views = len(trainer.system.test_data["image"])
+    check(n_views == 2, "flagship_bf16: {} held-out views".format(n_views))
+    for key in ("PSNR", "SSIM", "rot_error_deg", "trans_error"):
+        check(math.isfinite(results[key]), "flagship_bf16: {} = {}".format(key, results[key]))
+    print("flagship_bf16: train {:.1f} s ({:.2f} ms/step median of steps 6-{}), evaluate "
+          "{:.1f} s ({} held-out views refined and rendered); loss_render {:.5f} -> {:.5f}; "
+          "evaluation PSNR {:.3f} dB, SSIM {:.4f}, rot err {:.4f} deg; launches K2 {} K3 {} "
+          "({} in training's validation) K4 {}, all bf16; card: {}".format(
+              t_train, 1e3 * statistics.median(trainer.step_seconds[5:]), BF16_STEPS, t_eval,
+              n_views, l_first, l_last, results["PSNR"], results["SSIM"],
+              results["rot_error_deg"], launches["k2_bf16"], launches["k3_bf16"],
+              counts_train["k3_bf16"], launches["k4_bf16"], card_line()))
+    # every tier without a bf16 kernel refuses the option before a step; the
+    # plain chain ignores it
+    refused = []
+    minimal = ["--data.root={}".format(root), "--data.scene=blobfern",
+               "--output_root={}".format(out), "--tpu.compute_dtype=bfloat16"]
+    for label, extra in BF16_REFUSED:
+        # another model: its own YAML, which lacks some of the flagship's keys
+        base = minimal if any(e.startswith("--model=") for e in extra) else flags
+        opt = config.set_options(base + extra, makedirs=False)
+        system = get_system_class(opt.model)(opt, device)
+        try:
+            system.check_kernel_options()
+        except NotImplementedError as e:
+            check("tpu.compute_dtype" in str(e), "{}: {}".format(label, e))
+            refused.append(label)
+        else:
+            check(False, "flagship_bf16: {} did not refuse bfloat16".format(label))
+    opt = config.set_options(flags + ["--tpu.fused_pe!", "--tpu.fused_kernel!"], makedirs=False)
+    get_system_class(opt.model)(opt, device).check_kernel_options()
+    print("flagship_bf16: refused before the first step: {}; the plain chain ignores the "
+          "option".format("; ".join(refused)))
+    failures = []
+    hold_evidence(trainer.system, failures)
+    check(not failures, "flagship_bf16 path failed: {}".format(failures))
+    return launches
+
+
 def phase_cli(device):
     """Path cli: the port's train and evaluate entry points from their own
     command line on an LLFF tree of PNGs (phase 18 of the docstring).
@@ -3854,16 +4178,13 @@ def phase_cli(device):
     import shutil
     from neural_invertible_warp_tpu_torch import config, evaluate, train
     from neural_invertible_warp_tpu_torch.dotdict import DotDict
-    from neural_invertible_warp_tpu_torch.evidence import scenes
     from neural_invertible_warp_tpu_torch.flagship import flagship_options
     from neural_invertible_warp_tpu_torch.utils import image_io
     out = os.path.join(HERE, "build", "chip_smoke_cli")
     shutil.rmtree(out, ignore_errors=True)
     root = os.path.join(out, "data")
     t0 = time.time()
-    scene = scenes.blob_llff_scene(n_images=CLI_VIEWS, val_ratio=0.1, backdrop=True)
-    written = scenes.write_llff_tree(scene, root, CLI_WRITE_HW, device=device,
-                                     max_elems=1 << 26)
+    written = write_cli_tree(root, device)
     t_scene = time.time() - t0
     images = os.path.join(root, "blobfern", "images")
     names = sorted(os.listdir(images))
@@ -4249,6 +4570,7 @@ def main():
     mlp = NerfMLP(flagship_options().arch,
                   generator=torch.Generator().manual_seed(0)).to(device)
     records = phase_kernels(mlp, device)
+    records_bf16 = phase_kernels_bf16(mlp, device)
     trainer, launches, summary_off = phase_slice(device)
     launches_eval = phase_eval(trainer, device)
     del trainer
@@ -4280,6 +4602,8 @@ def main():
     launches_cli = phase_cli(device)
     torch.cuda.empty_cache()
     launches_cli_data = phase_cli_data(device)
+    torch.cuda.empty_cache()
+    launches_bf16 = phase_flagship_bf16(device)
     pkg = "neural_invertible_warp_tpu_torch/csrc/"
     pallas = "neural_invertible_warp_tpu/ops/pallas/"
     paths = {"flagship_train": launches, "flagship_eval": launches_eval,
@@ -4287,7 +4611,8 @@ def main():
              "flagship_fused_inn": launches_fused, "pose_init_pdcnet": launches_pdcnet,
              "pose_init_sfm": launches_sfm, "sharded": launches_sharded,
              "evidence": launches_evidence, "evidence_dtu": launches_evidence_dtu,
-             "cli": launches_cli, "cli_data": launches_cli_data}
+             "cli": launches_cli, "cli_data": launches_cli_data,
+             "flagship_bf16": launches_bf16}
     # paths that run no kernel, listed with their zeros
     plain_paths = {"garf": launches_garf, "planar": launches_planar}
 
@@ -4312,6 +4637,12 @@ def main():
                "fused_pe.py:568", records["k3"]),
         kernel("k4", "K4 rm_bwd (backward of the composited render)", "rm_bwd.cu",
                "fused_pe.py:597", records["k4"]),
+        kernel("k2_bf16", "K2 rm_train under tpu.compute_dtype: bfloat16", "rm_train.cu",
+               "fused_pe.py:886", records_bf16["k2_bf16"]),
+        kernel("k3_bf16", "K3 rm_fwd under tpu.compute_dtype: bfloat16", "rm_fwd.cu",
+               "fused_pe.py:568", records_bf16["k3_bf16"]),
+        kernel("k4_bf16", "K4 rm_bwd under tpu.compute_dtype: bfloat16", "rm_bwd.cu",
+               "fused_pe.py:597", records_bf16["k4_bf16"]),
         kernel("k6_fwd", "K6 inn forward (fused INN warp)", "inn.cu", "fused_inn.py:186",
                records_inn["k6_fwd"]),
         kernel("k6_bwd", "K6 inn backward", "inn.cu", "fused_inn.py:266",

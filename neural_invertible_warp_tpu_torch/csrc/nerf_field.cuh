@@ -10,7 +10,9 @@
 // What bounds this on Hopper: the 8x256 trunk is ~1.06 MFLOP per sample
 // forward and ~2.1 MFLOP backward, fp32-class (the PE must stay true fp32;
 // the MLP dots are fp32 on the CUDA cores or split fp32 on the tensor cores,
-// on the routes of gemm_tc.cuh; single-pass TF32 nowhere). At the flagship train
+// on the routes of gemm_tc.cuh; single-pass TF32 nowhere; under
+// tpu.compute_dtype: bfloat16, K2-K4's dots take bf16 operands summed in
+// fp32, on gemm_tc.cuh's bf16 route). At the flagship train
 // shape (2034 rays x 128 samples) that is ~0.83 TFLOP per step, so the
 // arithmetic rate bounds it, not memory.
 //
@@ -40,6 +42,7 @@
 //   Wr1 [128,3]; biases b0..b6 [256], b7p [257], br0 [128], br1 [3].
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -292,6 +295,12 @@ static int weight_grad(const Gemm& gemm, const float* A, int lda, int Kin, const
   return 0;
 }
 
+// x rounded to bf16 (to nearest, ties to even, as __float2bfloat16_rn and
+// PyTorch's .to(torch.bfloat16) round), as an fp32 value.
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // ---------------------------------------------------------- PE and density
 __device__ __forceinline__ float pe_freq(int k) {
   // f32(2^k) * f32(pi), the JAX package's rounding of the band frequency
@@ -417,11 +426,14 @@ static int mlp_forward(const Gemm& gemm, const float* const* W, const Cache& c, 
 // `noise` [R,K] (or null) is added to the density pre-activation before its
 // activation, whose derivative is then taken at the noised value; `prob`
 // [R,K] (or null) receives the per-sample compositing weights T * alpha.
+// With `round_bf16` (tpu.compute_dtype: bfloat16) both operands of the head's
+// output-layer product (R0 and Wr1) and of its input gradient (the rgb
+// pre-activation's cotangent and Wr1) are rounded to bf16 first.
 enum { COMPOSITE_FORWARD = 0, COMPOSITE_MSE = 1, COMPOSITE_COTANGENT = 2 };
 
 struct CompositeArgs {
   const float *ray, *depth, *R0, *V, *Wr1, *br1, *target8, *g8, *noise;
-  int R, K, activ, train, has_bg;
+  int R, K, activ, train, has_bg, round_bf16;
   float bg;
   float *out, *GR0, *GRP, *GDENS, *dray_quad, *prob;
 };
@@ -436,7 +448,8 @@ static __global__ void composite_kernel(CompositeArgs a) {
   __shared__ float ray_s[8];   // ray(3), ray_len, sums(4)...
   __shared__ float tot[8];
   const int r = blockIdx.x, k = threadIdx.x;
-  for (int i = k; i < D_HEAD * 3; i += blockDim.x) wr1[i] = a.Wr1[i];
+  for (int i = k; i < D_HEAD * 3; i += blockDim.x)
+    wr1[i] = a.round_bf16 ? bf16_rn(a.Wr1[i]) : a.Wr1[i];
   if (k == 0) {
     float n2 = 0.f;
     for (int c = 0; c < 3; c++) { ray_s[c] = a.ray[r * 3 + c]; n2 = __fmaf_rn(ray_s[c], ray_s[c], n2); }
@@ -450,7 +463,7 @@ static __global__ void composite_kernel(CompositeArgs a) {
   if (act) {
     float acc[3] = {a.br1[0], a.br1[1], a.br1[2]};
     for (int j = 0; j < D_HEAD; j++) {
-      const float h = r0[j];
+      const float h = a.round_bf16 ? bf16_rn(r0[j]) : r0[j];
       for (int c = 0; c < 3; c++) acc[c] = fmaf(h, wr1[j * 3 + c], acc[c]);
     }
     for (int c = 0; c < 3; c++) rgb[c] = sigmoid_f(acc[c]);
@@ -537,6 +550,8 @@ static __global__ void composite_kernel(CompositeArgs a) {
       a.GRP[s * 4 + c] = grp[c];
     }
     a.GRP[s * 4 + 3] = 0.f;
+    if (a.round_bf16)
+      for (int c = 0; c < 3; c++) grp[c] = bf16_rn(grp[c]);
     float* gr0 = a.GR0 + s * D_HEAD;
     for (int j = 0; j < D_HEAD; j++) {
       const float g = grp[0] * wr1[j * 3] + grp[1] * wr1[j * 3 + 1] + grp[2] * wr1[j * 3 + 2];

@@ -32,7 +32,10 @@
 // 1.68 ms (3.36 ms) at 2048 rays x 128 samples; all fp32 at 67 TFLOP/s 4.13
 // ms (8.26 ms). The 16-byte copies of that route need 16-byte aligned
 // operands: every buffer of K3's cache (cache_at) and of this workspace
-// (grads_at) starts at a multiple of 4 floats.
+// (grads_at) starts at a multiple of 4 floats. Under tpu.compute_dtype:
+// bfloat16 the products take the bf16 tensor-core route (Bf16Gemm: 0.28 /
+// 0.56 ms of products at that shape) and the head's input gradient rounds
+// its operands (composite_kernel), on a cache that K3 kept in that mode.
 #include "gemm_tc.cuh"
 
 using namespace niw;
@@ -41,15 +44,17 @@ extern "C" long long niw_rm_bwd_workspace_floats(long long N, int R) {
   return grad_floats(N) + plan_splits((int)N).n * PART_PER_SPLIT + 3LL * R;
 }
 
-// center, ray [R,3]; depth [R,K]; g8 [R,8]; w3 [10], wv [4]; W_split, w_lo:
-// K2's split weight operands (niw_rm_train's); cache: the workspace of
+// center, ray [R,3]; depth [R,K]; g8 [R,8]; w3 [10], wv [4]; W_split, w_lo,
+// W_bf16, bf16: K2's split and bf16 weight operands (niw_rm_train's); cache:
+// the workspace of
 // niw_rm_fwd(..., keep = 1) on the same inputs; dW: the 20 gradients in the
 // packed layout (read only when want_dw); ws: niw_rm_bwd_workspace_floats(R*K,
 // R) floats.
 extern "C" int niw_rm_bwd(const float* center, const float* ray, const float* depth,
                           const float* g8, int R, int K, const float* w3,
                           const float* wv, const float* const* W_split, long long w_lo,
-                          int activ, float* cache, int want_dw, float* dcenter,
+                          const float* const* W_bf16, int bf16, int activ, float* cache,
+                          int want_dw, float* dcenter,
                           float* dray, float* const* dW, float* ws, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long N = (long long)R * K;
@@ -58,10 +63,12 @@ extern "C" int niw_rm_bwd(const float* center, const float* ray, const float* de
   CompositeArgs a = {};
   a.ray = ray; a.depth = depth; a.R0 = c.R0; a.V = c.V;
   a.Wr1 = W_split[WR1]; a.br1 = W_split[BR1]; a.g8 = g8;
-  a.R = R; a.K = K; a.activ = activ; a.train = COMPOSITE_COTANGENT;
+  a.R = R; a.K = K; a.activ = activ; a.train = COMPOSITE_COTANGENT; a.round_bf16 = bf16;
   a.GR0 = g.GR0; a.GRP = g.GRP; a.GDENS = g.GDENS; a.dray_quad = g.DRQ;
   int err = launch_composite(a, s);
   if (err) return err;
-  if ((err = mlp_backward(TcGemm{w_lo}, W_split, c, g, (int)N, want_dw, dW, s))) return err;
+  err = bf16 ? mlp_backward(Bf16Gemm(), W_bf16, c, g, (int)N, want_dw, dW, s)
+             : mlp_backward(TcGemm{w_lo}, W_split, c, g, (int)N, want_dw, dW, s);
+  if (err) return err;
   return launch_input_backward(center, ray, depth, R, K, w3, wv, g, true, dcenter, dray, s);
 }

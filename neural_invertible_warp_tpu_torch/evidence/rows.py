@@ -88,6 +88,11 @@ ROWS = {
     "R1s4": ("probe_b3", _B3_20K + ["--seed", "4"]),
     "R6s3": ("probe_b3", _B3_20K + ["--seed", "3", "--overrides", "tpu.fused_inn=true"]),
     "R6s4": ("probe_b3", _B3_20K + ["--seed", "4", "--overrides", "tpu.fused_inn=true"]),
+    # R1 in the JAX package's bf16 kernel mode: K2, K3 and K4 with bf16
+    # operands (tpu.compute_dtype: bfloat16)
+    "R1bf16": ("probe_b3", _B3_20K + ["--overrides", "tpu.compute_dtype=bfloat16"]),
+    # the plain chain at seed 3, where R1s3 and R6s3 stick from 3k
+    "R2s3": ("probe_b3", _B3_20K + ["--seed", "3"] + _PLAIN),
     # the paper's horizon, resumed across calls (~127 min alone at R1's
     # ms/step): EVIDENCE_r3 section 5e, JAX 0.086 deg rel / 0.175 abs, trans
     # 0.0040, 44.82 dB, no kick through 80k-92k

@@ -12,8 +12,11 @@ the weights to resample from) and the per-sample field K5 in eval and in
 the fallback tier, the MLP-only field K1 under ``tpu.fused_pe: false``, and
 the plain chain with both kernel switches off. On CUDA tensors a tier
 launches its kernels or raises; on CPU tensors it takes their plain
-versions. ``evaluate_full`` is the full test-set evaluation: pose error,
-test-time refinement, PSNR, SSIM, LPIPS.
+versions. ``tpu.compute_dtype: bfloat16`` runs K2, K3 and K4 with bf16
+operands (and their plain versions so on the CPU); a configuration that
+would reach K5 or K1 under it raises before the first step, and the plain
+chain ignores it. ``evaluate_full`` is the full test-set evaluation: pose
+error, test-time refinement, PSNR, SSIM, LPIPS.
 
 Under a ``parallel.mesh`` group the train step and ``render_image`` shard
 the ray axis over the ranks (one process per GPU): every rank makes the
@@ -139,6 +142,7 @@ class NerfSystem:
         """Parameters from a seeded CPU generator (device-independent), then
         the optimizer and aux state on the device."""
         from ..utils.optim import MultiAdam
+        self.check_kernel_options()
         gen = torch.Generator().manual_seed(int(seed))
         self.graph = self.build_graph(gen).to(self.device)
         # the draws of init_aux (pose noise, DTU's noisy_gt start) come from
@@ -165,6 +169,35 @@ class NerfSystem:
         if tpu_cfg.get("fused_pe", True):
             return "pe"
         return "field" if tpu_cfg.get("fused_kernel", True) else "off"
+
+    def kernel_compute_dtype(self):
+        """``tpu.compute_dtype`` of the field kernels ("float32" or
+        "bfloat16"; another value raises ValueError), as the JAX package's
+        ``_kernel_compute_dtype`` reads it; "float32" for the plain chain,
+        which ignores it."""
+        dtype = fused_pe.resolve_compute_dtype((self.opt.get("tpu") or {}).get("compute_dtype"))
+        return "float32" if self._field_mode() == "off" else dtype
+
+    def check_kernel_options(self):
+        """Raise before the first step where ``tpu.compute_dtype: bfloat16``
+        would reach a field kernel without a bf16 variant (K5, K1): fine
+        sampling (K5 in the validation render), ``tpu.fused_raymarch: false``,
+        density noise outside the one-call kernel (``tpu.fused_train:
+        false``) and the MLP-only tier."""
+        if self.kernel_compute_dtype() == "float32":
+            return
+        opt, tpu_cfg = self.opt, self.opt.get("tpu") or {}
+        why = None
+        if self._field_mode() == "field":
+            why = "K1 (the MLP-only tier, tpu.fused_pe: false)"
+        elif opt.nerf.fine_sampling:
+            why = "K5 (fine sampling renders through it)"
+        elif not tpu_cfg.get("fused_raymarch", False):
+            why = "K5 (tpu.fused_raymarch: false renders through it)"
+        elif opt.nerf.get("density_noise_reg") and not tpu_cfg.get("fused_train", True):
+            why = "K5 (density noise outside the one-call kernel, tpu.fused_train: false)"
+        if why:
+            fused_pe.refuse_bf16("bfloat16", why)
 
     def apply_field_samples(self, mlp, center, ray, depth, noise=None, **kw):
         """(rgb [B,R,K,3], density [B,R,K]) of one field along the rays."""
@@ -230,6 +263,8 @@ class NerfSystem:
         kw = dict(progress=progress,
                   barf_c2f=tuple(opt.barf_c2f) if opt.get("barf_c2f") else None,
                   density_activ=self.arch.get("density_activ", "softplus"))
+        if self.kernel_compute_dtype() != "float32":
+            kw["compute_dtype"] = self.kernel_compute_dtype()
         bg = dict(setbg_opaque=bool(opt.nerf.get("setbg_opaque")),
                   bgcolor=opt.data.get("bgcolor"))
         tpu_cfg = opt.get("tpu") or {}

@@ -29,20 +29,21 @@ _SIGNATURES = {
     "niw_rm_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                     ctypes.c_longlong),
     "niw_rm_fwd": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P],
-                   ctypes.c_int),
+                    ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                    _P], ctypes.c_int),
     "niw_rm_bwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                     ctypes.c_longlong),
     "niw_rm_bwd": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                    ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
-                    _P, _P], ctypes.c_int),
+                    ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                    _P, _P, _P, _P], ctypes.c_int),
     "niw_rm_train_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                       ctypes.c_longlong),
     "niw_rm_train_plane_offset": ([ctypes.c_int], ctypes.c_longlong),
-    "niw_rm_train_pack": ([_P, _P, _P], ctypes.c_int),
+    "niw_rm_train_bf16_offset": ([ctypes.c_int], ctypes.c_longlong),
+    "niw_rm_train_pack": ([_P, _P, ctypes.c_int, _P], ctypes.c_int),
     "niw_rm_train": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
+                      ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, _P, _P, _P, _P, _P, _P, _P], ctypes.c_int),
     "niw_field_pe_fwd_workspace_floats": ([ctypes.c_longlong, ctypes.c_int],
                                           ctypes.c_longlong),
     "niw_field_pe_bwd_workspace_floats": ([ctypes.c_longlong], ctypes.c_longlong),

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from ..nerf_mlp import sample_points
-from .fused_pe import _check_noise, field_launch_bwd, field_launch_fwd, run_field_kernel
+from .fused_pe import (_check_noise, field_launch_bwd, field_launch_fwd, refuse_bf16,
+                       run_field_kernel)
 
 D_XP = 63
 D_VIEW = 27
@@ -82,10 +83,13 @@ fused_mlp.backward_launches = 0    # K1 backward launches
 
 
 def fused_apply_nerf_samples(mlp, center, ray, depth, *, progress=None,
-                             barf_c2f=None, density_activ="softplus", noise=None):
+                             barf_c2f=None, density_activ="softplus", noise=None,
+                             compute_dtype="float32"):
     """The field along rays with the PE outside the kernel (K1). center/ray
     [B,R,3]; depth [B,R,K,1]; noise [B,R,K] optional -> (rgb [B,R,K,3],
-    density [B,R,K])."""
+    density [B,R,K]). ``compute_dtype`` "bfloat16" raises
+    NotImplementedError (no bf16 K1 yet)."""
+    refuse_bf16(compute_dtype, "K1 (the MLP-only field kernel, tpu.fused_pe: false)")
     B, R, K = depth.shape[0], depth.shape[1], depth.shape[2]
     points, ray_unit = sample_points(center, ray, depth)
     xp, view = mlp.encode(points, ray_unit, progress, barf_c2f)

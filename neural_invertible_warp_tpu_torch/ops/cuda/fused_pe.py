@@ -18,14 +18,23 @@ noise operand, and under autograd a backward kernel to d/d(center, ray,
 weights).
 
 The wrappers take the plain version only for CPU tensors. For CUDA tensors
-they launch the kernel or raise. Sources: ``csrc/rm_fwd.cu``,
-``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``, ``csrc/field_pe.cu``,
-``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, the layer products of
+they launch the kernel or raise. ``compute_dtype`` is the JAX package's
+``tpu.compute_dtype``: "float32", or "bfloat16" for K2-K4 (both operands of
+every layer product rounded to bf16, products summed in fp32; positions, the
+PE, biases and activations in fp32), whose plain versions then round the
+same operands (``nerf_mlp``'s ``compute_dtype``). K5 (and K1,
+``fused_field``) have no bf16 variant yet and refuse "bfloat16". Sources:
+``csrc/rm_fwd.cu``, ``csrc/rm_bwd.cu``, ``csrc/rm_train.cu``,
+``csrc/field_pe.cu``, ``csrc/nerf_field.cuh`` and ``csrc/gemm_tc.cuh``, the
+layer products of
 K1-K5: on the tensor cores in split fp32 for every backward and for the
 renders of K3, K5 and K1 (forwards that no backward reads), in fp32 on the
 CUDA cores for K2's forward and the forwards under autograd of K3, K5 and
-K1. They read the layer weights padded and as TF32 hi and lo planes
-(``split_tf32``), packed by one kernel launch once per parameter version
+K1; under bfloat16 K2-K4's products on the same split by mode, the fp32 route
+with its operands rounded and one bf16 pass on the tensor cores in place of
+the split one. They read the layer weights padded and as TF32 hi and lo
+planes (``split_tf32``), and under bfloat16 also as a bf16 plane, packed by
+one kernel launch once per parameter version and compute dtype
 (``k2_weights``).
 """
 
@@ -50,6 +59,7 @@ MAX_K = 256
 # the SGEMMs put 128-row tiles of the R*K samples on grid y (at most 65535)
 MAX_SAMPLES = 65535 * 128
 _ACTIV = {"softplus": 0, "relu": 1}
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def _activ(density_activ):
@@ -61,6 +71,25 @@ def _activ(density_activ):
             "not {!r}: set tpu.fused_pe and tpu.fused_kernel to false to take the "
             "plain chain".format(density_activ))
     return _ACTIV[density_activ]
+
+
+def resolve_compute_dtype(compute_dtype):
+    """``tpu.compute_dtype`` checked: "float32" (also for None) or
+    "bfloat16"; anything else raises ValueError."""
+    compute_dtype = compute_dtype or "float32"
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError("tpu.compute_dtype must be float32 or bfloat16, not {!r}".format(
+            compute_dtype))
+    return compute_dtype
+
+
+def refuse_bf16(compute_dtype, kernel):
+    """The per-sample field kernels (K5, K1) have no bf16 variant yet: raise
+    rather than run in fp32 under ``tpu.compute_dtype: bfloat16``."""
+    if resolve_compute_dtype(compute_dtype) != "float32":
+        raise NotImplementedError(
+            "tpu.compute_dtype: bfloat16 is ported for K2, K3 and K4 only; {} has no bf16 "
+            "variant yet: set tpu.compute_dtype: float32".format(kernel))
 
 
 def supports(mlp):
@@ -119,21 +148,31 @@ def unpack_grads(dws):
 # as they are and to its backward's tensor-core products (the input
 # gradients) as TF32 hi and lo planes. K2's planes buffer holds the three
 # rows of PLANE_FLOATS (weights, hi, lo), then Wr1 [128, 3] and b7p [257]
-# (csrc/rm_train.cu, pack_planes_kernel).
+# (csrc/rm_train.cu, pack_planes_kernel); under bfloat16 then zeros up to
+# BF16_BASE floats and the bf16 plane: the same weights, each [in, out
+# rounded up to 8] (Bf16Gemm::ld), as PLANE_HALVES bf16 values.
 N_SPLIT = 9
 PLANE_SHAPES = [(63, 256)] + [(256, 256)] * 3 + [(319, 256)] + [(256, 256)] * 2 + [
     (256, 257), (284, 128)]
 PLANES_TAIL = 128 * 3 + 257
 
 
-def _plane_offsets():
+def _plane_offsets(align):
     offsets = [0]
     for n_in, n_out in PLANE_SHAPES:
-        offsets.append(offsets[-1] + n_in * (-(-n_out // 4) * 4))
+        offsets.append(offsets[-1] + n_in * (-(-n_out // align) * align))
     return offsets
 
 
-*PLANE_OFFSETS, PLANE_FLOATS = _plane_offsets()
+*PLANE_OFFSETS, PLANE_FLOATS = _plane_offsets(4)
+*BF16_OFFSETS, PLANE_HALVES = _plane_offsets(8)
+BF16_BASE = -(-(3 * PLANE_FLOATS + PLANES_TAIL) // 4) * 4
+
+
+def planes_floats(compute_dtype="float32"):
+    """Floats in K2's planes buffer for ``compute_dtype``."""
+    return (BF16_BASE + PLANE_HALVES // 2 if compute_dtype == "bfloat16"
+            else 3 * PLANE_FLOATS + PLANES_TAIL)
 
 
 def split_tf32(w):
@@ -151,27 +190,36 @@ def _round_tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def k2_planes_plain(mlp):
+def k2_planes_plain(mlp, compute_dtype="float32"):
     """K2's planes buffer through PyTorch operations: the plain version of
     ``niw_rm_train_pack``."""
     weights = pack_weights(mlp)
     flat = torch.cat([F.pad(w, (0, -w.shape[1] % 4)).reshape(-1)
                       for w in weights[:N_SPLIT]])
-    return torch.cat((flat,) + split_tf32(flat) + (weights[9].reshape(-1), weights[17]))
+    planes = torch.cat((flat,) + split_tf32(flat) + (weights[9].reshape(-1), weights[17]))
+    if compute_dtype != "bfloat16":
+        return planes
+    halves = torch.cat([F.pad(w, (0, -w.shape[1] % 8)).reshape(-1)
+                        for w in weights[:N_SPLIT]]).to(torch.bfloat16)
+    return torch.cat([planes, planes.new_zeros(BF16_BASE - planes.numel()),
+                      halves.view(torch.float32)])
 
 
-def k2_planes(mlp):
-    """K2's planes buffer: one ``niw_rm_train_pack`` launch on CUDA, the
-    plain version on the CPU."""
+def k2_planes(mlp, compute_dtype="float32"):
+    """K2's planes buffer for ``compute_dtype``: one ``niw_rm_train_pack``
+    launch on CUDA, the plain version on the CPU."""
     params = [p.detach() for p in mlp.parameters()]
     if not params[0].is_cuda:
-        return k2_planes_plain(mlp)
+        return k2_planes_plain(mlp, compute_dtype)
     lib = build.load_library().lib
-    if lib.niw_rm_train_plane_offset(N_SPLIT) != PLANE_FLOATS:
+    if (lib.niw_rm_train_plane_offset(N_SPLIT) != PLANE_FLOATS
+            or lib.niw_rm_train_bf16_offset(N_SPLIT) != PLANE_HALVES
+            or lib.niw_rm_train_bf16_offset(-1) != BF16_BASE):
         raise RuntimeError("K2's plane layout differs between fused_pe.py and rm_train.cu")
-    planes = torch.empty(3 * PLANE_FLOATS + PLANES_TAIL, dtype=torch.float32,
+    planes = torch.empty(planes_floats(compute_dtype), dtype=torch.float32,
                          device=params[0].device)
     build.check(lib.niw_rm_train_pack(_ptrs(params), planes.data_ptr(),
+                                      int(compute_dtype == "bfloat16"),
                                       torch.cuda.current_stream(planes.device).cuda_stream),
                 "niw_rm_train_pack")
     return planes
@@ -182,12 +230,13 @@ class K2Weights:
     ``ptrs``, the 20 weight pointers of the fp32 products (W0..Wr0p into the
     weight row, Wr1 and b7p into the tail, the other biases the module's
     own), and ``split_ptrs``, the same with the hi row in the slots of
-    W0..Wr0p, for the split products;
+    W0..Wr0p, for the split products; under bfloat16 ``bf16_ptrs``, the
+    same with the bf16 plane in those slots (else None), and ``bf16`` 1;
     ``lo``, the lo row's offset from the hi row in floats; ``grad_shapes``,
     the shapes of the 20 gradients K2, K4, K5 and K1 write (unpack_grads'
     layout)."""
 
-    def __init__(self, mlp, planes):
+    def __init__(self, mlp, planes, compute_dtype="float32"):
         params = [p.detach() for p in mlp.parameters()]
         self.planes = planes
         self.lo = PLANE_FLOATS
@@ -199,56 +248,67 @@ class K2Weights:
             *[base + 4 * off for off in PLANE_OFFSETS], tail, *biases)
         self.split_ptrs = (ctypes.c_void_p * 20)(
             *[base + 4 * (PLANE_FLOATS + off) for off in PLANE_OFFSETS], tail, *biases)
+        self.bf16 = int(compute_dtype == "bfloat16")
+        self.bf16_ptrs = (ctypes.c_void_p * 20)(
+            *[base + 4 * BF16_BASE + 2 * off for off in BF16_OFFSETS], tail,
+            *biases) if self.bf16 else None
         self.grad_shapes = PLANE_SHAPES + [(128, 3)] + [(256,)] * 7 + [(257,), (128,), (3,)]
 
 
-_K2_WEIGHTS = weakref.WeakKeyDictionary()   # mlp -> (parameter versions, K2Weights)
+# mlp -> {compute dtype: (parameter versions, K2Weights)}
+_K2_WEIGHTS = weakref.WeakKeyDictionary()
 
 
-def k2_weights(mlp):
-    """The packed and split weights of K1-K5, made anew only when a
-    parameter of ``mlp`` changed (its storage or its version counter, which
-    an optimizer step, an in-place update or ``load_state_dict`` advances):
-    once per optimizer step in training, at most once per render or
-    refinement with frozen weights, not once per launch."""
+def k2_weights(mlp, compute_dtype="float32"):
+    """The packed and split weights of K1-K5 for ``compute_dtype``, made
+    anew only when a parameter of ``mlp`` changed (its storage or its
+    version counter, which an optimizer step, an in-place update or
+    ``load_state_dict`` advances): once per optimizer step in training, at
+    most once per render or refinement with frozen weights, not once per
+    launch. Each compute dtype keeps its own entry."""
     key = tuple((p.data_ptr(), p._version) for p in mlp.parameters())
-    hit = _K2_WEIGHTS.get(mlp)
+    entries = _K2_WEIGHTS.setdefault(mlp, {})
+    hit = entries.get(compute_dtype)
     if hit is None or hit[0] != key:
-        hit = (key, K2Weights(mlp, k2_planes(mlp)))
-        _K2_WEIGHTS[mlp] = hit
+        hit = (key, K2Weights(mlp, k2_planes(mlp, compute_dtype), compute_dtype))
+        entries[compute_dtype] = hit
         fused_render_rays_pe_train.packs += 1
     return hit[1]
 
 
 # ----------------------------------------------------------- plain versions
 
-def _render_plain(mlp, center, ray, depth, progress, barf_c2f, density_activ, noise):
-    """PE -> MLP -> composite on flat rays -> (out [R,8], prob [R,K])."""
+def _render_plain(mlp, center, ray, depth, progress, barf_c2f, density_activ, noise,
+                  compute_dtype="float32"):
+    """PE -> MLP -> composite on flat rays -> (out [R,8], prob [R,K]); the
+    layer products in ``compute_dtype`` (nerf_mlp's)."""
     depth4 = depth.detach()[..., None]
     rgb_s, dens = apply_nerf_samples(mlp, center, ray, depth4,
                                      progress=progress, barf_c2f=barf_c2f,
-                                     density_activ=density_activ, noise=noise)
+                                     density_activ=density_activ, noise=noise,
+                                     compute_dtype=resolve_compute_dtype(compute_dtype))
     rgb, d, op, prob = render.composite(ray, rgb_s, dens, depth4)
     return torch.cat([rgb, d, op, torch.zeros_like(rgb)], dim=-1), prob[..., 0]
 
 
 def render_rays_plain(mlp, center, ray, depth, progress=None, barf_c2f=None,
-                      density_activ="softplus"):
+                      density_activ="softplus", compute_dtype="float32"):
     """PE -> MLP -> composite. center/ray [R,3]; depth [R,K] -> [R,8]."""
     return _render_plain(mlp, center, ray, depth, progress, barf_c2f, density_activ,
-                         None)[0]
+                         None, compute_dtype)[0]
 
 
 def render_rays_backward_plain(mlp, center, ray, depth, g8, progress=None,
                                barf_c2f=None, density_activ="softplus",
-                               want_dw=True):
+                               want_dw=True, compute_dtype="float32"):
     """K4's plain version: the VJP of ``render_rays_plain`` at the cotangent
     g8 [R,8], by autograd. Returns (dcenter, dray, grads of
     ``mlp.parameters()``, or [] without ``want_dw``)."""
     c = center.detach().requires_grad_(True)
     r = ray.detach().requires_grad_(True)
     with torch.enable_grad():
-        out = render_rays_plain(mlp, c, r, depth, progress, barf_c2f, density_activ)
+        out = render_rays_plain(mlp, c, r, depth, progress, barf_c2f, density_activ,
+                                compute_dtype)
     params = list(mlp.parameters()) if want_dw else []
     grads = torch.autograd.grad(out, [c, r] + params, g8)
     return grads[0], grads[1], list(grads[2:])
@@ -262,15 +322,55 @@ def sq_sum_from_out(out, target8, bg=None):
     return torch.sum(target8[:, 3:4] * (rgb - target8[:, :3]) ** 2)
 
 
+def _train_plain(mlp, center, ray, depth, target8, progress, barf_c2f, bg, density_activ,
+                 noise, compute_dtype):
+    out, prob = _render_plain(mlp, center, ray, depth, progress, barf_c2f,
+                              density_activ, noise, compute_dtype)
+    return sq_sum_from_out(out, target8, bg), out, prob
+
+
+class _PlainTrain(torch.autograd.Function):
+    """sq_sum, out [R,8] and prob [R,K] of K2's plain version under
+    bfloat16, differentiated as K2 (and the JAX kernel) is: the gradients of
+    sq_sum itself, taken in the forward, then scaled by d(loss)/d(sq_sum).
+    Each cotangent thus reaches its bf16 rounding unscaled, as in the
+    kernels; rounding does not commute with a scale that is not a power of
+    two, so autograd through the loss would round other values (relative L2
+    ~1e-2 in the weight gradients)."""
+
+    @staticmethod
+    def forward(ctx, center, ray, args, *params):
+        leaves = [center.detach().requires_grad_(center.requires_grad),
+                  ray.detach().requires_grad_(ray.requires_grad)]
+        with torch.enable_grad():
+            sq, out, prob = _train_plain(args[0], *leaves, *args[1:])
+        wrt = leaves + list(params)
+        grads = iter(torch.autograd.grad(sq, [t for t in wrt if t.requires_grad])
+                     if any(t.requires_grad for t in wrt) else ())
+        ctx.grads = [next(grads) if t.requires_grad else None for t in wrt]
+        out, prob = out.detach(), prob.detach()
+        ctx.mark_non_differentiable(out, prob)
+        return sq.detach(), out, prob
+
+    @staticmethod
+    def backward(ctx, g_sq, g_out, g_prob):
+        scaled = [None if g is None else g * g_sq for g in ctx.grads]
+        return (scaled[0], scaled[1], None) + tuple(scaled[2:])
+
+
 def render_rays_train_plain(mlp, center, ray, depth, target8, progress=None,
                             barf_c2f=None, bg=None, density_activ="softplus",
-                            noise=None, want_prob=False):
+                            noise=None, want_prob=False, compute_dtype="float32"):
     """(sq_sum, out [R,8]) through the plain chain, and with ``want_prob``
-    also the compositing weights [R,K], detached; gradients by autograd.
+    also the compositing weights [R,K], detached; gradients by autograd
+    (under bfloat16 those of sq_sum, scaled afterwards: _PlainTrain).
     noise [R,K] on the density pre-activation, optional."""
-    out, prob = _render_plain(mlp, center, ray, depth, progress, barf_c2f,
-                              density_activ, noise)
-    res = (sq_sum_from_out(out, target8, bg), out)
+    args = (mlp, depth, target8, progress, barf_c2f, bg, density_activ, noise, compute_dtype)
+    if resolve_compute_dtype(compute_dtype) == "float32":
+        sq, out, prob = _train_plain(mlp, center, ray, *args[1:])
+    else:
+        sq, out, prob = _PlainTrain.apply(center, ray, args, *mlp.parameters())
+    res = (sq, out)
     return res + (prob.detach(),) if want_prob else res
 
 
@@ -306,36 +406,37 @@ def _grad_buffers(packed, device):
         packed.grad_shapes)]
 
 
-def _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep):
+def _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep, compute_dtype="float32"):
     """One K3 launch. Returns (out [R,8], workspace, K2Weights); with
     ``keep`` the workspace holds every layer's activations, for K4."""
     R, K = depth.shape
     _check_inputs(mlp, [center, ray, depth, w3, wv], K)
     lib = build.load_library().lib
-    packed = k2_weights(mlp)
+    packed = k2_weights(mlp, resolve_compute_dtype(compute_dtype))
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     ws = torch.empty(lib.niw_rm_fwd_workspace_floats(R * K, int(keep)),
                      dtype=torch.float32, device=depth.device)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_fwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(), R, K,
                          w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
-                         packed.lo, _activ(density_activ), int(keep), out.data_ptr(),
-                         ws.data_ptr(), stream)
+                         packed.lo, packed.bf16_ptrs, packed.bf16, _activ(density_activ),
+                         int(keep), out.data_ptr(), ws.data_ptr(), stream)
     build.check(err, "niw_rm_fwd")
     return out, ws, packed
 
 
-def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus"):
+def launch_rm_fwd(mlp, center, ray, depth, w3, wv, density_activ="softplus",
+                  compute_dtype="float32"):
     """K3 on CUDA tensors: center/ray [R,3], depth [R,K] -> out [R,8]."""
-    return _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, keep=False)[0]
+    return _rm_fwd(mlp, center, ray, depth, w3, wv, density_activ, False, compute_dtype)[0]
 
 
 def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, packed,
                   want_dw=True, density_activ="softplus"):
     """K4 on CUDA tensors: the cotangent g8 [R,8] of K3's output, with the
     activation ``cache`` and the weights ``packed`` (K2Weights) of the K3
-    launch that kept them, -> (dcenter, dray [R,3], grads of
-    ``mlp.parameters()`` or None without ``want_dw``)."""
+    launch that kept them, in that launch's compute dtype, -> (dcenter, dray
+    [R,3], grads of ``mlp.parameters()`` or None without ``want_dw``)."""
     R, K = depth.shape
     _check_inputs(mlp, [center, ray, depth, g8, w3, wv, cache, packed.planes], K)
     lib = build.load_library().lib
@@ -350,8 +451,9 @@ def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, packed,
     stream = torch.cuda.current_stream(depth.device).cuda_stream
     err = lib.niw_rm_bwd(center.data_ptr(), ray.data_ptr(), depth.data_ptr(),
                          g8.data_ptr(), R, K, w3.data_ptr(), wv.data_ptr(),
-                         packed.split_ptrs, packed.lo, _activ(density_activ),
-                         cache.data_ptr(), int(want_dw), dcenter.data_ptr(),
+                         packed.split_ptrs, packed.lo, packed.bf16_ptrs, packed.bf16,
+                         _activ(density_activ), cache.data_ptr(), int(want_dw),
+                         dcenter.data_ptr(),
                          dray.data_ptr(), _ptrs(dws) if want_dw else None, ws.data_ptr(),
                          stream)
     build.check(err, "niw_rm_bwd")
@@ -359,7 +461,8 @@ def launch_rm_bwd(mlp, center, ray, depth, g8, w3, wv, cache, packed,
 
 
 def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
-                    density_activ="softplus", noise=None, want_prob=False):
+                    density_activ="softplus", noise=None, want_prob=False,
+                    compute_dtype="float32"):
     """K2 on CUDA tensors. Returns (out [R,8], dcenter, dray [R,3], grads of
     ``mlp.parameters()``, prob [R,K] or None), the gradients being those of
     sq_sum. ``noise`` [R,K] is added to the density pre-activation."""
@@ -369,7 +472,7 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
     if noise is not None and noise.shape != (R, K):
         raise ValueError("noise must be [R,K] like depth: {}".format(tuple(noise.shape)))
     lib = build.load_library().lib
-    packed = k2_weights(mlp)
+    packed = k2_weights(mlp, resolve_compute_dtype(compute_dtype))
     dws = _grad_buffers(packed, depth.device)
     out = torch.empty((R, 8), dtype=torch.float32, device=depth.device)
     dcenter = torch.empty((R, 3), dtype=torch.float32, device=depth.device)
@@ -383,7 +486,7 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
                            target8.data_ptr(),
                            None if noise is None else noise.data_ptr(), R, K,
                            w3.data_ptr(), wv.data_ptr(), packed.ptrs, packed.split_ptrs,
-                           packed.lo,
+                           packed.lo, packed.bf16_ptrs, packed.bf16,
                            _activ(density_activ), int(bg is not None),
                            float(bg or 0.0), out.data_ptr(), dcenter.data_ptr(),
                            dray.data_ptr(), _ptrs(dws),
@@ -393,20 +496,27 @@ def launch_rm_train(mlp, center, ray, depth, target8, w3, wv, bg=None,
     return out, dcenter, dray, unpack_grads(dws), prob
 
 
+def _count(wrapper, name, compute_dtype):
+    """One more launch in ``wrapper``'s count ``name``, or in its bf16 twin
+    (``bf16_`` + name) under bfloat16."""
+    name = name if compute_dtype == "float32" else "bf16_" + name
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 class _RmTrain(torch.autograd.Function):
     """sq_sum (differentiable), out [R,8] and prob [R,K] (neither; prob is
     empty without ``want_prob``) from one K2 launch; the backward scales the
     kernel's saved gradients by d(loss)/d(sq_sum)."""
 
-    N_LEADING = 11   # arguments before *params
+    N_LEADING = 12   # arguments before *params
 
     @staticmethod
     def forward(ctx, center, ray, depth, target8, w3, wv, mlp, bg,
-                density_activ, noise, want_prob, *params):
+                density_activ, noise, want_prob, compute_dtype, *params):
         out, dcenter, dray, grads, prob = launch_rm_train(
             mlp, center.detach().contiguous(), ray.detach().contiguous(),
-            depth, target8, w3, wv, bg, density_activ, noise, want_prob)
-        fused_render_rays_pe_train.launches += 1
+            depth, target8, w3, wv, bg, density_activ, noise, want_prob, compute_dtype)
+        _count(fused_render_rays_pe_train, "launches", compute_dtype)
         ctx.save_for_backward(dcenter, dray, *grads)
         if prob is None:
             prob = out.new_empty(0)
@@ -425,16 +535,17 @@ class _RmFwd(torch.autograd.Function):
     is one K4 launch on the same K2Weights, without the weight-gradient part
     when no weight needs a gradient."""
 
-    N_LEADING = 7   # arguments before *params
+    N_LEADING = 8   # arguments before *params
 
     @staticmethod
-    def forward(ctx, center, ray, depth, w3, wv, mlp, density_activ, *params):
+    def forward(ctx, center, ray, depth, w3, wv, mlp, density_activ, compute_dtype, *params):
         c, r = center.detach().contiguous(), ray.detach().contiguous()
-        out, cache, packed = _rm_fwd(mlp, c, r, depth, w3, wv, density_activ,
-                                     keep=True)
-        fused_render_rays_pe.launches += 1
+        out, cache, packed = _rm_fwd(mlp, c, r, depth, w3, wv, density_activ, True,
+                                     compute_dtype)
+        _count(fused_render_rays_pe, "launches", compute_dtype)
         ctx.save_for_backward(c, r, depth, w3, wv, cache)
         ctx.mlp, ctx.packed, ctx.density_activ = mlp, packed, density_activ
+        ctx.compute_dtype = compute_dtype
         return out
 
     @staticmethod
@@ -445,7 +556,7 @@ class _RmFwd(torch.autograd.Function):
         dcenter, dray, grads = launch_rm_bwd(
             ctx.mlp, c, r, depth, g_out.contiguous(), w3, wv, cache, ctx.packed,
             want_dw, ctx.density_activ)
-        fused_render_rays_pe.backward_launches += 1
+        _count(fused_render_rays_pe, "backward_launches", ctx.compute_dtype)
         n_params = len(ctx.needs_input_grad) - _RmFwd.N_LEADING
         return ((dcenter, dray) + (None,) * (_RmFwd.N_LEADING - 2)
                 + (tuple(grads) if want_dw else (None,) * n_params))
@@ -464,41 +575,45 @@ def _split(out, B, R_img, setbg_opaque, bgcolor):
 
 def fused_render_rays_pe(mlp, center, ray, depth, *, progress=None,
                          barf_c2f=None, setbg_opaque=False, bgcolor=None,
-                         density_activ="softplus"):
+                         density_activ="softplus", compute_dtype="float32"):
     """Composited forward render (K3). center/ray [B,R,3]; depth [B,R,K,1]
     sorted ascending. Returns (rgb [B,R,3], depth [B,R,1], opacity [B,R,1]),
     differentiable in center, ray and the weights: on CUDA, where grad is
     enabled and one of them requires it, K3 keeps its activations and the
     backward runs K4. The background colour is composited here, outside the
     kernels, so autograd carries its term into K4's opacity cotangent."""
+    compute_dtype = resolve_compute_dtype(compute_dtype)
     B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
     c = center.reshape(B * R_img, 3)
     r = ray.reshape(B * R_img, 3)
     d = depth.detach().reshape(B * R_img, K)
     if not c.is_cuda:
-        out = render_rays_plain(mlp, c, r, d, progress, barf_c2f, density_activ)
+        out = render_rays_plain(mlp, c, r, d, progress, barf_c2f, density_activ,
+                                compute_dtype)
         return _split(out, B, R_img, setbg_opaque, bgcolor)
     w3, wv = band_weights(progress, barf_c2f, c.device)
     if torch.is_grad_enabled() and (c.requires_grad or r.requires_grad or any(
             p.requires_grad for p in mlp.parameters())):
-        out = _RmFwd.apply(c, r, d.contiguous(), w3, wv, mlp, density_activ,
+        out = _RmFwd.apply(c, r, d.contiguous(), w3, wv, mlp, density_activ, compute_dtype,
                            *mlp.parameters())
     else:
         out = launch_rm_fwd(mlp, c.contiguous(), r.contiguous(), d.contiguous(),
-                            w3, wv, density_activ)
-        fused_render_rays_pe.launches += 1
+                            w3, wv, density_activ, compute_dtype)
+        _count(fused_render_rays_pe, "launches", compute_dtype)
     return _split(out, B, R_img, setbg_opaque, bgcolor)
 
 
 fused_render_rays_pe.launches = 0             # K3 launches
 fused_render_rays_pe.backward_launches = 0    # K4 launches
+fused_render_rays_pe.bf16_launches = 0            # K3 launches under bfloat16
+fused_render_rays_pe.bf16_backward_launches = 0   # K4 launches under bfloat16
 
 
 def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
                                progress=None, barf_c2f=None,
                                setbg_opaque=False, bgcolor=None,
                                density_activ="softplus", noise=None,
-                               want_prob=False):
+                               want_prob=False, compute_dtype="float32"):
     """Training render + MSE (K2). center/ray [B,R,3]; depth [B,R,K,1]
     sorted ascending; target [B,R,3]; noise [B,R,K]: the density-noise
     draw, already scaled, optional. Returns (out_dict, sq_sum, n_terms):
@@ -506,6 +621,7 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
     is the photometric MSE, differentiable in center, ray and the weights.
     With ``want_prob`` out_dict also holds ``prob`` [B,R,K], the per-sample
     compositing weights, detached: what a fine-sampling step resamples from."""
+    compute_dtype = resolve_compute_dtype(compute_dtype)
     B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
     n_rays = B * R_img
     c = center.reshape(n_rays, 3)
@@ -520,12 +636,12 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
     if not c.is_cuda:
         sq, out, *prob = render_rays_train_plain(
             mlp, c, r, d, target8, progress, barf_c2f, bg, density_activ, noise,
-            want_prob)
+            want_prob, compute_dtype)
     else:
         w3, wv = band_weights(progress, barf_c2f, c.device)
         sq, out, *prob = _RmTrain.apply(
             c, r, d, target8.contiguous(), w3, wv, mlp, bg, density_activ, noise,
-            want_prob, *mlp.parameters())
+            want_prob, compute_dtype, *mlp.parameters())
     rgb, depth_out, opacity = _split(out.detach(), B, R_img, setbg_opaque,
                                      bgcolor)
     out_dict = dict(rgb=rgb, depth=depth_out, opacity=opacity)
@@ -535,6 +651,7 @@ def fused_render_rays_pe_train(mlp, center, ray, depth, target, *,
 
 
 fused_render_rays_pe_train.launches = 0
+fused_render_rays_pe_train.bf16_launches = 0   # K2 launches under bfloat16
 fused_render_rays_pe_train.packs = 0   # K2Weights made (once per parameter version)
 
 
@@ -677,13 +794,15 @@ def run_field_kernel(wrapper, mlp, a, b, fwd, bwd):
 
 def fused_apply_nerf_samples_pe(mlp, center, ray, depth, *, progress=None,
                                 barf_c2f=None, density_activ="softplus",
-                                noise=None):
+                                noise=None, compute_dtype="float32"):
     """The field along rays with the PE inside (K5). center/ray [B,R,3];
     depth [B,R,K,1]; noise [B,R,K]: the density-noise draw, already scaled,
     optional. Returns (rgb [B,R,K,3], density [B,R,K]), differentiable in
     center, ray and the weights (not in depth): on CUDA, where grad is
     enabled and one of them requires it, the forward keeps its activations
-    and the backward is a second kernel launch."""
+    and the backward is a second kernel launch. ``compute_dtype``
+    "bfloat16" raises NotImplementedError (no bf16 K5 yet)."""
+    refuse_bf16(compute_dtype, "K5 (the per-sample field kernel)")
     B, R_img, K = depth.shape[0], depth.shape[1], depth.shape[2]
     c = center.reshape(B * R_img, 3)
     r = ray.reshape(B * R_img, 3)

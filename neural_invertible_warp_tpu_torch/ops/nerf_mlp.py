@@ -6,6 +6,14 @@ width+1 with channel 0 the density) and ``mlp_rgb.i`` (view-dependent head,
 sigmoid). Init copies the JAX package's: TensorFlow-style Xavier-uniform
 with gain sqrt(2), gain 1 on the density row and the last rgb layer, zero
 biases (``tf_init``), or the torch ``Linear`` default bound 1/sqrt(in).
+
+``compute_dtype="bfloat16"`` (off by default: the plain chain does not
+round) computes each layer as the field kernels do under
+``tpu.compute_dtype: bfloat16``: both operands of every layer product, in
+the forward and in both backward products, rounded to bf16 (to nearest,
+ties to even), products summed in the operands' own dtype; biases,
+activations and the positional encoding unrounded. It is the plain version
+of K2-K4 in that mode (ops/cuda/fused_pe.py).
 """
 
 from __future__ import annotations
@@ -37,6 +45,50 @@ def density_activation(name, x):
     """``arch.density_activ`` applied to the density pre-activation (the
     JAX package's ``_DENSITY_ACTIV``); an unknown name raises ``KeyError``."""
     return _DENSITY_ACTIV[name](x)
+
+
+def round_bf16(x):
+    """x rounded to bf16 values (to nearest, ties to even), in x's dtype.
+    A float64 x is rounded once, from its own value (a cast through fp32
+    would round twice)."""
+    if x.dtype != torch.float64:
+        return x.to(torch.bfloat16).to(x.dtype)
+    bits = x.view(torch.int64)   # keep 8 significant bits of 53
+    odd = (bits >> 45) & 1
+    return ((bits + (1 << 44) - 1 + odd) & ~((1 << 45) - 1)).view(torch.float64)
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """F.linear with both operands rounded to bf16, and in the backward the
+    cotangent rounded too before each product (the bias gradient is the
+    unrounded cotangent's sum)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xb, wb = round_bf16(x), round_bf16(weight)
+        ctx.save_for_backward(xb, wb)
+        return F.linear(xb, wb, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = round_bf16(g)
+        dx = gb @ wb if ctx.needs_input_grad[0] else None
+        dw = (gb.reshape(-1, gb.shape[-1]).t() @ xb.reshape(-1, xb.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        db = g.reshape(-1, g.shape[-1]).sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def _linear(compute_dtype):
+    """The layer product of ``compute_dtype``: None or "float32" F.linear,
+    "bfloat16" _Bf16Linear."""
+    if compute_dtype in (None, "float32"):
+        return F.linear
+    if compute_dtype == "bfloat16":
+        return _Bf16Linear.apply
+    raise ValueError("tpu.compute_dtype must be float32 or bfloat16, not {!r}".format(
+        compute_dtype))
 
 
 def _xavier_(weight, gain, generator):
@@ -107,16 +159,18 @@ class NerfMLP(nn.Module):
         return points_enc, torch.cat([ray_unit, ray_enc], dim=-1)
 
     def forward_encoded(self, points_enc, view_enc=None, density_activ="softplus",
-                        noise=None):
+                        noise=None, compute_dtype=None):
         """The layers on encoded inputs -> (rgb [...,3], density [...]).
-        ``noise`` [...] is added to the density before its activation."""
+        ``noise`` [...] is added to the density before its activation;
+        ``compute_dtype`` as in the module docstring."""
+        linear = _linear(compute_dtype)
         feat = points_enc
         density = None
         n_feat = len(self.mlp_feat)
         for li, lin in enumerate(self.mlp_feat):
             if li in self.skip:
                 feat = torch.cat([feat, points_enc], dim=-1)
-            feat = F.linear(feat, lin.weight, lin.bias)
+            feat = linear(feat, lin.weight, lin.bias)
             if li == n_feat - 1:
                 density = feat[..., 0]
                 if noise is not None:
@@ -128,18 +182,19 @@ class NerfMLP(nn.Module):
             feat = torch.cat([feat, view_enc], dim=-1)
         n_rgb = len(self.mlp_rgb)
         for li, lin in enumerate(self.mlp_rgb):
-            feat = F.linear(feat, lin.weight, lin.bias)
+            feat = linear(feat, lin.weight, lin.bias)
             if li != n_rgb - 1:
                 feat = torch.relu(feat)
         return torch.sigmoid(feat), density
 
     def forward(self, points_3D, ray_unit=None, progress=None, barf_c2f=None,
-                density_activ="softplus", noise=None):
+                density_activ="softplus", noise=None, compute_dtype=None):
         """points_3D, ray_unit: [...,3] -> (rgb [...,3], density [...]).
         ``noise`` [...]: the density-noise regularizer's draw, already scaled
         by ``nerf.density_noise_reg``, added before the density activation."""
         points_enc, view_enc = self.encode(points_3D, ray_unit, progress, barf_c2f)
-        return self.forward_encoded(points_enc, view_enc, density_activ, noise)
+        return self.forward_encoded(points_enc, view_enc, density_activ, noise,
+                                    compute_dtype)
 
 
 def sample_points(center, ray, depth_samples):
@@ -153,6 +208,7 @@ def sample_points(center, ray, depth_samples):
 
 def apply_nerf_samples(mlp, center, ray, depth_samples, **kwargs):
     """Field along rays. center/ray [B,R,3]; depth [B,R,K,1] ->
-    rgb [B,R,K,3], density [B,R,K]. ``noise`` [B,R,K] optional."""
+    rgb [B,R,K,3], density [B,R,K]. ``noise`` [B,R,K] and ``compute_dtype``
+    (NerfMLP's) optional."""
     points, ray_unit = sample_points(center, ray, depth_samples)
     return mlp(points, ray_unit, **kwargs)

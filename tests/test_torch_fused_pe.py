@@ -349,14 +349,16 @@ class _FakeLibrary:
     def niw_rm_bwd_workspace_floats(self, n, r):
         return 4
 
-    def niw_rm_fwd(self, center, ray, depth, R, K, w3, wv, W, W_split, w_lo, activ, keep,
-                   out, ws, stream):
+    def niw_rm_fwd(self, center, ray, depth, R, K, w3, wv, W, W_split, w_lo, W_bf16, bf16,
+                   activ, keep, out, ws, stream):
+        assert W_bf16 is None and bf16 == 0   # float32
         self.calls.append(("fwd", W, W_split, w_lo, keep))
         ctypes.memset(out, 0, R * 8 * 4)
         return 0
 
-    def niw_rm_bwd(self, center, ray, depth, g8, R, K, w3, wv, W_split, w_lo, activ, cache,
-                   want_dw, dcenter, dray, dW, ws, stream):
+    def niw_rm_bwd(self, center, ray, depth, g8, R, K, w3, wv, W_split, w_lo, W_bf16, bf16,
+                   activ, cache, want_dw, dcenter, dray, dW, ws, stream):
+        assert W_bf16 is None and bf16 == 0
         self.calls.append(("bwd", None, W_split, w_lo, want_dw))
         ctypes.memset(dcenter, 0, R * 3 * 4)
         ctypes.memset(dray, 0, R * 3 * 4)
@@ -391,7 +393,8 @@ def test_k3_k4_take_the_k2_weights_cache_entry(monkeypatch):
         p.requires_grad_(False)
     for _ in range(2):   # refinement iterations: K3 kept, K4 frozen
         c_t = c.clone().requires_grad_(True)
-        fp._RmFwd.apply(c_t, r, d, w3, wv, mlp, "softplus", *mlp.parameters()).sum().backward()
+        fp._RmFwd.apply(c_t, r, d, w3, wv, mlp, "softplus", "float32",
+                        *mlp.parameters()).sum().backward()
         assert torch.equal(c_t.grad, torch.zeros(R, 3))
     assert fp.fused_render_rays_pe_train.packs == packs + 1
     assert [call[0] for call in lib.calls] == ["fwd"] * 3 + ["fwd", "bwd"] * 2
@@ -402,7 +405,8 @@ def test_k3_k4_take_the_k2_weights_cache_entry(monkeypatch):
     for p in mlp.parameters():
         p.requires_grad_(True)
     opt = torch.optim.SGD(mlp.parameters(), lr=1e-3)
-    fp._RmFwd.apply(c, r, d, w3, wv, mlp, "softplus", *mlp.parameters()).sum().backward()
+    fp._RmFwd.apply(c, r, d, w3, wv, mlp, "softplus", "float32",
+                    *mlp.parameters()).sum().backward()
     assert lib.calls[-1][4] == 1
     for p, w in zip(mlp.parameters(), fp.unpack_grads(lib.packed)):
         assert torch.equal(p.grad, w)
